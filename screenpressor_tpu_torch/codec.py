@@ -1,0 +1,357 @@
+"""Per-stream codec session — PyTorch port of `screenpressor_tpu/jx/codec.py`.
+
+The same state machine as the JAX session (flat shortcut, keyframe policy,
+table renew on I / flat / raw frames, loss 0..5, raw escape, prev buffer,
+deferred validity checks), with the heavy passes on the session's device.
+`encode_batch` runs a batch phase by phase so that it pays a fixed number
+of device-to-host copies per batch: the analysis counts (A), the data-block
+record counts (B), the section sizes (C) and one gather of every payload
+byte of the batch (D); the host then assembles the containers (E).
+`decode_batch` copies the stream-consistency flags of a batch back once.
+
+The device is explicit: every tensor of a session lives on `device`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from screenpressor_tpu import bitstream as bs
+from screenpressor_tpu.config import ALG_FLAT, ALG_I, ALG_P, ALG_RAW, CodecConfig
+
+from screenpressor_tpu_torch.blocks import analyze_compact, mv_candidates
+from screenpressor_tpu_torch.iframe import (
+    decode_i_device,
+    encode_i_raw,
+    i_geometry,
+    i_phase,
+    parse_i_header,
+)
+from screenpressor_tpu_torch.pframe import (
+    classify_assemble,
+    decode_p_device,
+    encode_p_sections,
+    p_header,
+    parse_p_header,
+    payloads_to_device,
+    raise_p_error,
+)
+from screenpressor_tpu_torch.tables import renew_tables_cached
+
+FTYPE_I = 0
+FTYPE_P = 1
+
+
+def apply_loss(frame: torch.Tensor, loss: int) -> torch.Tensor:
+    """Bit-truncation loss with half-step correction (spec.codec.apply_loss)."""
+    if loss <= 0:
+        return frame
+    mask = 0xFF & ~((1 << loss) - 1)
+    corr = (1 << loss) >> 1
+    return (frame & mask) | corr
+
+
+def _pull(tensors):
+    """One device-to-host copy of a list of small int tensors -> list of
+    numpy arrays."""
+    if not tensors:
+        return []
+    flat = torch.cat([t.reshape(-1).to(torch.int64) for t in tensors]).cpu().numpy()
+    out, pos = [], 0
+    for t in tensors:
+        out.append(flat[pos: pos + t.numel()])
+        pos += t.numel()
+    return out
+
+
+def gather_segments(parts, segs):
+    """One torch.cat + index + device-to-host copy: parts are flat uint8
+    tensors, segs (part, offset, length) byte ranges. Returns the
+    concatenated bytes as numpy."""
+    if not segs:
+        return np.zeros(0, np.uint8)
+    bases = np.cumsum([0] + [p.numel() for p in parts])
+    src = np.asarray([bases[p] + o for p, o, _ in segs], np.int64)
+    lens = np.asarray([ln for _, _, ln in segs], np.int64)
+    dst = np.cumsum(lens) - lens
+    idx = np.repeat(src - dst, lens) + np.arange(int(lens.sum()), dtype=np.int64)
+    flat = torch.cat(parts)
+    return flat[torch.as_tensor(idx, device=flat.device)].cpu().numpy()
+
+
+class TorchEncoder:
+    def __init__(self, cfg: CodecConfig, device):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.tables = renew_tables_cached(self.device)
+        self.prev = None  # [H, W, 3] uint8 on device (lossy domain)
+        self.fn = 0
+        self.last_was_flat = False
+        self.last_flat_color: tuple | None = None
+        self.cands = torch.tensor(mv_candidates(cfg), dtype=torch.int32,
+                                  device=self.device).reshape(-1, 2)
+
+    def encode(self, frame, force_key: bool = False):
+        return self.encode_batch([frame], force_key=force_key)[0]
+
+    def _to_device(self, frame) -> torch.Tensor:
+        if isinstance(frame, torch.Tensor):
+            return frame.to(self.device, torch.uint8)
+        return torch.as_tensor(np.ascontiguousarray(frame, np.uint8),
+                               device=self.device)
+
+    def encode_batch(self, frames, force_key: bool = False):
+        """Encode a list of frames -> list of (payload bytes, ftype),
+        byte-identical to encoding them one by one."""
+        cfg = self.cfg
+        h, w = cfg.height, cfg.width
+        raw_size = 1 + w * h * 3
+        n = len(frames)
+        if n == 0:
+            return []
+        devs = [apply_loss(self._to_device(f), cfg.loss) for f in frames]
+        prev_chain = [self.prev] + devs[:-1]
+
+        # ---- phase A: analysis of every frame, one pull of the counts ----
+        plans, counts = [], []
+        for i in range(n):
+            fn = self.fn + i
+            keyframe = (
+                (force_key and i == 0)
+                or prev_chain[i] is None
+                or fn == 0
+                or (cfg.kf_interval > 0 and fn % cfg.kf_interval == 0)
+            )
+            if keyframe:
+                records, lits, c = i_phase(devs[i])
+                plans.append(("I", (records, lits)))
+                counts.append(c)
+            else:
+                arrs, c, flat = analyze_compact(devs[i], prev_chain[i],
+                                                self.cands, cfg)
+                plans.append(("P", arrs))
+                counts.append(torch.cat([c, flat]))
+        counts_host = _pull(counts)
+
+        def flat_of(kind, ch):
+            if kind == "I":
+                return bool(ch[2]), (int(ch[3]), int(ch[4]), int(ch[5]))
+            return bool(ch[7]), (int(ch[8]), int(ch[9]), int(ch[10]))
+
+        # ---- phase B: classify the data blocks of changed P frames ----
+        phase_b: list = [None] * n
+        for i, (kind, arrs) in enumerate(plans):
+            ch = counts_host[i]
+            if kind == "P" and ch[0] and not flat_of(kind, ch)[0] and ch[6]:
+                phase_b[i] = classify_assemble(devs[i], prev_chain[i],
+                                               arrs["data_rects"], int(ch[6]))
+        b_idx = [i for i in range(n) if phase_b[i] is not None]
+        pl_host = dict(zip(b_idx, _pull([phase_b[i][2] for i in b_idx])))
+
+        # ---- phase C: section encode, tables chained in frame order ----
+        tables = self.tables
+        last_flat, last_color = self.last_was_flat, self.last_flat_color
+        results: list = [None] * n
+        handles: list = [None] * n
+        small = []
+        for i, (kind, payload) in enumerate(plans):
+            ch = counts_host[i]
+            flat, color = flat_of(kind, ch)
+            if flat:
+                if not (last_flat and color == last_color):
+                    tables = renew_tables_cached(self.device)
+                    last_color = color
+                last_flat = True
+                results[i] = (bytes([bs.header_byte(ALG_FLAT), *color]), FTYPE_I)
+                continue
+            last_flat = False
+            if kind == "I":
+                n_rec, n_lit = int(ch[0]), int(ch[1])
+                records, lits = payload
+                out = encode_i_raw(records, n_rec, lits, n_lit,
+                                   renew_tables_cached(self.device), cfg, raw_size)
+                tables = out[7]
+                k_rec, _, k_col, _ = i_geometry(n_rec, n_lit, cfg)
+                handles[i] = ("I", (n_rec, n_lit),
+                              [(out[0], k_rec), (out[3], k_col)])
+                small.append([out[1], out[2], out[4], out[5], out[6]])
+            elif not ch[0]:
+                results[i] = (bytes([bs.header_byte(ALG_P), 0]), FTYPE_P)
+            else:
+                handle, tables = encode_p_sections(
+                    payload, ch, phase_b[i], pl_host.get(i), tables, cfg)
+                kts, _nums, _hdr, bufs, starts, lens_l, stats = handle
+                handles[i] = ("P", handle,
+                              [(buf, k) for buf, (_, k, _) in zip(bufs, kts)])
+                pieces = []
+                for start, lens in zip(starts, lens_l):
+                    pieces.extend([start, lens])
+                small.append(pieces + [stats])
+        flat_small = _pull([t for pieces in small for t in pieces])
+
+        # ---- phase D: one gather of every payload byte of the batch ----
+        parts, segs, layouts = [], [], [None] * n
+        cursor = 0
+        for i, hnd in enumerate(handles):
+            if hnd is None:
+                continue
+            sections = hnd[2]
+            got = flat_small[cursor: cursor + 2 * len(sections) + 1]
+            cursor += 2 * len(sections) + 1
+            total, is_raw = int(got[-1][0]), bool(got[-1][1])
+            sizes_l = []
+            if is_raw:
+                parts.append(devs[i].reshape(-1))
+                segs.append((len(parts) - 1, 0, h * w * 3))
+            for (buf, k), start, lens in zip(sections, got[0::2], got[1::2]):
+                cap = buf.shape[1]
+                sizes = np.where(lens > 0, cap - start, 0).astype(np.int64)
+                sizes_l.append(sizes)
+                if is_raw:
+                    continue
+                parts.append(buf.reshape(-1))
+                segs.extend((len(parts) - 1, lane * cap + int(start[lane]),
+                             int(sizes[lane])) for lane in range(k) if sizes[lane])
+            layouts[i] = (total, is_raw, sizes_l)
+        tight = gather_segments(parts, segs)
+
+        # ---- phase E: container assembly on the host ----
+        pos = 0
+        for i, lay in enumerate(layouts):
+            if lay is None:
+                continue
+            total, is_raw, sizes_l = lay
+            if is_raw:
+                data = bytes([bs.header_byte(ALG_RAW)]) + tight[pos: pos + h * w * 3].tobytes()
+                pos += h * w * 3
+                results[i] = (data, FTYPE_I)
+                continue
+            chunks = []
+            for sizes in sizes_l:
+                width = bs.size_width(int(sizes.max(initial=0)))
+                end = pos + int(sizes.sum())
+                chunks.append(bytes([bs.section_status_byte(len(sizes), width)])
+                              + sizes.astype(f"<u{width}").tobytes()
+                              + tight[pos:end].tobytes())
+                pos = end
+            if handles[i][0] == "I":
+                n_rec, n_lit = handles[i][1]
+                head = bytes([bs.header_byte(ALG_I)]) + bs.pack_varint(n_rec, n_lit)
+                ftype = FTYPE_I
+            else:
+                head = p_header(handles[i][1])
+                ftype = FTYPE_P
+            data = head + b"".join(chunks)
+            if len(data) != total:
+                raise RuntimeError(f"frame {i}: container {len(data)} B, "
+                                   f"device size rule {total} B")
+            results[i] = (data, ftype)
+
+        # ---- commit session state ----
+        self.tables = tables
+        self.prev = devs[-1]
+        self.fn += n
+        self.last_was_flat = last_flat
+        self.last_flat_color = last_color
+        return results
+
+
+class TorchDecoder:
+    def __init__(self, cfg: CodecConfig, device):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.tables = renew_tables_cached(self.device)
+        self.prev = None  # [H, W, 3] uint8 on device
+        self.last_was_flat = False
+        self.last_flat_color: tuple | None = None
+
+    def decode(self, data: bytes) -> np.ndarray:
+        return self.decode_batch([data])[0]
+
+    def decode_batch(self, datas, device_out: bool = False):
+        """Decode a list of frame payloads with one deferred validity copy.
+
+        Stream-consistency violations raise CorruptStreamError after the
+        batch's device work is queued; the session state then does not
+        advance."""
+        cfg = self.cfg
+        h, w = cfg.height, cfg.width
+        dev = self.device
+        outs: list = [None] * len(datas)
+        checks = []
+        tables = self.tables
+        prev = self.prev
+        last_flat, last_color = self.last_was_flat, self.last_flat_color
+        for i, data in enumerate(datas):
+            if not data:
+                raise bs.CorruptStreamError("empty frame")
+            alg = bs.parse_header_byte(data[0])
+            if alg == ALG_FLAT:
+                if len(data) < 4:
+                    raise bs.CorruptStreamError("truncated flat frame")
+                color = (data[1], data[2], data[3])
+                frame = torch.tensor(color, dtype=torch.uint8,
+                                     device=dev).expand(h, w, 3).contiguous()
+                if not (last_flat and color == last_color):
+                    prev = frame
+                    tables = renew_tables_cached(dev)
+                    last_color = color
+                last_flat = True
+                outs[i] = frame
+                continue
+            last_flat = False
+            if alg == ALG_I:
+                pay_rec, pay_col, n_rec, n_lit = parse_i_header(data, 1, cfg)
+                frame, total, tables = decode_i_device(
+                    torch.as_tensor(pay_rec, device=dev),
+                    torch.as_tensor(pay_col, device=dev), n_rec, n_lit,
+                    renew_tables_cached(dev), cfg)
+                checks.append((i, (total != w * h).to(torch.int32)))
+                prev = frame
+                outs[i] = frame
+                continue
+            if alg == ALG_RAW:
+                npix = h * w * 3
+                if len(data) < 1 + npix:
+                    raise bs.CorruptStreamError("truncated raw frame")
+                arr = np.frombuffer(data, np.uint8, npix, 1).reshape(h, w, 3)
+                frame = torch.as_tensor(arr.copy(), device=dev)
+                tables = renew_tables_cached(dev)
+                prev = frame
+                outs[i] = frame
+                continue
+            if alg != ALG_P:
+                raise bs.CorruptStreamError(f"unknown frame algorithm {alg}")
+            if prev is None:
+                raise bs.CorruptStreamError("P-frame before any I-frame")
+            parsed = parse_p_header(data, 1, cfg)
+            if parsed is None:
+                outs[i] = prev
+                continue
+            payloads, ns, kts, (xx1, xx2, n_mv, n_data) = parsed
+            frame, err, tables = decode_p_device(
+                payloads_to_device(payloads, dev), ns, kts, xx1, xx2, n_data,
+                n_mv, prev, tables, cfg)
+            checks.append((i, err))
+            prev = frame
+            outs[i] = frame
+
+        if checks:
+            errs = torch.stack([e for _, e in checks]).cpu().numpy()
+            for (i, _), err in zip(checks, errs):
+                if int(err):
+                    if bs.parse_header_byte(datas[i][0]) == ALG_I:
+                        raise bs.CorruptStreamError(
+                            f"frame {i}: records do not tile frame")
+                    try:
+                        raise_p_error(int(err))
+                    except bs.CorruptStreamError as e:
+                        raise bs.CorruptStreamError(f"frame {i}: {e}") from None
+        self.tables = tables
+        self.prev = prev
+        self.last_was_flat = last_flat
+        self.last_flat_color = last_color
+        if device_out:
+            return outs
+        return [o.cpu().numpy() for o in outs]

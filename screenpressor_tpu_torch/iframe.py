@@ -1,0 +1,116 @@
+"""I-frame encode/decode — PyTorch port of `screenpressor_tpu/jx/iframe.py`.
+
+Classification, lane dealing, the two section codes (rec, col) and the
+reconstruction run on the device; the host reads the record counts once
+to pick lane counts and assembles the container.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from screenpressor_tpu import bitstream as bs
+from screenpressor_tpu.config import CodecConfig
+
+from screenpressor_tpu_torch import coder as tc
+from screenpressor_tpu_torch.classify import classify_i
+from screenpressor_tpu_torch.recon import reconstruct_i
+from screenpressor_tpu_torch.tables import renew_tables_cached, select_tables
+
+I32 = torch.int32
+
+
+def i_phase(frame: torch.Tensor):
+    """Keyframe analysis: classification + flat check. Returns (records,
+    lits, counts [6] = n_rec, n_lit, is_flat, r, g, b) on the device."""
+    records, n_records, lits, n_literals = classify_i(frame)
+    c0 = frame.reshape(-1, 3)[0]
+    is_flat = (frame == c0).all()
+    counts = torch.cat([torch.stack([n_records, n_literals, is_flat.to(I32)]),
+                        c0.to(I32)])
+    return records, lits, counts
+
+
+def i_geometry(n_rec: int, n_lit: int, cfg: CodecConfig):
+    """(k_rec, t_rec, k_col, t_col) for a keyframe's two sections."""
+    k_rec, k_col = cfg.lanes(n_rec), cfg.lanes(n_lit)
+    return k_rec, tc.steps_for(n_rec, k_rec), k_col, tc.steps_for(n_lit, k_col)
+
+
+def varint_len(v: int) -> int:
+    """Encoded LEB128 length (matches bs.pack_varint)."""
+    return len(bs.pack_varint(v))
+
+
+def section_bytes(starts: torch.Tensor, lens: torch.Tensor, cap: int,
+                  k: int) -> torch.Tensor:
+    """Exact container bytes of one lane section (status byte +
+    minimal-width size table + payloads), matching bs.pack_section."""
+    sizes = torch.where(lens > 0, cap - starts, 0)
+    m = sizes.max()
+    w = torch.where(m < 1 << 8, 1, torch.where(m < 1 << 16, 2, 4))
+    return (1 + k * w + sizes.sum()).to(I32)
+
+
+def encode_i_from_records(records, n_rec: int, lits, n_lit: int, tables: dict,
+                          cfg: CodecConfig):
+    """Section encoding of classification outputs. Returns (buf_rec,
+    start_rec, lens_rec, buf_col, start_col, lens_col, tables')."""
+    k_rec, t_rec, k_col, t_col = i_geometry(n_rec, n_lit, cfg)
+    dev = records.device
+    lens_rec = tc.lane_lens(n_rec, k_rec, dev)
+    lens_col = tc.lane_lens(n_lit, k_col, dev)
+    bufs, starts, tables = tc.encode_sections(
+        [tc.deal(records, n_rec, k_rec, t_rec), tc.deal(lits, n_lit, k_col, t_col)],
+        [lens_rec, lens_col], tables,
+        (("rec", k_rec, t_rec), ("col", k_col, t_col)),
+    )
+    return bufs[0], starts[0], lens_rec, bufs[1], starts[1], lens_col, tables
+
+
+def encode_i_raw(records, n_rec: int, lits, n_lit: int, tables: dict,
+                 cfg: CodecConfig, raw_threshold: int):
+    """encode_i_from_records + exact container size + raw-escape table
+    select on the device (the host applies the same size rule when it
+    assembles the container). Returns (buf_rec, start_rec, lens_rec,
+    buf_col, start_col, lens_col, stats [2] = total, is_raw, tables')."""
+    out = encode_i_from_records(records, n_rec, lits, n_lit, tables, cfg)
+    buf_rec, start_rec, lens_rec, buf_col, start_col, lens_col, tables2 = out
+    k_rec, _, k_col, _ = i_geometry(n_rec, n_lit, cfg)
+    total = (1 + varint_len(n_rec) + varint_len(n_lit)
+             + section_bytes(start_rec, lens_rec, buf_rec.shape[1], k_rec)
+             + section_bytes(start_col, lens_col, buf_col.shape[1], k_col))
+    is_raw = total >= raw_threshold
+    sel = select_tables(is_raw, renew_tables_cached(records.device), tables2)
+    stats = torch.stack([total, is_raw.to(I32)])
+    return buf_rec, start_rec, lens_rec, buf_col, start_col, lens_col, stats, sel
+
+
+def parse_i_header(data: bytes, pos: int, cfg: CodecConfig):
+    """Host-side I-frame container parse + sanity bounds. Returns
+    (pay_rec, pay_col, n_rec, n_lit) with [K, L] uint8 numpy payloads."""
+    (n_rec, n_lit), pos = bs.read_varint(data, pos, 2)
+    if n_rec > cfg.width * cfg.height or n_lit > max(n_rec, 1):
+        raise bs.CorruptStreamError("I-frame record counts out of bounds")
+    k_rec, _, k_col, _ = i_geometry(n_rec, n_lit, cfg)
+    rec_blobs, pos = bs.unpack_section(data, pos, k_rec)
+    col_blobs, pos = bs.unpack_section(data, pos, k_col)
+    return (tc.pad_payload(rec_blobs, k_rec), tc.pad_payload(col_blobs, k_col),
+            n_rec, n_lit)
+
+
+def decode_i_device(pay_rec: torch.Tensor, pay_col: torch.Tensor, n_rec: int,
+                    n_lit: int, tables: dict, cfg: CodecConfig):
+    """Returns (frame [H, W, 3] uint8, pixels covered (device scalar),
+    tables'). The caller checks the coverage against H * W."""
+    k_rec, t_rec, k_col, t_col = i_geometry(n_rec, n_lit, cfg)
+    dev = pay_rec.device
+    (recs_scan, lits_scan), tables = tc.decode_sections(
+        [pay_rec, pay_col],
+        [tc.lane_lens(n_rec, k_rec, dev), tc.lane_lens(n_lit, k_col, dev)],
+        tables, (("rec", k_rec, t_rec), ("col", k_col, t_col)))
+    records = tc.undeal(recs_scan, n_rec, k_rec, max(n_rec, 1))
+    lits = tc.undeal(lits_scan, n_lit, k_col, max(n_lit, 1))
+    total = records[:, 1].sum(dtype=I32)
+    frame = reconstruct_i(records, lits, cfg.height, cfg.width)
+    return frame, total, tables

@@ -1,0 +1,548 @@
+"""P-frame encode/decode — PyTorch port of `screenpressor_tpu/jx/pframe.py`.
+
+Per-block work (classification, segmentation, reconstruction) runs batched
+over a list of data blocks; blocks are independent by format design
+(out-of-sub-rect neighbours read the previous frame). The segmentation of a
+block's sub-rect sequence is the same greedy walk as the I-frame's with one
+256-position tile per block, so it runs through kernel K3
+(`classify.run_walk`). The five sections go through the section coder
+(`coder.encode_sections` / `decode_sections`, kernels K1/K2 on the card).
+Block resolution, the motion apply (one gather) and the block rebuild are
+plain tensor ops.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from screenpressor_tpu import bitstream as bs
+from screenpressor_tpu.config import (
+    ALG_P,
+    BLOCK,
+    BT_FULL_DATA,
+    BT_FULL_MOTION,
+    BT_PARTIAL_DATA,
+    BT_PARTIAL_MOTION,
+    NUM_PTYPES,
+    PT_ABOVE,
+    PT_ABOVELEFT,
+    PT_GRADIENT,
+    PT_LEFT,
+    PT_LITERAL,
+    PT_PREVFRAME,
+    CodecConfig,
+)
+
+from screenpressor_tpu_torch import coder as tc
+from screenpressor_tpu_torch.classify import fits_bits, run_walk
+from screenpressor_tpu_torch.iframe import section_bytes, varint_len
+from screenpressor_tpu_torch.tables import renew_tables_cached, select_tables
+
+AREA = BLOCK * BLOCK
+I32 = torch.int32
+SECTION_NAMES = ("bt", "sxy", "mv", "rec", "col")
+
+
+def _apron(img: torch.Tensor) -> torch.Tensor:
+    """[H, W, 3] -> int32 with a 1-pixel zero apron top/left and BLOCK + 1
+    bottom/right, so a 17x17 window at any sub-rect origin stays inside."""
+    h, w, _ = img.shape
+    out = torch.zeros((h + BLOCK + 2, w + BLOCK + 2, 3), dtype=I32,
+                      device=img.device)
+    out[1:h + 1, 1:w + 1] = img
+    return out
+
+
+def _windows(padded: torch.Tensor, rects: torch.Tensor) -> torch.Tensor:
+    """[B, 17, 17, 3] windows with origin (y1 - 1, x1 - 1) per rect."""
+    ar = torch.arange(BLOCK + 1, device=rects.device)
+    ys = rects[:, 1].long()[:, None] + ar
+    xs = rects[:, 0].long()[:, None] + ar
+    return padded[ys[:, :, None], xs[:, None, :]]
+
+
+# ---------------------------------------------------------------------------
+# Per-block classification (encoder)
+# ---------------------------------------------------------------------------
+
+
+def _block_fits(cw, pw, rects):
+    """cw/pw: [B, 17, 17, 3] windows. Returns (fits [B, 256, 6], start
+    types [B, 256], cur [B, 256, 3], valid [B, 256]) in sub-rect raster
+    order."""
+    nblk = cw.shape[0]
+    dev = cw.device
+    x1, y1 = rects[:, 0].long()[:, None], rects[:, 1].long()[:, None]
+    bw = (rects[:, 2] - rects[:, 0]).long()[:, None]
+    bh = (rects[:, 3] - rects[:, 1]).long()[:, None]
+    p = torch.arange(AREA, device=dev)[None, :]
+    ry = p // bw.clamp_min(1)
+    rx = p % bw.clamp_min(1)
+    valid = p < bw * bh
+    ryc = ry.clamp(max=BLOCK - 1)
+    b = torch.arange(nblk, device=dev)[:, None]
+
+    def at(win, yy, xx):
+        return win[b, yy, xx]
+
+    cur = at(cw, 1 + ryc, 1 + rx)
+    c_left, p_left = at(cw, 1 + ryc, rx), at(pw, 1 + ryc, rx)
+    c_above, p_above = at(cw, ryc, 1 + rx), at(pw, ryc, 1 + rx)
+    c_tl, p_tl = at(cw, ryc, rx), at(pw, ryc, rx)
+    prevv = at(pw, 1 + ryc, 1 + rx)
+    left = torch.where((rx > 0)[..., None], c_left, p_left)
+    above = torch.where((ry > 0)[..., None], c_above, p_above)
+    tl = torch.where(((rx > 0) & (ry > 0))[..., None], c_tl, p_tl)
+    avail_l = (x1 + rx) > 0
+    avail_a = (y1 + ry) > 0
+    avail_al = avail_l & avail_a
+    # scan-prev: the previous pixel in sub-rect raster order
+    sp = torch.where((rx > 0)[..., None], c_left,
+                     at(cw, ryc, bw.expand_as(ryc)))
+
+    def eq(a, c):
+        return (a == c).all(dim=-1)
+
+    f = torch.zeros((nblk, AREA, NUM_PTYPES), dtype=torch.bool, device=dev)
+    f0 = eq(cur, sp)
+    f0[:, 0] = False
+    f[..., PT_LITERAL] = f0 & valid
+    f[..., PT_LEFT] = eq(cur, left) & avail_l & valid
+    f[..., PT_ABOVE] = eq(cur, above) & avail_a & valid
+    f[..., PT_PREVFRAME] = eq(cur, prevv) & valid
+    f[..., PT_GRADIENT] = eq(cur, left + above - tl) & avail_al & valid
+    f[..., PT_ABOVELEFT] = eq(cur, tl) & avail_al & valid
+    st = torch.full((nblk, AREA), PT_LITERAL, dtype=I32, device=dev)
+    for pt in (PT_GRADIENT, PT_ABOVE, PT_ABOVELEFT, PT_PREVFRAME, PT_LEFT):
+        st = torch.where(f[..., pt], pt, st)
+    return f, st, cur, valid
+
+
+def _segment_seq(fits, st, n_valid):
+    """Greedy segmentation of each block's 256-position sequence (the
+    run-walk state machine, one tile per block). Returns (starts [B, 256],
+    ptypes, run lengths, n_records [B]); slots past a block's record count
+    hold (AREA, 0, 0)."""
+    nblk = fits.shape[0]
+    dev = fits.device
+    is_start = run_walk(fits_bits(fits.reshape(-1, NUM_PTYPES)),
+                        st.reshape(-1), AREA).reshape(nblk, AREA)
+    pos = torch.arange(AREA, device=dev)[None, :]
+    is_start = is_start & (pos < n_valid[:, None])
+    rank = torch.cumsum(is_start.to(I32), dim=1) - 1
+    n_records = is_start.sum(dim=1, dtype=I32)
+    path = torch.full((nblk, AREA + 1), AREA, dtype=torch.int64, device=dev)
+    b = torch.arange(nblk, device=dev)[:, None].expand(nblk, AREA)
+    path.index_put_((b, torch.where(is_start, rank, AREA).long()),
+                    pos.expand(nblk, AREA))
+    path = path[:, :AREA]
+    is_rec = pos < n_records[:, None]
+    nxt = torch.cat([path[:, 1:], path.new_full((nblk, 1), AREA)], dim=1)
+    nxt = torch.where(pos + 1 < n_records[:, None], nxt, n_valid[:, None].long())
+    pc = path.clamp(max=AREA - 1)
+    ptypes = torch.where(is_rec, st.gather(1, pc), 0)
+    rlens = torch.where(is_rec, nxt - path, 0).to(I32)
+    return path, ptypes, rlens, n_records
+
+
+def classify_blocks(frame: torch.Tensor, prev: torch.Tensor, rects: torch.Tensor):
+    """rects: [B, 4] absolute sub-rects. Returns per-block record arrays
+    (ptypes [B, 256], rlens, n_records [B], lits [B, 256, 3], is_lit)."""
+    cw = _windows(_apron(frame), rects)
+    pw = _windows(_apron(prev), rects)
+    fits, st, cur, _valid = _block_fits(cw, pw, rects)
+    n_valid = (rects[:, 2] - rects[:, 0]) * (rects[:, 3] - rects[:, 1])
+    path, ptypes, rlens, n_records = _segment_seq(fits, st, n_valid)
+    pc = path.clamp(max=AREA - 1)
+    lits = cur.gather(1, pc[..., None].expand(-1, -1, 3))
+    is_lit = (path < n_valid[:, None]) & (ptypes == PT_LITERAL)
+    return ptypes, rlens, n_records, lits, is_lit
+
+
+def classify_assemble(frame: torch.Tensor, prev: torch.Tensor,
+                      rects: torch.Tensor, n_data: int):
+    """Classify the n_data data blocks and assemble the global PIX/COL
+    record arrays. Returns (pix_cap [n_data*256, 2], lit_cap
+    [n_data*256, 3], counts [2] = n_pix, n_lit)."""
+    ptypes, rlens, n_recs, lits, is_lit = classify_blocks(
+        frame, prev, rects[:n_data])
+    dev = frame.device
+    rec_off = torch.cumsum(n_recs, dim=0) - n_recs
+    slot = torch.arange(AREA, device=dev)[None, :]
+    valid_slot = slot < n_recs[:, None]
+    pcap = n_data * AREA
+    tgt = torch.where(valid_slot, rec_off[:, None] + slot, pcap).long()
+    pix_cap = torch.zeros((pcap + 1, 2), dtype=I32, device=dev)
+    pix_cap.index_put_((tgt,), torch.stack([ptypes, rlens], dim=-1).to(I32))
+    is_lit = is_lit & valid_slot
+    nlit_b = is_lit.sum(dim=1)
+    lit_off = torch.cumsum(nlit_b, dim=0) - nlit_b
+    lit_rank = torch.cumsum(is_lit.to(I32), dim=1) - 1
+    tgt_l = torch.where(is_lit, lit_off[:, None] + lit_rank, pcap).long()
+    lit_cap = torch.zeros((pcap + 1, 3), dtype=I32, device=dev)
+    lit_cap.index_put_((tgt_l,), lits.to(I32))
+    counts = torch.stack([n_recs.sum(), nlit_b.sum()]).to(I32)
+    return pix_cap[:pcap], lit_cap[:pcap], counts
+
+
+# ---------------------------------------------------------------------------
+# Section encode (encoder)
+# ---------------------------------------------------------------------------
+
+
+def encode_sections_raw(sources: dict, hdr_vals, tables: dict, cfg: CodecConfig,
+                        raw_threshold: int):
+    """Encode the five sections + exact container size + raw-escape table
+    select on the device.
+
+    sources: name -> capacity record arrays; hdr_vals: the 8 host header
+    values (xx1, xx2, n_bt, n_sxy, n_mv, n_pix, n_lit, n_data). Returns
+    (kts, bufs, starts, lens, stats [2] = total, is_raw, tables')."""
+    nums = dict(zip(SECTION_NAMES, hdr_vals[2:7]))
+    dealt, lens_l, kts = [], [], []
+    for name in SECTION_NAMES:
+        n = nums[name]
+        k = cfg.lanes(n)
+        t = tc.steps_for(n, k)
+        src = sources[name]
+        dealt.append(tc.deal(src, n, k, t))
+        lens_l.append(tc.lane_lens(n, k, src.device))
+        kts.append((name, k, t))
+    kts = tuple(kts)
+    bufs, starts, tables2 = tc.encode_sections(dealt, lens_l, tables, kts)
+    total = 2 + sum(varint_len(int(v)) for v in hdr_vals)
+    for (_, k, _), buf, start, lens in zip(kts, bufs, starts, lens_l):
+        total = total + section_bytes(start, lens, buf.shape[1], k)
+    is_raw = total >= raw_threshold
+    sel = select_tables(is_raw, renew_tables_cached(bufs[0].device), tables2)
+    stats = torch.stack([total, is_raw.to(I32)])
+    return kts, bufs, starts, lens_l, stats, sel
+
+
+def encode_p_sections(arrs: dict, counts_host, phase_b, pl_counts_host,
+                      tables: dict, cfg: CodecConfig):
+    """Phase C of a changed P frame. Returns (handle, tables') where handle
+    = (kts, nums, (xx1, xx2, n_data), bufs, starts, lens, stats)."""
+    _any, xx1, xx2, n_bt, n_sxy, n_mv, n_data = (int(v) for v in counts_host[:7])
+    dev = arrs["bt"].device
+    if phase_b is not None:
+        pix_cap, lit_cap = phase_b[0], phase_b[1]
+        n_pix, n_lit = (int(v) for v in pl_counts_host[:2])
+    else:
+        pix_cap = torch.zeros((1, 2), dtype=I32, device=dev)
+        lit_cap = torch.zeros((1, 3), dtype=I32, device=dev)
+        n_pix = n_lit = 0
+    sources = {"bt": arrs["bt"], "sxy": arrs["sxy"], "mv": arrs["mv"],
+               "rec": pix_cap, "col": lit_cap}
+    hdr_vals = [xx1, xx2, n_bt, n_sxy, n_mv, n_pix, n_lit, n_data]
+    kts, bufs, starts, lens_l, stats, tables = encode_sections_raw(
+        sources, hdr_vals, tables, cfg, 1 + cfg.width * cfg.height * 3)
+    nums = dict(zip(SECTION_NAMES, hdr_vals[2:7]))
+    handle = (kts, nums, (xx1, xx2, n_data), bufs, starts, lens_l, stats)
+    return handle, tables
+
+
+def p_header(handle) -> bytes:
+    kts, nums, (xx1, xx2, n_data) = handle[:3]
+    return b"".join([
+        bytes([bs.header_byte(ALG_P)]), bytes([1]),
+        bs.pack_varint(xx1, xx2, nums["bt"], nums["sxy"], nums["mv"],
+                       nums["rec"], nums["col"], n_data),
+    ])
+
+
+# ---------------------------------------------------------------------------
+# Decoder
+# ---------------------------------------------------------------------------
+
+
+def parse_p_header(data: bytes, pos: int, cfg: CodecConfig):
+    """Host-side container parse + validation. Returns None for a no-change
+    frame, else (payloads {name: [K, L] uint8}, ns, kts, (xx1, xx2, n_mv,
+    n_data))."""
+    if pos >= len(data):
+        raise bs.CorruptStreamError("truncated P-frame")
+    flags = data[pos]
+    pos += 1
+    if not flags & 1:
+        return None
+    (xx1, xx2, n_bt, n_sxy, n_mv, n_pix, n_lit, n_data), pos = bs.read_varint(
+        data, pos, 8)
+    nb = cfg.nbx * cfg.nby
+    if not xx1 <= xx2 < nb:
+        raise bs.CorruptStreamError("xx block range out of bounds")
+    if max(n_bt, n_sxy, n_mv, n_data) > nb or n_pix > nb * AREA or n_lit > n_pix:
+        raise bs.CorruptStreamError("section counts out of bounds")
+    if n_bt == 0:
+        raise bs.CorruptStreamError("empty block-type section")
+    counts = {"bt": n_bt, "sxy": n_sxy, "mv": n_mv, "rec": n_pix, "col": n_lit}
+    kts, payloads, ns = [], {}, {}
+    for name in SECTION_NAMES:
+        n = counts[name]
+        k = cfg.lanes(n)
+        blobs, pos = bs.unpack_section(data, pos, k)
+        kts.append((name, k, tc.steps_for(n, k)))
+        payloads[name] = tc.pad_payload(blobs, k)
+        ns[name] = n
+    return payloads, ns, tuple(kts), (xx1, xx2, n_mv, n_data)
+
+
+def decode_p_resolve(payloads: dict, ns: dict, kts, xx1: int, xx2: int,
+                     n_data: int, tables: dict, cfg: CodecConfig, mcap: int,
+                     bcap: int):
+    """Section decode + BT-run expansion + per-block rect / record
+    resolution. Returns ((mo_rects, mo_mvs, d_rects, pt, rlg, lt), err,
+    tables'): stream-consistency violations set bits of `err` (device
+    int32) instead of raising."""
+    h, w, nbx, nby = cfg.height, cfg.width, cfg.nbx, cfg.nby
+    dev = payloads["bt"].device
+    lens_l = [tc.lane_lens(ns[name], k, dev) for name, k, _ in kts]
+    recs_l, tables = tc.decode_sections(
+        [payloads[name] for name, _, _ in kts], lens_l, tables, kts)
+    recs = {name: tc.undeal(r, ns[name], k, max(ns[name], 1))
+            for (name, k, _), r in zip(kts, recs_l)}
+    bt, sxy, mv = recs["bt"], recs["sxy"], recs["mv"]
+    pix, lit = recs["rec"], recs["col"]
+    nb = nbx * nby
+    err = torch.zeros((), dtype=I32, device=dev)
+
+    def flag(cond, bit):
+        return err | torch.where(cond, bit, 0).to(I32)
+
+    # --- expand BT runs over xx1..xx2 (relative scatter + cumsum) ---
+    capbt = bt.shape[0]
+    lenr = xx2 - xx1 + 1
+    nvals = bt[:, 1]
+    bstarts = torch.cumsum(nvals, dim=0) - nvals
+    marks = torch.zeros(nb + 1, dtype=I32, device=dev)
+    marks.index_put_((torch.where((nvals > 0) & (bstarts < nb), bstarts, nb).long(),),
+                     torch.ones_like(nvals), accumulate=True)
+    ridx = torch.cumsum(marks[:nb], dim=0) - 1
+    relpos = torch.arange(nb, device=dev)
+    inr = (relpos < lenr) & (ridx >= 0)
+    bts_rel = torch.where(inr, bt[ridx.clamp(0, capbt - 1).long(), 0], 0)
+    err = flag(nvals.sum() != lenr, 1)
+    rel_of_abs = relpos - xx1
+    bts = torch.where((rel_of_abs >= 0) & (rel_of_abs < lenr),
+                      bts_rel[rel_of_abs.clamp(0, nb - 1)], 0)
+
+    # --- per-block resolution ---
+    is_partial = (bts == BT_PARTIAL_DATA) | (bts == BT_PARTIAL_MOTION)
+    is_motion = (bts == BT_FULL_MOTION) | (bts == BT_PARTIAL_MOTION)
+    is_data = (bts == BT_FULL_DATA) | (bts == BT_PARTIAL_DATA)
+    err = flag(is_partial.sum() != ns["sxy"], 2)
+    err = flag(is_motion.sum() != ns["mv"], 4)
+    err = flag(is_data.sum() != n_data, 8)
+
+    x_lo, y_lo = (relpos % nbx) * BLOCK, (relpos // nbx) * BLOCK
+    x_hi, y_hi = (x_lo + BLOCK).clamp(max=w), (y_lo + BLOCK).clamp(max=h)
+    pidx = torch.cumsum(is_partial.to(I32), dim=0) - 1
+    s = sxy[pidx.clamp(0, sxy.shape[0] - 1).long()].long()
+    x1 = torch.where(is_partial, x_lo + s[:, 0], x_lo)
+    y1 = torch.where(is_partial, y_lo + s[:, 1], y_lo)
+    x2 = torch.where(is_partial, x_lo + s[:, 2] + 1, x_hi)
+    y2 = torch.where(is_partial, y_lo + s[:, 3] + 1, y_hi)
+    rect_ok = (x1 < x2) & (x2 <= x_hi) & (y1 < y2) & (y2 <= y_hi)
+    err = flag((is_partial & ~rect_ok).any(), 16)
+
+    midx = torch.cumsum(is_motion.to(I32), dim=0) - 1
+    m = mv[midx.clamp(0, mv.shape[0] - 1).long()].long()
+    mv_ok = ((x1 + m[:, 0] >= 0) & (y1 + m[:, 1] >= 0)
+             & (x2 + m[:, 0] <= w) & (y2 + m[:, 1] <= h))
+    err = flag((is_motion & ~mv_ok).any(), 32)
+
+    rects_all = torch.stack([x1, y1, x2, y2], dim=1).to(I32)
+
+    def to_slots(mask, idx, vals, cap):
+        out = torch.zeros((cap + 1,) + vals.shape[1:], dtype=I32, device=dev)
+        out.index_put_((torch.where(mask, idx, cap).long(),), vals.to(I32))
+        return out[:cap]
+
+    mo_rects = to_slots(is_motion, midx, rects_all, mcap)
+    mo_mvs = to_slots(is_motion, midx, m, mcap)
+    didx = torch.cumsum(is_data.to(I32), dim=0) - 1
+    d_rects = to_slots(is_data, didx, rects_all, bcap)
+    areas_nb = (x2 - x1).clamp_min(0) * (y2 - y1).clamp_min(0)
+    areas = to_slots(is_data, didx, areas_nb[:, None], bcap)[:, 0].long()
+    a_start = torch.cumsum(areas, dim=0) - areas
+    a_end = a_start + areas
+    total_area = areas.sum()
+
+    # --- record -> block assignment (searchsorted over area prefix sums) ---
+    cappix = pix.shape[0]
+    rec_i = torch.arange(cappix, device=dev)
+    valid_rec = rec_i < ns["rec"]
+    rl = torch.where(valid_rec, pix[:, 1], 0).long()
+    rstart = torch.cumsum(rl, dim=0) - rl
+    err = flag(rl.sum() != total_area, 64)
+    j = torch.searchsorted(a_start, rstart, right=True) - 1
+    jb = j.clamp(0, bcap - 1)
+    err = flag((valid_rec & (rstart + rl > a_end[jb])).any(), 128)
+    rstart_s = torch.where(valid_rec, rstart, total_area + 1 + rec_i)
+    first_rec = torch.searchsorted(rstart_s, a_start, right=False)
+    slot = rec_i - first_rec[jb]
+    slot_ok = (slot >= 0) & (slot < AREA)
+    err = flag((valid_rec & ~slot_ok).any(), 256)
+    keep = valid_rec & slot_ok
+    tgt_j = torch.where(keep, jb, bcap)
+    tgt_s = torch.where(keep, slot, 0)
+
+    def to_grid(vals):
+        out = torch.zeros((bcap + 1, AREA) + vals.shape[1:], dtype=I32, device=dev)
+        out.index_put_((tgt_j, tgt_s), vals.to(I32))
+        return out[:bcap]
+
+    pt = to_grid(pix[:, 0])
+    rlg = to_grid(rl)
+    is_lit_rec = valid_rec & (pix[:, 0] == PT_LITERAL)
+    err = flag(is_lit_rec.sum() > ns["col"], 512)
+    lit_idx = torch.cumsum(is_lit_rec.to(I32), dim=0) - 1
+    litv = lit[lit_idx.clamp(0, lit.shape[0] - 1).long()]
+    lt = to_grid(torch.where(is_lit_rec[:, None], litv, 0))
+    return (mo_rects, mo_mvs, d_rects, pt, rlg, lt), err, tables
+
+
+def apply_motion(base: torch.Tensor, prev: torch.Tensor, rects: torch.Tensor,
+                 mvs: torch.Tensor) -> torch.Tensor:
+    """Copy each motion block's sub-rect from prev shifted by its MV into a
+    copy of base (one gather + one scatter). Padded rows have x2 <= x1."""
+    h, w, _ = base.shape
+    ar = torch.arange(BLOCK, device=base.device)
+    x1, y1, x2, y2 = (rects[:, i].long()[:, None, None] for i in range(4))
+    ys = y1 + ar[None, :, None]
+    xs = x1 + ar[None, None, :]
+    inside = (ys < y2) & (xs < x2)
+    src = ((ys + mvs[:, 1].long()[:, None, None]) * w
+           + xs + mvs[:, 0].long()[:, None, None]).clamp(0, h * w - 1)
+    dst = torch.where(inside, ys * w + xs, h * w)
+    out = torch.cat([base.reshape(h * w, 3), base.new_zeros((1, 3))])
+    out[dst.reshape(-1)] = prev.reshape(h * w, 3)[src.reshape(-1)]
+    return out[: h * w].reshape(h, w, 3)
+
+
+def _row_affine(known, reset, d):
+    """Resolve v[x] = (reset ? known : v[x-1] + d) along dim 1 of [B, X, 3]
+    with v[-1] = 0."""
+    xs = torch.arange(reset.shape[1], device=reset.device)
+    last, _ = torch.cummax(torch.where(reset, xs, -1), dim=1)
+    # scan along the innermost dimension ([B, 3, X]): PyTorch's CUDA scan
+    # over a middle dimension of a small tensor is far slower
+    dm = torch.where(reset[..., None], 0, d).transpose(1, 2).contiguous()
+    cs = torch.cumsum(dm, dim=2, dtype=I32).transpose(1, 2)
+    lc = last.clamp_min(0)[..., None].expand_as(cs)
+    base = torch.where((last >= 0)[..., None], known.gather(1, lc) - cs.gather(1, lc), 0)
+    return base + cs
+
+
+def reconstruct_blocks(base: torch.Tensor, prev: torch.Tensor, rects: torch.Tensor,
+                       ptypes: torch.Tensor, rlens: torch.Tensor,
+                       lits: torch.Tensor) -> torch.Tensor:
+    """Rebuild the data blocks into a copy of `base` (the motion-applied
+    frame). Out-of-sub-rect neighbour reads (left edge, above row at ry = 0,
+    aboveleft column, PT_PREVFRAME) come from `prev`, the true previous
+    frame. Padded rects (x2 <= x1) write nothing."""
+    h, w, _ = base.shape
+    nblk = rects.shape[0]
+    dev = base.device
+    if nblk == 0:
+        return base
+    pw = _windows(_apron(prev), rects)  # [B, 17, 17, 3]
+    # per-sequence-position (ptype, literal) from the block's records
+    starts = torch.cumsum(rlens, dim=1) - rlens
+    marks = torch.zeros((nblk, AREA + 1), dtype=I32, device=dev)
+    b = torch.arange(nblk, device=dev)[:, None].expand(nblk, AREA)
+    marks.index_put_((b, torch.where((rlens > 0) & (starts < AREA), starts, AREA).long()),
+                     torch.ones_like(rlens), accumulate=True)
+    rec_id = (torch.cumsum(marks[:, :AREA], dim=1) - 1).clamp(0, AREA - 1).long()
+    pt_seq = ptypes.gather(1, rec_id)
+    lit_seq = lits.gather(1, rec_id[..., None].expand(-1, -1, 3))
+    bw = (rects[:, 2] - rects[:, 0]).long()[:, None]
+    bh = (rects[:, 3] - rects[:, 1]).long()[:, None]
+    p = torch.arange(AREA, device=dev)[None, :]
+    ry = torch.where(p < bw * bh, p // bw.clamp_min(1), BLOCK)
+    rx = p % bw.clamp_min(1)
+    pt_grid = torch.zeros((nblk, BLOCK + 1, BLOCK), dtype=I32, device=dev)
+    pt_grid[b, ry, rx] = pt_seq.to(I32)
+    lit_grid = torch.zeros((nblk, BLOCK + 1, BLOCK, 3), dtype=I32, device=dev)
+    lit_grid[b, ry, rx] = lit_seq.to(I32)
+
+    rxs = torch.arange(BLOCK, device=dev)[None, :]
+    prev_row = torch.zeros((nblk, BLOCK, 3), dtype=I32, device=dev)
+    rows = []
+    for r in range(BLOCK):
+        pt, lit = pt_grid[:, r], lit_grid[:, r]
+        above = pw[:, 0, 1:] if r == 0 else prev_row
+        if r == 0:
+            tl = pw[:, 0, :BLOCK]
+        else:
+            tl_cur = torch.cat([prev_row[:, :1], prev_row[:, :-1]], dim=1)
+            tl = torch.where((rxs == 0)[..., None], pw[:, r, :BLOCK], tl_cur)
+        prow = pw[:, r + 1, 1:]
+        left_edge = pw[:, r + 1, 0][:, None, :]
+        reset = ((pt == PT_LITERAL) | (pt == PT_ABOVE) | (pt == PT_PREVFRAME)
+                 | (pt == PT_ABOVELEFT))
+        known = torch.where((pt == PT_ABOVE)[..., None], above,
+                            torch.where((pt == PT_PREVFRAME)[..., None], prow,
+                                        torch.where((pt == PT_ABOVELEFT)[..., None],
+                                                    tl, lit)))
+        d = torch.where((pt == PT_GRADIENT)[..., None], above - tl, 0)
+        at0_left = (rxs == 0) & (pt == PT_LEFT)
+        at0_grad = (rxs == 0) & (pt == PT_GRADIENT)
+        known = torch.where(at0_left[..., None], left_edge, known)
+        known = torch.where(at0_grad[..., None], left_edge + above - tl, known)
+        reset = reset | at0_left | at0_grad
+        prev_row = _row_affine(known, reset, d)
+        rows.append(prev_row)
+    grids = torch.stack(rows, dim=1)  # [B, 16, 16, 3]
+
+    ry2 = torch.arange(BLOCK, device=dev)[None, :, None]
+    rx2 = torch.arange(BLOCK, device=dev)[None, None, :]
+    inside = (ry2 < bh[:, :, None]) & (rx2 < bw[:, :, None])
+    flat_idx = torch.where(inside, (rects[:, 1].long()[:, None, None] + ry2) * w
+                           + rects[:, 0].long()[:, None, None] + rx2, h * w)
+    out = torch.cat([base.reshape(h * w, 3).to(I32),
+                     torch.zeros((1, 3), dtype=I32, device=dev)])
+    out[flat_idx.reshape(-1)] = grids.reshape(-1, 3)
+    return (out[: h * w] & 0xFF).to(torch.uint8).reshape(h, w, 3)
+
+
+def decode_p_device(payloads: dict, ns: dict, kts, xx1: int, xx2: int,
+                    n_data: int, n_mv: int, prev: torch.Tensor, tables: dict,
+                    cfg: CodecConfig):
+    """Whole P-frame decode on the device: sections, block resolution,
+    motion apply and data-block rebuild. Returns (frame, err, tables')."""
+    parts, err, tables = decode_p_resolve(
+        payloads, ns, kts, xx1, xx2, n_data, tables, cfg, max(n_mv, 1),
+        max(n_data, 1))
+    mo_rects, mo_mvs, d_rects, pt, rlg, lt = parts
+    out = apply_motion(prev, prev, mo_rects, mo_mvs)
+    out = reconstruct_blocks(out, prev, d_rects, pt, rlg, lt)
+    return out, err, tables
+
+
+_P_ERRORS = (
+    (1, "block-type runs do not cover xx range"),
+    (2, "sub-rect record count mismatch"),
+    (4, "motion record count mismatch"),
+    (8, "data block count mismatch"),
+    (16, "sub-rect outside block"),
+    (32, "motion vector out of bounds"),
+    (64, "pixel records do not tile data blocks"),
+    (128, "pixel record crosses block boundary"),
+    (256, "pixel record slot out of range"),
+    (512, "pixel records exhausted literals"),
+)
+
+
+def raise_p_error(err: int):
+    for bit, msg in _P_ERRORS:
+        if err & bit:
+            raise bs.CorruptStreamError(msg)
+    if err:
+        raise bs.CorruptStreamError(f"corrupt P-frame (err={err:#x})")
+
+
+def payloads_to_device(payloads: dict, device) -> dict:
+    return {name: torch.as_tensor(np.ascontiguousarray(p), device=device)
+            for name, p in payloads.items()}
