@@ -7,14 +7,29 @@ Phases, each printed with its seconds:
   1. the card (torch and nvidia-smi);
   2. the kernel build (nvcc, sm_90a) from screenpressor_tpu_torch/csrc;
   3. each kernel against its plain PyTorch version at the main path's 1080p
-     shapes (the synth_screencast keyframe and a scroll P frame), exact
-     equality of bytes, records and table state, both times from CUDA
-     events;
-  4. the main path: TorchEncoder.encode_batch on the 64-frame 1080p
-     synth_screencast batch, then TorchDecoder.decode_batch, run twice (new
-     sessions each time); the second run's kernel launches are counted and
-     every kernel must appear. Its bytes are held against the native C++
-     SPTC codec (screenpressor_tpu.native) and its decode must be lossless.
+     shapes (the synth_screencast keyframe, a scroll and a typing P frame),
+     exact equality of bytes, records and table state, both times from
+     CUDA events; K1-colw, on each of those col sections whose touched rows
+     fit a compact bucket (as the session takes it), also against full-table
+     K1 col;
+  4. the single-stream main path: TorchEncoder.encode_batch on the
+     64-frame 1080p synth_screencast batch, then TorchDecoder.decode_batch,
+     run twice (new sessions each time); the second run's kernel launches
+     are counted and every kernel it runs must appear. Its bytes are
+     held against the native C++ SPTC codec (screenpressor_tpu.native) and
+     its decode must be lossless;
+  5. the stream-batched kernels against their plain versions at the
+     serving shapes (64 streams of 360x640, k_fixed 64): K1 and K2 over the
+     sections of the keyframe step and of the scroll and the typing P steps,
+     K1-colw against full-table K1 col on the typing step's and the
+     keyframe step's color sections and on sections that touch color row
+     12287, K3 and K4 over the keyframe step's 64 frames;
+  6. the serving main path: serve_pipelined(BatchedEncoder,
+     BatchedDecoder) over 5 steps of 64 staggered-keyframe streams (the
+     fourth step keyframes stream 63), run twice in new sessions, the
+     second counted: every serving kernel must appear, decode must be
+     lossless, each stream's bytes must equal its own TorchEncoder session,
+     and the pinned procedural_serving_kfixed golden must reproduce.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit, no
 result line). Needs a CUDA device; imports no JAX.
@@ -25,13 +40,41 @@ import os
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H, W, N_FRAMES = 1080, 1920, 64
-NATIVE_BUDGET_S = 240.0  # native encode time spent comparing bytes (>= 8 frames)
+NATIVE_BUDGET_S = 120.0  # native encode time spent comparing bytes (>= 8 frames)
 TIMED_REPS = 5
+# the serving profile of bench.serving_diag: 64 concurrent 360p streams,
+# staggered keyframes, +-256 motion, 64 lanes per section
+S_STREAMS, S_H, S_W, S_KF, S_STEPS = 64, 360, 640, 150, 5
+
+
+def golden_session_frames(h, w):
+    """Copy of tools/make_goldens.py:session_frames (that module imports
+    JAX); only its first frame seeds the serving golden."""
+    base = np.full((h + 60, w, 3), (30, 40, 50), np.uint8)
+    base[h // 6: h - h // 6, 8: w - 8] = (250, 250, 250)
+    for y in range(h // 5, h - h // 5, 6):
+        base[y: y + 2, 10: w - 16: 2] = (10, 20, 30)
+    return [base[:h].copy()]
+
+
+def golden_serving_frames(h=32, w=48, s=4):
+    """Copy of tools/make_goldens.py:serving_session_frames, the frames of
+    the procedural_serving_kfixed golden."""
+    base = np.stack([np.roll(golden_session_frames(h, w)[0], 7 * i, axis=1)
+                     for i in range(s)])
+    seq = [base]
+    f = base.copy()
+    f[:, h // 5: h // 3, w // 3: 2 * w // 3] = (250, 250, 250)
+    seq.append(f)
+    seq.append(np.roll(f, 5, axis=1))
+    seq.append(seq[-1].copy())
+    return seq
 
 
 def phase(name, t0):
@@ -72,6 +115,307 @@ def tables_pairs(a, b):
             for kd in b for key in b[kd]]
 
 
+def clone_tables(tables_b):
+    return {kd: {key: v.clone() for key, v in tab.items()} for kd, tab in tables_b.items()}
+
+
+def serving_batches(dev, synth_screencast):
+    """The serving profile's config, keyframe offsets and S_STEPS batches
+    (host numpy and device)."""
+    import torch
+
+    from screenpressor_tpu.config import CodecConfig
+
+    cfg = CodecConfig(width=S_W, height=S_H, kf_interval=S_KF, k_fixed=64,
+                      msr_x=256, msr_y=256)
+    offsets = (np.arange(S_STREAMS) * S_KF) // S_STREAMS
+    base = synth_screencast(S_H, S_W, S_STEPS, seed=3)
+    host = [np.stack([np.roll(base[t], 3 * i, axis=1) for i in range(S_STREAMS)])
+            for t in range(S_STEPS)]
+    return cfg, offsets, host, [torch.as_tensor(b, device=dev) for b in host]
+
+
+def serving_kernels_vs_plain(t0, dev, record, cfg, offsets, host, batches):
+    """Phase 5 (its tensors are freed on return, before phase 6 measures
+    the session's peak memory)."""
+    import torch
+
+    from screenpressor_tpu.config import color_ctx
+    from screenpressor_tpu_torch import classify as tcl
+    from screenpressor_tpu_torch import coder as tc
+    from screenpressor_tpu_torch import kernels as tk
+    from screenpressor_tpu_torch import recon as tr
+    from screenpressor_tpu_torch.parallel import serving as ts
+    from screenpressor_tpu_torch.tables import renew_tables_streams
+
+    k = cfg.k_fixed
+
+    # ---- 5. stream-batched kernels vs plain at the serving shapes ----
+    # the sections of steps 0-2 (keyframes; scroll P; typing P) as the
+    # encoder hands them to K1
+    captured = {}
+    real = tc.encode_sections_streams
+
+    def capture(dealt_list, lens_list, tables_b, kts, sidx, col_w=None, col_bm=None):
+        captured.setdefault(len(captured_steps), []).append(
+            (list(dealt_list), list(lens_list), clone_tables(tables_b), kts, list(sidx),
+             col_w, col_bm))
+        return real(dealt_list, lens_list, tables_b, kts, sidx, col_w, col_bm)
+
+    enc = ts.BatchedEncoder(S_STREAMS, cfg, dev, kf_offsets=offsets)
+    captured_steps = []
+    tc.encode_sections_streams = capture
+    try:
+        for step in range(3):
+            enc.encode(batches[step])
+            captured_steps.append(step)
+    finally:
+        tc.encode_sections_streams = real
+    del enc
+    for step in range(3):
+        calls = captured.get(step, [])
+        if len(calls) != 1 or len(calls[0][4]) < 2:
+            raise AssertionError(f"step {step}: expected one K1 call over the streams")
+
+    def blobs_of(bufs, starts, lens, i, n):
+        return [tc.blobs_from_buf(bufs[i][j].cpu().numpy(), starts[i][j].cpu().numpy(),
+                                  lens[i][j].cpu().numpy()) for j in range(n)]
+
+    def tables_err(a, b):
+        """Max |a - b| over every table tensor, taken on the device."""
+        return max(int((a[kd][key].long() - b[kd][key].long()).abs().max())
+                   for kd in b for key in b[kd])
+
+    # K1 and K2 over the streams on the keyframe step and the two P steps,
+    # full-table col (the colw comparison follows)
+    for step, label in ((0, "keyframe"), (1, "scroll"), (2, "typing")):
+        dealt, lens, tabs0, kts, sidx, _, _ = captured[step][0]
+        scratch = clone_tables(tabs0)
+        ms, _ = cuda_ms(lambda: tc.encode_sections_streams(dealt, lens, scratch, kts, sidx),
+                        TIMED_REPS)
+        tab_k = clone_tables(tabs0)
+        bufs, starts = tc.encode_sections_streams(dealt, lens, tab_k, kts, sidx)
+        tab_p = clone_tables(tabs0)
+        plain_ms, (bufs_p, starts_p) = cuda_ms(
+            lambda: tc.encode_sections_streams_plain(dealt, lens, tab_p, kts, sidx), 1, False)
+        err = tables_err(tab_k, tab_p)
+        n_bytes = 0
+        for i in range(len(kts)):
+            blobs = blobs_of(bufs, starts, lens, i, len(sidx))
+            if blobs != blobs_of(bufs_p, starts_p, lens, i, len(sidx)):
+                raise AssertionError(f"K1 streams {label} {kts[i][0]}: bytes differ from plain")
+            n_bytes += sum(len(b) for bl in blobs for b in bl)
+            err = max(err, max_abs_err([(starts[i].cpu().numpy(), starts_p[i].cpu().numpy())]))
+        record("sptc_sections_encode_streams", ms, plain_ms, err)
+        print(f"K1 streams, step {step} ({label}): {len(sidx)} streams x {len(kts)} sections "
+              f"(T {[t for _, _, t in kts]}), {n_bytes} bytes: kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.1f} ms, bytes, starts and tables equal")
+
+        pays = []
+        for i in range(len(kts)):
+            arrs = [tc.pad_payload(bl, k) for bl in blobs_of(bufs, starts, lens, i, len(sidx))]
+            width = max(a.shape[1] for a in arrs)
+            pays.append(torch.as_tensor(
+                np.stack([np.pad(a, ((0, 0), (0, width - a.shape[1]))) for a in arrs]),
+                device=dev))
+        scratch = clone_tables(tabs0)
+        dms, _ = cuda_ms(lambda: tc.decode_sections_streams(pays, lens, scratch, kts, sidx),
+                         TIMED_REPS)
+        dtab_k = clone_tables(tabs0)
+        recs = tc.decode_sections_streams(pays, lens, dtab_k, kts, sidx)
+        dtab_p = clone_tables(tabs0)
+        dplain_ms, recs_p = cuda_ms(
+            lambda: tc.decode_sections_streams_plain(pays, lens, dtab_p, kts, sidx), 1, False)
+        pairs = []
+        for i in range(len(kts)):
+            valid = (torch.arange(recs[i].shape[1], device=dev)[None, :, None]
+                     < lens[i][:, None, :])[..., None]
+            pairs += [(recs[i].cpu().numpy(), recs_p[i].cpu().numpy()),
+                      (torch.where(valid, recs[i], 0).cpu().numpy(),
+                       torch.where(valid, dealt[i], 0).cpu().numpy())]
+        derr = max(max_abs_err(pairs), tables_err(dtab_k, dtab_p), tables_err(dtab_k, tab_k))
+        record("sptc_sections_decode_streams", dms, dplain_ms, derr)
+        print(f"K2 streams, step {step} ({label}): kernel {dms:.3f} ms, plain "
+              f"{dplain_ms:.1f} ms, records equal the encoded ones, tables equal plain and "
+              "encoder")
+        del tabs0, tab_k, tab_p, dtab_k, dtab_p, scratch
+
+    # K1-colw against full-table K1 col: the typing P step's and the
+    # keyframe step's color sections, then sections whose literals touch
+    # color row 12287
+    rng = np.random.default_rng(7)
+    pal = rng.integers(0, 256, (6, 3))
+    pal[0] = (255, 250, 17)
+    assert 2 * 4096 + int(color_ctx(255, 250)) == 12287
+    fx_ns = [int(v) for v in rng.integers(1, 3000, S_STREAMS)]
+    fx_lits = [torch.as_tensor(pal[rng.integers(0, 6, n)], dtype=torch.int32, device=dev)
+               for n in fx_ns]
+    fx_t = max(tc.steps_for(n, k) for n in fx_ns)
+    fixtures = []
+    for step, label in ((2, "typing P step col"), (0, "keyframe step col")):
+        dealt, lens, tabs0, kts, sidx, col_w, col_bm = captured[step][0]
+        ci = [name for name, _, _ in kts].index("col")
+        if col_w is None:
+            raise AssertionError(f"{label}: {int(col_bm.sum(dim=1).max())} touched rows, "
+                                 "no colw bucket")
+        fixtures.append((label, [dealt[ci]], [lens[ci]], (kts[ci],), sidx, tabs0, col_w,
+                         col_bm))
+    del captured
+    fixtures.append(
+        ("row-12287 fixture", [torch.stack([tc.deal(lt, n, k, fx_t)
+                                            for lt, n in zip(fx_lits, fx_ns)])],
+         [torch.stack([tc.lane_lens(n, k, dev) for n in fx_ns])], (("col", k, fx_t),),
+         list(range(S_STREAMS)), renew_tables_streams(S_STREAMS, dev), 256,
+         torch.stack([tc.color_touched_bitmap(lt, n) for lt, n in zip(fx_lits, fx_ns)])))
+    for label, d_l, l_l, c_kts, c_sidx, c_tabs, c_w, c_bm in fixtures:
+        n_touch = int(c_bm.sum(dim=1).max())
+        if n_touch > c_w or (label.startswith("row") and not bool(c_bm[:, 12287].any())):
+            raise AssertionError(f"{label}: fixture does not fit colw{c_w} / touch row 12287")
+        kts_w = ((f"colw{c_w}",) + c_kts[0][1:],)
+        scratch = clone_tables(c_tabs)
+        recs_c, ctab_c, _ = tc.color_compact_streams(d_l[0], l_l[0], c_bm, scratch["color"],
+                                                     c_sidx, c_w)
+        ms, _ = cuda_ms(lambda: tk.encode_sections_streams_kernel(
+            [recs_c], l_l, {**scratch, "color": ctab_c}, kts_w, c_sidx, ("color",)),
+            TIMED_REPS)
+        full_ms, _ = cuda_ms(lambda: tk.encode_sections_streams_kernel(
+            d_l, l_l, scratch, c_kts, c_sidx), TIMED_REPS)
+        path_ms, _ = cuda_ms(lambda: tc.encode_sections_streams(
+            d_l, l_l, scratch, c_kts, c_sidx, c_w, c_bm), TIMED_REPS)
+        tab_w, tab_f, tab_pw = (clone_tables(c_tabs) for _ in range(3))
+        b_w, s_w = tc.encode_sections_streams(d_l, l_l, tab_w, c_kts, c_sidx, c_w, c_bm)
+        b_f, s_f = tc.encode_sections_streams(d_l, l_l, tab_f, c_kts, c_sidx)
+
+        def plain_colw():
+            recs_p, ctab_p, maps = tc.color_compact_streams(
+                d_l[0], l_l[0], c_bm, tab_pw["color"], c_sidx, c_w)
+            out = tc.encode_sections_streams_plain(
+                [recs_p], l_l, {**tab_pw, "color": ctab_p}, kts_w, c_sidx, ("color",))
+            tc.color_restore_streams(tab_pw["color"], c_sidx, ctab_p, maps)
+            return out
+
+        plain_ms, (b_p, s_p) = cuda_ms(plain_colw, 1, False)
+        for j in range(len(c_sidx)):
+            ln = l_l[0][j].cpu().numpy()
+            got = tc.blobs_from_buf(b_w[0][j].cpu().numpy(), s_w[0][j].cpu().numpy(), ln)
+            if (got != tc.blobs_from_buf(b_f[0][j].cpu().numpy(), s_f[0][j].cpu().numpy(), ln)
+                    or got != tc.blobs_from_buf(b_p[0][j].cpu().numpy(),
+                                                s_p[0][j].cpu().numpy(), ln)):
+                raise AssertionError(f"K1-colw {label}: stream {c_sidx[j]} bytes differ")
+        err = max(tables_err(tab_w, tab_f), tables_err(tab_w, tab_pw),
+                  max_abs_err([(s_w[0].cpu().numpy(), s_f[0].cpu().numpy())]))
+        record("sptc_sections_encode_colw_streams", ms, plain_ms, err)
+        print(f"K1-colw {label}: {len(c_sidx)} streams, T {c_kts[0][2]}, colw{c_w}, touched "
+              f"rows <= {n_touch}: colw kernel {ms:.3f} ms, full-table col kernel "
+              f"{full_ms:.3f} ms, colw path with its torch gather and restore {path_ms:.3f} ms, "
+              f"plain colw {plain_ms:.1f} ms; bytes, starts and restored tables equal full "
+              "col and plain")
+        del scratch, recs_c, ctab_c, tab_w, tab_f, tab_pw
+    del fixtures
+
+    # K3 over the keyframe step's 64 frames, each padded to whole seg tiles
+    bits, sts, tile = tcl.walk_inputs_streams(batches[0])
+    bits, sts = bits.reshape(-1), sts.reshape(-1)
+    ms, got = cuda_ms(lambda: tcl.run_walk(bits, sts, tile), TIMED_REPS)
+    plain_ms, ref = cuda_ms(lambda: tcl.run_walk_plain(bits, sts, tile), 1, False)
+    record("sptc_run_walk_streams", ms, plain_ms,
+           max_abs_err([(got.cpu().numpy(), ref.cpu().numpy())]))
+    print(f"K3 streams: {S_STREAMS} keyframes {S_H}x{S_W}, n={bits.numel()} tile={tile}: "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, equal")
+    del bits, sts, got, ref
+
+    # K4 over the keyframe step's 64 frames
+    cls = tcl.classify_i_streams(batches[0])
+    rows_l = [tr.pad_rows(*tr.expand_records(r[: int(n)], lt[: max(int(nl), 1)], S_H * S_W),
+                          S_H, S_W) for r, n, lt, nl in cls]
+    pt = torch.stack([p for p, _ in rows_l])
+    lit = torch.stack([q for _, q in rows_l])
+    ms, got = cuda_ms(lambda: tr.recon_rows(pt, lit, S_W), TIMED_REPS)
+    plain_ms, ref = cuda_ms(lambda: torch.stack([tr.recon_rows_plain(p, q, S_W)
+                                                 for p, q in zip(pt, lit)]), 1, False)
+    err = max_abs_err([(got.cpu().numpy(), ref.cpu().numpy()), (got.cpu().numpy(), host[0])])
+    record("sptc_recon_rows_streams", ms, plain_ms, err)
+    print(f"K4 streams: {S_STREAMS} keyframes {S_H}x{S_W}: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms, equal, equal the frames")
+    del cls, rows_l, pt, lit, got, ref
+    phase("serving kernels vs plain", t0)
+
+
+def serving_main_path(t0, dev, smi, cfg, offsets, host, batches):
+    """Phase 6. Returns the counted session's launch counts."""
+    import torch
+
+    from screenpressor_tpu.config import CodecConfig
+    from screenpressor_tpu_torch import TorchEncoder, _build
+    from screenpressor_tpu_torch.parallel import serving as ts
+
+    # ---- 6. the serving main path, run twice, the second counted ----
+    def serve():
+        enc = ts.BatchedEncoder(S_STREAMS, cfg, dev, kf_offsets=offsets)
+        dec = ts.BatchedDecoder(S_STREAMS, cfg, dev)
+        torch.cuda.synchronize()
+        ts0 = time.perf_counter()
+        got = list(ts.serve_pipelined(enc, batches, dec))
+        dec.validate()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - ts0
+
+    dt0 = serve()[1]
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    got, dt = serve()
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - held  # the session's own
+    print(f"serving main path launches: {launches}")
+    need = ("sptc_sections_encode", "sptc_sections_encode_colw", "sptc_sections_decode",
+            "sptc_run_walk", "sptc_recon_rows")
+    missing = [kn for kn in need if launches[kn] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the serving path: {missing}")
+    kinds = set()
+    for t, ((outs, back), frames) in enumerate(zip(got, batches)):
+        if not torch.equal(back, frames):
+            bad = [i for i in range(S_STREAMS) if not torch.equal(back[i], frames[i])]
+            raise AssertionError(f"serving step {t}: streams {bad[:8]} not lossless")
+        kinds.add(tuple(sorted({ft for _, ft in outs})))
+    if (0, 1) not in kinds:
+        raise AssertionError(f"no mixed I/P step in the serving run: {kinds}")
+    phase("serving main path", t0)
+
+    single = CodecConfig(width=S_W, height=S_H, kf_interval=0, k_fixed=64, msr_x=256,
+                         msr_y=256)
+    for i in range(S_STREAMS):
+        e = TorchEncoder(single, dev)
+        for t in range(S_STEPS):
+            force = t > 0 and (t + offsets[i]) % S_KF == 0
+            if e.encode(host[t][i], force_key=force) != got[t][0][i]:
+                raise AssertionError(f"serving stream {i} step {t}: bytes differ from its "
+                                     "TorchEncoder session")
+    print(f"serving bytes equal {S_STREAMS} per-stream TorchEncoder sessions over "
+          f"{S_STEPS} steps")
+
+    gcfg = CodecConfig(width=48, height=32, kf_interval=3, k_fixed=8, msr_x=8, msr_y=8)
+    genc = ts.BatchedEncoder(4, gcfg, dev, kf_offsets=[0, 1, 2, 0])
+    gpay = [p for fr in golden_serving_frames() for p, _ in genc.encode(fr)]
+    with open(os.path.join(ROOT, "tests", "data", "golden_manifest.json")) as fh:
+        gmeta = json.load(fh)["procedural_serving_kfixed"]
+    if [len(p) for p in gpay] != gmeta["sizes"] or zlib.crc32(b"".join(gpay)) != gmeta["crc32"]:
+        raise AssertionError("procedural_serving_kfixed golden does not reproduce")
+    print("procedural_serving_kfixed golden: sizes and crc32 equal")
+    phase("serving byte checks", t0)
+
+    sizes = [sum(len(p) for p, _ in outs) for outs, _ in got]
+    n_sf = S_STREAMS * S_STEPS
+    for tag, d in (("first session", dt0), ("second session", dt)):
+        print(f"serving {tag}: {S_STREAMS} streams x {S_STEPS} steps at {S_W}x{S_H}, "
+              f"encode+decode {d:.3f} s: {n_sf / d:.2f} stream-frames/s, "
+              f"{n_sf * S_H * S_W / d / 1e6:.3f} Mpix/s on {smi}")
+    print(f"serving bytes per step: {sizes}; peak device memory of the counted session "
+          f"{peak / 2**20:.1f} MiB on {smi}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -86,7 +430,6 @@ def main() -> int:
     from screenpressor_tpu_torch import blocks as tb
     from screenpressor_tpu_torch import classify as tcl
     from screenpressor_tpu_torch import coder as tc
-    from screenpressor_tpu_torch import kernels as tk
     from screenpressor_tpu_torch import pframe as tp
     from screenpressor_tpu_torch import recon as tr
     from screenpressor_tpu_torch.tables import renew_tables
@@ -177,7 +520,7 @@ def main() -> int:
         lens = tc.lane_lens(n, k, dev)
         kts = ((nm, k, t),)
         ms, (bufs, starts, tab_k) = cuda_ms(
-            lambda: tk.encode_sections_kernel([dealt], [lens], tabs, kts), TIMED_REPS)
+            lambda: tc.encode_sections([dealt], [lens], tabs, kts), TIMED_REPS)
 
         def plain_encode():
             cum, freq, act, tab = tc.model_scan(dealt, lens, tabs, nm)
@@ -197,7 +540,7 @@ def main() -> int:
 
         pay = torch.as_tensor(tc.pad_payload(blobs, k), device=dev)
         dms, (recs, dtab_k) = cuda_ms(
-            lambda: tk.decode_sections_kernel([pay], [lens], tabs, kts), TIMED_REPS)
+            lambda: tc.decode_sections([pay], [lens], tabs, kts), TIMED_REPS)
         dplain_ms, (rec_p, dtab_p) = cuda_ms(
             lambda: tc.decode_section_scan(pay, lens, tabs, nm, t), 1, False)
         derr = max_abs_err([(recs[0].cpu().numpy(), rec_p.cpu().numpy()),
@@ -208,6 +551,41 @@ def main() -> int:
         print(f"K1/K2 {label}: n={n} k={k} t={t} bytes={sum(map(len, blobs))}: "
               f"encode {ms:.3f} ms (plain {plain_ms:.1f} ms), decode {dms:.3f} ms "
               f"(plain {dplain_ms:.1f} ms), bytes, records and tables equal")
+        if nm != "col":
+            continue
+        bm = tc.color_touched_bitmap(src, n)
+        col_w = tc.col_compact_bucket(int(bm.sum()))
+        if col_w is None:
+            print(f"K1-colw {label}: {int(bm.sum())} touched rows, no bucket (full col)")
+            continue
+        kts_w = ((f"colw{col_w}", k, t),)
+        wms, (b_w, s_w, tab_w) = cuda_ms(
+            lambda: tc.encode_sections([dealt], [lens], tabs, kts, col_w, bm), TIMED_REPS)
+
+        def plain_colw():
+            one = {key: v[None].clone() for key, v in tabs["color"].items()}
+            recs_c, ctab_c, maps = tc.color_compact_streams(dealt[None], lens[None], bm[None],
+                                                            one, [0], col_w)
+            (buf_c,), (start_c,) = tc.encode_sections_streams_plain(
+                [recs_c], [lens[None]], {"color": ctab_c}, kts_w, [0], ("color",))
+            tc.color_restore_streams(one, [0], ctab_c, maps)
+            return buf_c[0], start_c[0], {"color": {key: v[0] for key, v in one.items()}}
+
+        wplain_ms, (buf_p, start_p, tab_p) = cuda_ms(plain_colw, 1, False)
+        blobs_w = tc.blobs_from_buf(b_w[0].cpu().numpy(), s_w[0].cpu().numpy(), lens_np)
+        if blobs_w != blobs or blobs_w != tc.blobs_from_buf(
+                buf_p.cpu().numpy(), start_p.cpu().numpy(), lens_np):
+            raise AssertionError(f"K1-colw {label}: bytes differ from full col or plain colw")
+        err = max_abs_err([(s_w[0].cpu().numpy(), starts[0].cpu().numpy()),
+                           (s_w[0].cpu().numpy(), start_p.cpu().numpy())]
+                          + tables_pairs(tab_w, {"color": tab_k["color"]})
+                          + tables_pairs(tab_w, tab_p))
+        record("sptc_sections_encode_colw", wms, wplain_ms, err)
+        print(f"K1-colw {label}: colw{col_w}, {int(bm.sum())} touched rows: colw path "
+              f"{wms:.3f} ms (full col {ms:.3f} ms, plain colw {wplain_ms:.1f} ms), bytes, "
+              "starts and restored tables equal full col and plain colw")
+    if "sptc_sections_encode_colw" not in rows:
+        raise AssertionError("no 1080p col section fits a colw bucket")
     phase("kernels vs plain", t0)
 
     # ---- 4. the main path: a first session, then the counted one ----
@@ -226,8 +604,10 @@ def main() -> int:
     _build.reset_counts()
     payloads, decoded, t_enc, t_dec = session()
     launches = dict(_build.LAUNCHES)
-    print(f"main path launches: {launches}")
-    missing = [k for k, v in launches.items() if v <= 0]
+    print(f"single-stream main path launches: {launches}")
+    single = ("sptc_sections_encode", "sptc_sections_encode_colw", "sptc_sections_decode",
+              "sptc_run_walk", "sptc_recon_rows")
+    missing = [k for k in single if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the main path: {missing}")
     phase("main path", t0)
@@ -259,21 +639,33 @@ def main() -> int:
               f"{mpix / td_:.3f} Mpix/s ({td_:.3f} s) for {len(frames)} frames "
               f"at {W}x{H} on {smi}")
 
-    sources = {
-        "sptc_sections_encode": ("screenpressor_tpu_torch/csrc/sections.cu",
-                                 "screenpressor_tpu/jx/kernels.py:1016"),
-        "sptc_sections_decode": ("screenpressor_tpu_torch/csrc/sections.cu",
-                                 "screenpressor_tpu/jx/kernels.py:577"),
-        "sptc_run_walk": ("screenpressor_tpu_torch/csrc/run_walk.cu",
-                          "screenpressor_tpu/jx/classify.py:142"),
-        "sptc_recon_rows": ("screenpressor_tpu_torch/csrc/recon.cu",
-                            "screenpressor_tpu/jx/recon.py:143"),
-    }
+    s_cfg, s_offsets, s_host, s_batches = serving_batches(dev, synth_screencast)
+    serving_kernels_vs_plain(t0, dev, record, s_cfg, s_offsets, s_host, s_batches)
+    serve = serving_main_path(t0, dev, smi, s_cfg, s_offsets, s_host, s_batches)
+
+    sections = "screenpressor_tpu_torch/csrc/sections.cu"
+    walk = "screenpressor_tpu_torch/csrc/run_walk.cu"
+    recon = "screenpressor_tpu_torch/csrc/recon.cu"
+    k1, k2 = "screenpressor_tpu/jx/kernels.py:1016", "screenpressor_tpu/jx/kernels.py:577"
+    k2_grid, k3 = "screenpressor_tpu/jx/kernels.py:685", "screenpressor_tpu/jx/classify.py:142"
+    k4 = "screenpressor_tpu/jx/recon.py:143"
+    entries = (  # (entry, its launch count, main path's counts, source, TPU kernel)
+        ("sptc_sections_encode", "sptc_sections_encode", launches, sections, k1),
+        ("sptc_sections_encode_colw", "sptc_sections_encode_colw", launches, sections, k1),
+        ("sptc_sections_decode", "sptc_sections_decode", launches, sections, k2),
+        ("sptc_run_walk", "sptc_run_walk", launches, walk, k3),
+        ("sptc_recon_rows", "sptc_recon_rows", launches, recon, k4),
+        ("sptc_sections_encode_streams", "sptc_sections_encode", serve, sections, k1),
+        ("sptc_sections_encode_colw_streams", "sptc_sections_encode_colw", serve, sections, k1),
+        ("sptc_sections_decode_streams", "sptc_sections_decode", serve, sections, k2_grid),
+        ("sptc_run_walk_streams", "sptc_run_walk", serve, walk, k3),
+        ("sptc_recon_rows_streams", "sptc_recon_rows", serve, recon, k4),
+    )
     kernels = [
-        {"name": kname, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[kname], "max_abs_err": rows[kname]["err"],
-         "ms": round(rows[kname]["ms"], 4), "plain_ms": round(rows[kname]["plain_ms"], 4)}
-        for kname, (src, rep) in sources.items()
+        {"name": entry, "route": "cuda", "source": src, "replaces": rep,
+         "launches": path[count], "max_abs_err": rows[entry]["err"],
+         "ms": round(rows[entry]["ms"], 4), "plain_ms": round(rows[entry]["plain_ms"], 4)}
+        for entry, count, path, src, rep in entries
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,11 +1,14 @@
 """Build, load and count the hand-written Hopper kernels.
 
-`csrc/*.cu` compile with `nvcc` for `sm_90a` into one shared library with a
-plain C interface under `build/torch_kernels/` (next to the package), named
-by a hash of the sources so an edited source rebuilds on first use. The
+`csrc/*.cu` compile with `nvcc` for `sm_90a`, one process per source, all
+started together, and link into one shared library with a plain C
+interface under `build/torch_kernels/` (next to the package), named by a
+hash of the sources so an edited source rebuilds on first use. The
 library is loaded with ctypes; every kernel wrapper calls `launch`, which
-adds one to that kernel's launch count, passes PyTorch's current stream and
-raises when the launch is refused.
+adds one to that kernel's launch count (and K1's colw variant's, for a
+launch that holds a colw section), passes PyTorch's current stream and
+raises when the launch is refused. Compiling the sources side by side
+bounds the build by its slowest source, not by their sum.
 
 Nothing here runs at import: the build happens on the first launch, so the
 CPU tests (no nvcc, no card) import every module freely.
@@ -26,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,14 +37,15 @@ _L = ctypes.c_longlong
 
 # C entry point -> argument types (every launcher returns a cudaError_t)
 SIGNATURES = {
-    "sptc_sections_encode": (_P, _I, _P),
-    "sptc_sections_decode": (_P, _I, _P),
+    "sptc_sections_encode": (_P, _I, _I, _P),
+    "sptc_sections_decode": (_P, _I, _I, _P),
     "sptc_run_walk": (_P, _P, _P, _L, _I, _P),
-    "sptc_recon_rows": (_P, _P, _P, _I, _I, _I, _P),
+    "sptc_recon_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
-# kernel name -> launches since the last reset_counts()
-LAUNCHES = {name: 0 for name in SIGNATURES}
+# kernel -> launches since the last reset_counts(); a K1 launch that holds
+# a colw section also adds one to `sptc_sections_encode_colw`.
+LAUNCHES = {name: 0 for name in (*SIGNATURES, "sptc_sections_encode_colw")}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -71,24 +75,40 @@ def _nvcc() -> str:
     return found
 
 
+def _run(cmds, verbose: bool) -> None:
+    """Run the commands side by side; raise with the output of a failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+        if verbose and out:
+            print(out, flush=True)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu into the hashed library unless it exists."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs, cmds = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        cmds.append([nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                     "-c", "-o", str(obj), str(src)])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp)] + [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, out)
+    try:
+        _run(cmds, verbose)
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]], verbose)
+        os.replace(tmp, out)
+    finally:
+        for leftover in (*objs, tmp):
+            leftover.unlink(missing_ok=True)
     return out
 
 
@@ -105,14 +125,16 @@ def library():
     return _LIB
 
 
-def launch(name: str, *args) -> None:
-    """Launch kernel `name` on the current stream; raises if refused."""
+def launch(name: str, *args, counts=None) -> None:
+    """Launch C entry `name` on the current stream and add one to each of
+    `counts` (default: `name`); raises if the launch is refused."""
     fn = getattr(library(), name)
     stream = torch.cuda.current_stream().cuda_stream
     err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
-    LAUNCHES[name] += 1
+    for count in counts or (name,):
+        LAUNCHES[count] += 1
 
 
 def reset_counts() -> None:

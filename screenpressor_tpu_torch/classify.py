@@ -143,9 +143,32 @@ def classify_from_starts(is_start: torch.Tensor, st: torch.Tensor,
 def classify_i(frame: torch.Tensor):
     """Device classification of a keyframe: (records [n, 2] (ptype, run),
     n_records, lits [n, 3], n_literals); counts stay on the device."""
-    h, w, _ = frame.shape
+    return classify_i_streams(frame[None])[0]
+
+
+def walk_inputs_streams(frames: torch.Tensor):
+    """The run walk's inputs for the frames of [C, H, W, 3]: fits bits and
+    start types [C, n_pad] int32, each frame's positions padded to a whole
+    number of seg tiles so that no tile straddles two frames, and the tile."""
+    c, h, w, _ = frames.shape
     n = h * w
-    fits = fits_planes_i(frame)
-    st = start_types_i(fits)
-    is_start = run_walk(fits_bits(fits), st, seg_tile(n, w))
-    return classify_from_starts(is_start, st, frame.reshape(n, 3))
+    tile = seg_tile(n, w)
+    n_pad = -(-n // tile) * tile
+    bits = torch.zeros((c, n_pad), dtype=I32, device=frames.device)
+    sts = torch.zeros((c, n_pad), dtype=I32, device=frames.device)
+    for i in range(c):
+        fits = fits_planes_i(frames[i])
+        sts[i, :n] = start_types_i(fits)
+        bits[i, :n] = fits_bits(fits)
+    return bits, sts, tile
+
+
+def classify_i_streams(frames: torch.Tensor):
+    """classify_i of each frame of [C, H, W, 3], with one run walk (K3) over
+    all of them (`walk_inputs_streams`). Returns a list of C results."""
+    c, h, w, _ = frames.shape
+    n = h * w
+    bits, sts, tile = walk_inputs_streams(frames)
+    is_start = run_walk(bits.reshape(-1), sts.reshape(-1), tile).reshape(c, -1)
+    return [classify_from_starts(is_start[i, :n], sts[i, :n], frames[i].reshape(n, 3))
+            for i in range(c)]

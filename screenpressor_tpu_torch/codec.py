@@ -21,6 +21,7 @@ from screenpressor_tpu import bitstream as bs
 from screenpressor_tpu.config import ALG_FLAT, ALG_I, ALG_P, ALG_RAW, CodecConfig
 
 from screenpressor_tpu_torch.blocks import analyze_compact, mv_candidates
+from screenpressor_tpu_torch.coder import col_compact_bucket, color_touched_bitmap
 from screenpressor_tpu_torch.iframe import (
     decode_i_device,
     encode_i_raw,
@@ -65,19 +66,25 @@ def _pull(tensors):
     return out
 
 
-def gather_segments(parts, segs):
-    """One torch.cat + index + device-to-host copy: parts are flat uint8
-    tensors, segs (part, offset, length) byte ranges. Returns the
-    concatenated bytes as numpy."""
+def gather_segments_device(parts, segs, device) -> torch.Tensor:
+    """One torch.cat + index on the device: parts are flat uint8 tensors,
+    segs (part, offset, length) byte ranges. Returns the concatenated bytes
+    as a uint8 tensor."""
     if not segs:
-        return np.zeros(0, np.uint8)
+        return torch.zeros(0, dtype=torch.uint8, device=device)
     bases = np.cumsum([0] + [p.numel() for p in parts])
     src = np.asarray([bases[p] + o for p, o, _ in segs], np.int64)
     lens = np.asarray([ln for _, _, ln in segs], np.int64)
     dst = np.cumsum(lens) - lens
     idx = np.repeat(src - dst, lens) + np.arange(int(lens.sum()), dtype=np.int64)
     flat = torch.cat(parts)
-    return flat[torch.as_tensor(idx, device=flat.device)].cpu().numpy()
+    return flat[torch.as_tensor(idx, device=flat.device)]
+
+
+def gather_segments(parts, segs):
+    """gather_segments_device + one device-to-host copy -> numpy bytes."""
+    dev = parts[0].device if parts else "cpu"
+    return gather_segments_device(parts, segs, dev).cpu().numpy()
 
 
 class TorchEncoder:
@@ -124,8 +131,8 @@ class TorchEncoder:
                 or (cfg.kf_interval > 0 and fn % cfg.kf_interval == 0)
             )
             if keyframe:
-                records, lits, c = i_phase(devs[i])
-                plans.append(("I", (records, lits)))
+                records, lits, c, bm = i_phase(devs[i])
+                plans.append(("I", (records, lits, bm)))
                 counts.append(c)
             else:
                 arrs, c, flat = analyze_compact(devs[i], prev_chain[i],
@@ -144,8 +151,11 @@ class TorchEncoder:
         for i, (kind, arrs) in enumerate(plans):
             ch = counts_host[i]
             if kind == "P" and ch[0] and not flat_of(kind, ch)[0] and ch[6]:
-                phase_b[i] = classify_assemble(devs[i], prev_chain[i],
-                                               arrs["data_rects"], int(ch[6]))
+                pix, lit, pl = classify_assemble(devs[i], prev_chain[i],
+                                                 arrs["data_rects"], int(ch[6]))
+                bm = color_touched_bitmap(lit, pl[1])
+                phase_b[i] = (pix, lit, torch.cat([pl, bm.sum(dtype=pl.dtype).reshape(1)]),
+                              bm)
         b_idx = [i for i in range(n) if phase_b[i] is not None]
         pl_host = dict(zip(b_idx, _pull([phase_b[i][2] for i in b_idx])))
 
@@ -168,9 +178,10 @@ class TorchEncoder:
             last_flat = False
             if kind == "I":
                 n_rec, n_lit = int(ch[0]), int(ch[1])
-                records, lits = payload
+                records, lits, bm = payload
                 out = encode_i_raw(records, n_rec, lits, n_lit,
-                                   renew_tables_cached(self.device), cfg, raw_size)
+                                   renew_tables_cached(self.device), cfg, raw_size,
+                                   col_compact_bucket(int(ch[6])), bm)
                 tables = out[7]
                 k_rec, _, k_col, _ = i_geometry(n_rec, n_lit, cfg)
                 handles[i] = ("I", (n_rec, n_lit),

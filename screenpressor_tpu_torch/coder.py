@@ -4,13 +4,22 @@ Lane geometry (format-normative contiguous chunking), the plain section
 coder and the kernel dispatch. The plain coder is a Python loop over the T
 steps of a section: `model_scan` + `rans_pack` is the plain version of the
 fused encode kernel K1, `decode_section_scan` that of the fused decode
-kernel K2 (`kernels.py`). `encode_sections` / `decode_sections` run the
-plain coder on CPU tensors and the kernels on CUDA tensors; there is no
-other switch.
+kernel K2 (`kernels.py`). `encode_sections_streams` /
+`decode_sections_streams` code the sections of a batch of streams, whose
+[S, ...] tables they update in place: the plain coder's stream loop on CPU
+tensors, the kernels on CUDA tensors; there is no other switch.
+`encode_sections` / `decode_sections` (one stream, functional) are their
+one-stream case on copies of the tables.
+
+The col section may be encoded over a compact touched-row color table
+(`colw256` / `colw1024`, `color_compact_streams`) whenever the rows it can
+touch fit a bucket: same bytes and same table state as `col` over the full
+table.
 
 Shapes: records are dealt to [T, K, W] int32 with T = ceil(n / K) (masked
 padding steps never change a stream, so any T >= ceil(n / K) gives the same
-bytes); payloads are [K, L] uint8 with L >= 4.
+bytes; a batch of streams takes the largest T); payloads are [K, L] uint8
+with L >= 4.
 """
 
 from __future__ import annotations
@@ -18,7 +27,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from screenpressor_tpu.config import PROB_BITS, PROB_SCALE, RANS_L, kind_gstep, kind_step
+from screenpressor_tpu.config import (
+    COL_COMPACT_BUCKETS,
+    COLOR_CTX_ROWS,
+    PROB_BITS,
+    PROB_SCALE,
+    RANS_L,
+    color_ctx,
+    kind_gstep,
+    kind_step,
+)
 
 from screenpressor_tpu_torch.substeps import SUBSTEP_CODECS as CODECS
 from screenpressor_tpu_torch.tables import effective_rows, update_batch
@@ -222,36 +240,249 @@ def pack_cap(codec_name: str, t_steps: int) -> int:
     return 2 * t_steps * len(CODECS[codec_name].kinds) + 8
 
 
-def encode_sections(dealt_list, lens_list, tables: dict, kts):
-    """Encode sections in order with chained tables.
+# ---------------------------------------------------------------------------
+# A batch of streams: the serving sessions' section coder
+# ---------------------------------------------------------------------------
 
-    kts: tuple of (codec_name, k, t_steps). Returns (bufs [K, cap] uint8,
-    starts [K] int32, tables') as lists aligned with kts."""
+
+def _stream_tables(tables_b: dict, j: int, s: int, slot_kinds, kinds) -> dict:
+    """Views of one stream's tables of `kinds` (slot j's for slot_kinds)."""
+    return {kd: {key: v[j if kd in slot_kinds else s] for key, v in tables_b[kd].items()}
+            for kd in kinds}
+
+
+def _write_back(views: dict, tables: dict) -> None:
+    for kd, tab in views.items():
+        for key, v in tab.items():
+            v.copy_(tables[kd][key])
+
+
+def encode_sections_streams(dealt_list, lens_list, tables_b: dict, kts, sidx,
+                            col_w=None, col_bm=None):
+    """Encode the sections of C streams, one launch per section group.
+
+    dealt_list: [C, T, K, W] per section; lens_list: [C, K]; sidx: the C
+    (distinct) stream ids of `tables_b` [S, ...], whose tables are updated in
+    place; col_bm: [C, 3 * COLOR_CTX_ROWS] touched-row bitmaps when col_w is
+    set. Returns (bufs [C, K, cap] uint8, starts [C, K] int32) per section.
+    The plain version (CPU tensors) is the stream loop of `model_scan` +
+    `rans_pack`."""
+    sidx = [int(v) for v in sidx]
+    tabs, slot_kinds, compact = tables_b, (), None
+    if col_w is not None and any(name == "col" for name, _, _ in kts):
+        i = next(j for j, (name, _, _) in enumerate(kts) if name == "col")
+        recs_c, ctab_c, maps = color_compact_streams(
+            dealt_list[i], lens_list[i], col_bm, tables_b["color"], sidx, col_w)
+        dealt_list = list(dealt_list)
+        dealt_list[i] = recs_c
+        kts = tuple((f"colw{col_w}", k, t) if j == i else (name, k, t)
+                    for j, (name, k, t) in enumerate(kts))
+        tabs, slot_kinds, compact = {**tables_b, "color": ctab_c}, ("color",), (ctab_c, maps)
     if dealt_list[0].is_cuda:
         from screenpressor_tpu_torch import kernels
 
-        return kernels.encode_sections_kernel(dealt_list, lens_list, tables, kts)
-    bufs, starts = [], []
-    for (name, _k, t), recs, lens in zip(kts, dealt_list, lens_list):
-        cum, freq, act, tables = model_scan(recs, lens, tables, name)
-        buf, start = rans_pack(cum, freq, act, pack_cap(name, t))
-        bufs.append(buf)
-        starts.append(start)
-    return bufs, starts, tables
+        bufs, starts = kernels.encode_sections_streams_kernel(
+            dealt_list, lens_list, tabs, kts, sidx, slot_kinds)
+    else:
+        bufs, starts = encode_sections_streams_plain(dealt_list, lens_list, tabs, kts,
+                                                     sidx, slot_kinds)
+    if compact is not None:
+        color_restore_streams(tables_b["color"], sidx, *compact)
+    return bufs, starts
 
 
-def decode_sections(pay_list, lens_list, tables: dict, kts):
-    """Decode sections in order with chained tables -> (records [T, K, W]
-    list, tables')."""
+def decode_sections_streams(pay_list, lens_list, tables_b: dict, kts, sidx):
+    """Decode the sections of C streams, one launch per section group.
+
+    pay_list: [C, K, L] uint8 per section; lens_list: [C, K]; the tables of
+    streams `sidx` in `tables_b` [S, ...] are updated in place. Returns
+    records [C, T, K, W] per section. The plain version (CPU tensors) is the
+    stream loop of `decode_section_scan`."""
+    sidx = [int(v) for v in sidx]
     if pay_list[0].is_cuda:
         from screenpressor_tpu_torch import kernels
 
-        return kernels.decode_sections_kernel(pay_list, lens_list, tables, kts)
-    recs = []
-    for (name, _k, t), pay, lens in zip(kts, pay_list, lens_list):
-        r, tables = decode_section_scan(pay, lens, tables, name, t)
-        recs.append(r)
-    return recs, tables
+        return kernels.decode_sections_streams_kernel(pay_list, lens_list, tables_b,
+                                                      kts, sidx)
+    return decode_sections_streams_plain(pay_list, lens_list, tables_b, kts, sidx)
+
+
+def encode_sections_streams_plain(dealt_list, lens_list, tables_b: dict, kts, sidx,
+                                  slot_kinds=()):
+    """Plain version of the stream-batched K1 launch (any device): the
+    stream loop of model_scan + rans_pack, each stream's tables written back
+    in place (slot_kinds: kinds whose tables are per slot)."""
+    kinds = {kd for name, _, _ in kts for kd in CODECS[name].kinds}
+    per = []
+    for j, s in enumerate(sidx):
+        views = _stream_tables(tables_b, j, s, slot_kinds, kinds)
+        tabs, out = views, []
+        for (name, _k, t), recs, lens in zip(kts, dealt_list, lens_list):
+            cum, freq, act, tabs = model_scan(recs[j], lens[j], tabs, name)
+            out.append(rans_pack(cum, freq, act, pack_cap(name, t)))
+        _write_back(views, tabs)
+        per.append(out)
+    return ([torch.stack([p[i][0] for p in per]) for i in range(len(kts))],
+            [torch.stack([p[i][1] for p in per]) for i in range(len(kts))])
+
+
+def decode_sections_streams_plain(pay_list, lens_list, tables_b: dict, kts, sidx):
+    """Plain version of the stream-batched K2 launch (any device): the
+    stream loop of decode_section_scan, each stream's tables written back in
+    place."""
+    kinds = {kd for name, _, _ in kts for kd in CODECS[name].kinds}
+    per = []
+    for j, s in enumerate(sidx):
+        views = _stream_tables(tables_b, j, s, (), kinds)
+        tabs, out = views, []
+        for (name, _k, t), pay, lens in zip(kts, pay_list, lens_list):
+            recs, tabs = decode_section_scan(pay[j], lens[j], tabs, name, t)
+            out.append(recs)
+        _write_back(views, tabs)
+        per.append(out)
+    return [torch.stack([p[i] for p in per]) for i in range(len(kts))]
+
+
+def _one_stream(tables: dict, kts) -> dict:
+    """Copies [1, ...] of the tables the sections touch, for the
+    stream-batched coder to update."""
+    kinds = {kd for name, _, _ in kts for kd in CODECS[name].kinds}
+    return {kd: {key: v[None].clone() for key, v in tables[kd].items()} for kd in kinds}
+
+
+def _from_one_stream(tables: dict, tabs: dict) -> dict:
+    return {**tables, **{kd: {key: v[0] for key, v in tab.items()} for kd, tab in tabs.items()}}
+
+
+def encode_sections(dealt_list, lens_list, tables: dict, kts, col_w=None,
+                    col_bm=None):
+    """Encode the sections of one stream in order with chained tables: the
+    one-stream case of `encode_sections_streams`.
+
+    kts: tuple of (codec_name, k, t_steps). col_w / col_bm: a compact color
+    bucket (`col_compact_bucket`) and the col section's touched-row bitmap
+    (`color_touched_bitmap`), to encode that section as colw. Returns (bufs
+    [K, cap] uint8, starts [K] int32, tables') as lists aligned with kts;
+    the input tables are not written."""
+    tabs = _one_stream(tables, kts)
+    bufs, starts = encode_sections_streams(
+        [d[None] for d in dealt_list], [ln[None] for ln in lens_list], tabs, kts, [0],
+        col_w, None if col_bm is None else col_bm[None])
+    return [b[0] for b in bufs], [st[0] for st in starts], _from_one_stream(tables, tabs)
+
+
+def decode_sections(pay_list, lens_list, tables: dict, kts):
+    """Decode the sections of one stream in order with chained tables (the
+    one-stream case of `decode_sections_streams`) -> (records [T, K, W]
+    list, tables'); the input tables are not written."""
+    tabs = _one_stream(tables, kts)
+    recs = decode_sections_streams([p[None] for p in pay_list],
+                                   [ln[None] for ln in lens_list], tabs, kts, [0])
+    return [r[0] for r in recs], _from_one_stream(tables, tabs)
+
+
+# ---------------------------------------------------------------------------
+# Compact color-table encode (colw)
+# ---------------------------------------------------------------------------
+
+
+def color_touched_bitmap(lits: torch.Tensor, n_lit) -> torch.Tensor:
+    """[3 * COLOR_CTX_ROWS] bool superset of the color rows a col section
+    over these literals can touch, for any lane count (jx/coder.py
+    color_touched_bitmap): the global previous-literal chain covers every
+    lane-interior step; a lane's first step sees state (0, 0), so row 0 and
+    plane 1's color_ctx(0, R) are included; row 0 is also where padding
+    steps park. lits: [cap, 3] in record order, the first n_lit valid."""
+    cap = lits.shape[0]
+    dev = lits.device
+    lits = lits.to(I32)
+    r, g, b = lits[:, 0], lits[:, 1], lits[:, 2]
+    z = torch.zeros(1, dtype=I32, device=dev)
+    pg = torch.cat([z, g[:-1]])
+    pb = torch.cat([z, b[:-1]])
+    valid = torch.arange(cap, device=dev) < n_lit
+    bm = torch.zeros(3 * COLOR_CTX_ROWS, dtype=torch.bool, device=dev)
+    for rows in (color_ctx(pg, pb), COLOR_CTX_ROWS + color_ctx(pb, r),
+                 COLOR_CTX_ROWS + color_ctx(torch.zeros_like(r), r),
+                 2 * COLOR_CTX_ROWS + color_ctx(r, g)):
+        bm[torch.where(valid, rows, 0).long()] = True
+    bm[0] = True
+    return bm
+
+
+def col_compact_bucket(n_touch: int):
+    """Smallest compact bucket that holds n_touch rows and is smaller than
+    a plane's row window, or None (full table)."""
+    for b in COL_COMPACT_BUCKETS:
+        if n_touch <= b < COLOR_CTX_ROWS:
+            return b
+    return None
+
+
+def _col_rows_exact(recs: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """Color rows `Col` reads for dealt records [..., T, K, 3] with lens
+    [..., K]; padding steps park on row 0."""
+    r, g, b = recs[..., 0], recs[..., 1], recs[..., 2]
+    z = torch.zeros_like(g[..., :1, :])
+    pg = torch.cat([z, g[..., :-1, :]], dim=-2)
+    pb = torch.cat([z, b[..., :-1, :]], dim=-2)
+    rows = torch.stack([color_ctx(pg, pb), COLOR_CTX_ROWS + color_ctx(pb, r),
+                        2 * COLOR_CTX_ROWS + color_ctx(r, g)], dim=-1)
+    t = torch.arange(recs.shape[-3], device=recs.device)[:, None]
+    active = t < lens[..., None, :]
+    return torch.where(active[..., None], rows, 0).to(I32)
+
+
+def color_compact_streams(recs: torch.Tensor, lens: torch.Tensor, bm: torch.Tensor,
+                          ctab_b: dict, sidx, col_w: int):
+    """Rewrite the col sections of C streams to the colw form.
+
+    recs [C, T, K, 3], lens [C, K], bm [C, 3 * COLOR_CTX_ROWS] touched-row
+    bitmaps (at most col_w rows each, row 0 included), ctab_b the color
+    tables [S, ...] of which streams sidx are encoded. Returns (records
+    [C, T, K, 6] with each color row remapped to its compact slot, the
+    compact tables {cnt [C, col_w, A], cntsum [C, col_w], gcnt, gsum} per
+    slot, maps for `color_restore_streams`).
+
+    Slot i of a stream holds its i-th touched row in ascending order; the
+    slots past its touched count are filler that no record indexes. Only the
+    touched rows write the row -> slot table, so a touched row never maps to
+    a filler slot (the reference's clamp of the filler to the last row,
+    jx/coder.py:549, does, when that row is touched)."""
+    nrows = 3 * COLOR_CTX_ROWS
+    c = recs.shape[0]
+    dev = recs.device
+    perm = torch.where(bm, torch.arange(nrows, device=dev), nrows).sort(dim=1).values
+    perm = perm[:, :col_w]
+    valid = perm < nrows
+    lut = torch.zeros((c, nrows + 1), dtype=I32, device=dev)  # column nrows: sink
+    lut.scatter_(1, perm, torch.arange(col_w, dtype=I32, device=dev).expand(c, col_w))
+    rows = _col_rows_exact(recs, lens)
+    slots = lut.gather(1, rows.reshape(c, -1).long()).reshape(rows.shape)
+    recs_c = torch.cat([recs.to(I32), slots], dim=-1)
+    st = torch.as_tensor(sidx, device=dev).long()
+    src = torch.where(valid, perm, 0)  # filler reads row 0 (never indexed)
+    ctab_c = {"cnt": ctab_b["cnt"][st[:, None], src],
+              "cntsum": ctab_b["cntsum"][st[:, None], src]}
+    for key in ("gcnt", "gsum"):
+        if key in ctab_b:
+            ctab_c[key] = ctab_b[key][st]
+    return recs_c, ctab_c, (st, src, valid)
+
+
+def color_restore_streams(ctab_b: dict, sidx, ctab_c: dict, maps) -> None:
+    """Write compact tables back into the full color tables [S, ...] of
+    streams sidx, in place. Filler slots write row 0 with slot 0's values
+    (slot 0 always holds row 0), so duplicate writes agree."""
+    st, src, valid = maps
+    slot = torch.where(valid, torch.arange(src.shape[1], device=src.device), 0)
+    cidx = torch.arange(src.shape[0], device=src.device)[:, None]
+    sv = st[:, None].expand_as(src)
+    ctab_b["cnt"][sv, src] = ctab_c["cnt"][cidx, slot]
+    ctab_b["cntsum"][sv, src] = ctab_c["cntsum"][cidx, slot]
+    for key in ("gcnt", "gsum"):
+        if key in ctab_c:
+            ctab_b[key][st] = ctab_c[key]
 
 
 def pad_payload(blobs, k: int) -> np.ndarray:

@@ -2,7 +2,9 @@
 
 The port never imports JAX: these take any array that `np.asarray`
 accepts (a JAX array included) and return torch tensors, or the reverse,
-so a test can feed identical tables and records to both packages.
+so a test can feed identical tables and records to both packages. Table
+trees may carry a leading stream axis (the serving sessions' [S, ...]
+tables); the shapes pass through unchanged.
 """
 
 from __future__ import annotations
@@ -21,9 +23,10 @@ def tables_from_jax(tree, device="cpu") -> dict:
 
 
 def tables_to_numpy(tables: dict) -> dict:
-    """The port's table dict -> {kind: {key: np.ndarray}} (int32)."""
+    """A table tree of either package -> {kind: {key: np.ndarray}} (int32)."""
     return {
-        kd: {key: v.detach().cpu().numpy().astype(np.int32)
+        kd: {key: np.array(v.detach().cpu() if isinstance(v, torch.Tensor) else v,
+                           np.int32)
              for key, v in tab.items()}
         for kd, tab in tables.items()
     }

@@ -9,16 +9,19 @@
 // of row y, and column 0's aboveleft is the last slot of the previous
 // padded row (jx/recon.py:96).
 //
-// Design: one thread block walks all rows. Per row each thread loads its
-// contiguous chunk of pt/lit, builds its (a, b) pairs against the previous
-// row held in shared memory (a 2048 x 3 int32 row is 24 KB at 1080p),
-// composes them, and a block-wide scan of the affine compositions (warp
-// shuffles, then one warp over the warp totals) gives the value entering
-// each chunk; the thread then writes its pixels and the new row.
+// Design: one thread block walks all rows of one frame; a launch takes a
+// batch of frames [N, H, Wp] (the keyframing streams of a serving step, or
+// one frame), one block each (blockIdx.x = frame). Per row each thread
+// loads its contiguous chunk of pt/lit, builds its (a, b) pairs against the
+// previous row held in shared memory (a 2048 x 3 int32 row is 24 KB at
+// 1080p), composes them, and a block-wide scan of the affine compositions
+// (warp shuffles, then one warp over the warp totals) gives the value
+// entering each chunk; the thread then writes its pixels and the new row.
 //
 // What bounds it on this card: the serial row chain (1080 rows, four block
-// barriers each) on one SM; bytes are 2 x 24 KB per row. Accepted for
-// bring-up. Arithmetic is uint32 so it wraps exactly like jx's int32.
+// barriers each) on one SM per frame; bytes are 2 x 24 KB per row. A batch
+// of frames fills more SMs. Accepted for bring-up. Arithmetic is uint32 so
+// it wraps exactly like jx's int32.
 
 #include <cuda_runtime.h>
 
@@ -47,6 +50,9 @@ __device__ __forceinline__ Aff shfl_up(const Aff& f, int o) {
 __global__ void __launch_bounds__(1024)
 recon_kernel(const int* __restrict__ pt, const int* __restrict__ lit,
              unsigned char* __restrict__ out, int h, int w, int wp) {
+  pt += (size_t)blockIdx.x * h * wp;
+  lit += (size_t)blockIdx.x * h * wp * 3;
+  out += (size_t)blockIdx.x * h * w * 3;
   extern __shared__ unsigned smem[];
   unsigned* prev = smem;              // [wp * 3] previous row
   Aff* wtot = (Aff*)(smem + wp * 3);  // [32] warp totals, then prefixes
@@ -133,15 +139,16 @@ recon_kernel(const int* __restrict__ pt, const int* __restrict__ lit,
   }
 }
 
+// pt [n, h, wp], lit [n, h, wp, 3] -> out [n, h, w, 3]
 extern "C" int sptc_recon_rows(const int* pt, const int* lit, unsigned char* out,
-                               int h, int w, int wp, void* stream) {
-  if (wp < 128 || wp > 8192 || (wp & (wp - 1)) || w > wp)
+                               int n, int h, int w, int wp, void* stream) {
+  if (wp < 128 || wp > 8192 || (wp & (wp - 1)) || w > wp || n < 1)
     return (int)cudaErrorInvalidValue;
   const int threads = wp < 1024 ? wp : 1024;
   const size_t smem = (size_t)wp * 3 * sizeof(unsigned) + 32 * sizeof(Aff);
   cudaError_t err = cudaFuncSetAttribute(
       recon_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  recon_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(pt, lit, out, h, w, wp);
+  recon_kernel<<<n, threads, smem, (cudaStream_t)stream>>>(pt, lit, out, h, w, wp);
   return (int)cudaGetLastError();
 }

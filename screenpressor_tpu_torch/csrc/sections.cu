@@ -6,9 +6,19 @@
 // and computes exactly what jx/coder.py's model_scan + rans_pack and
 // decode_section_scan compute (the plain versions in coder.py).
 //
-// Design. One thread block per section; the sections of one launch use
-// disjoint table kinds (the wrapper checks), so they run as independent
-// blocks. The K lanes of a section step in lockstep over T steps x S
+// Design. One thread block per (section, stream): blockIdx.x picks the
+// section, blockIdx.y the launch slot, whose stream id comes from a device
+// int32 index list (the grid over streams of _decode_call's custom-vmap
+// rule, jx/kernels.py:685, and of the vmapped K1 of parallel/serving.py).
+// The sections of one launch use disjoint table kinds and the streams of a
+// launch are distinct (the wrapper checks), so every block owns the tables
+// it updates. Tables are [S, rows, alpha] (one stream's set is the S = 1
+// case) and are addressed as base + stream * stride, or base + slot *
+// stride for a table gathered per slot (the compact colw color table).
+// Records, lens, scratch and outputs are per-slot arrays [C, ...]; a
+// section's T is the largest over the launched streams, and padding steps
+// are masked by each lane's len, so every stream's bytes equal its own
+// exact-T encode. The K lanes of a section step in lockstep over T steps x S
 // substeps. Per substep:
 //   (a) each active lane (one warp per lane, warps stride over lanes)
 //       gathers its table row, builds the effective row (mixed kinds: the
@@ -25,8 +35,15 @@
 //       rescales the global row when its sum crossed the threshold;
 //   (f) __syncthreads before the next substep, which may hit the same kind.
 // Tables are int32 in global memory (the color table is 3 x 4096 x 256
-// counts, 12.6 MB: it stays in the 50 MB L2). The wrapper passes copies;
-// the kernel updates them in place. K1 stages (cum, freq, act) per
+// counts, 12.6 MB per stream). The kernel updates them in place: the
+// single-stream wrapper passes copies, the serving sessions their own
+// [S, ...] tables.
+//
+// colw (C_COLW, jx/substeps.py ColW): the col section over a compact
+// touched-row color table gathered by the wrapper (coder.py
+// color_compact_streams). Records carry RGB plus the three compact rows;
+// the coding distributions, and so the bytes, are those of C_COL over the
+// full table. K1 stages (cum, freq, act) per
 // [T, K, S] in a scratch tensor, then each lane packs its rANS bytes in
 // reverse in its own thread; K2 reads each lane's payload bytes with the
 // clamp of jx/coder.py:149, so a corrupt stream never reads out of bounds.
@@ -63,31 +80,47 @@
 // table kinds (order of config.TABLE_KINDS)
 enum { K_PTYPE, K_NRUN, K_COLOR, K_BT, K_BTN, K_SXY, K_MVFLAG, K_MV };
 // record codecs (substeps.py cid)
-enum { C_REC, C_COL, C_BT, C_SXY, C_MV };
+enum { C_REC, C_COL, C_BT, C_SXY, C_MV, C_COLW };
 
 struct Table {
-  int* cnt;     // [rows, alpha]
-  int* cntsum;  // [rows]
-  int* gcnt;    // [alpha] or null (non-mixed kind)
-  int* gsum;    // [1] or null
+  int* cnt;     // [S, rows, alpha]
+  int* cntsum;  // [S, rows]
+  int* gcnt;    // [S, alpha] or null (non-mixed kind)
+  int* gsum;    // [S] or null
   int rows, alpha;
+  int by_slot;  // indexed by launch slot (gathered per launch), not stream
 };
 
 struct Section {
   int codec, k, t, width;   // width: K1 pack capacity / K2 payload length
-  int* recs;                // K1: in [T, K, W]; K2: out [T, K, W]
-  const int* lens;          // [K] records per lane
-  unsigned* iv;             // K1 scratch [T, K, S]: cum | freq << 15 | act << 30
-  unsigned char* buf;       // K1 out [K, cap]
-  int* start;               // K1 out [K]
-  const unsigned char* pay; // K2 in [K, L]
+  int* recs;                // K1: in [C, T, K, W]; K2: out [C, T, K, W]
+  const int* lens;          // [C, K] records per lane
+  unsigned* iv;             // K1 scratch [C, T, K, S]: cum | freq << 15 | act << 30
+  unsigned char* buf;       // K1 out [C, K, cap]
+  int* start;               // K1 out [C, K]
+  const unsigned char* pay; // K2 in [C, K, L]
 };
 
 struct Params {
   Table tab[N_KINDS];
   Section sec[MAX_SECTIONS];
+  const int* sidx;  // [C] stream id of each launch slot
   int step, gstep, esc, bits_a, bits_b;
 };
+
+// The table set of kind `kind` for launch slot `slot` / stream `stream`.
+__device__ __forceinline__ Table table_of(const Params& p, int kind, int slot,
+                                          int stream) {
+  Table tb = p.tab[kind];
+  const size_t s = tb.by_slot ? slot : stream;
+  tb.cnt += s * tb.rows * tb.alpha;
+  tb.cntsum += s * tb.rows;
+  if (tb.gcnt != nullptr) {
+    tb.gcnt += s * tb.alpha;
+    tb.gsum += s;
+  }
+  return tb;
+}
 
 __device__ __forceinline__ int warp_sum(int v) {
 #pragma unroll
@@ -101,7 +134,7 @@ __device__ __forceinline__ int codec_nsub(int c) {
     case C_COL: return 3;
     case C_BT: return 2;
     case C_SXY: return 4;
-    default: return 3;
+    default: return 3;  // C_MV, C_COLW
   }
 }
 
@@ -111,6 +144,7 @@ __device__ __forceinline__ int codec_width(int c) {
     case C_COL: return 3;
     case C_BT: return 2;
     case C_SXY: return 4;
+    case C_COLW: return 6;
     default: return 2;
   }
 }
@@ -118,7 +152,8 @@ __device__ __forceinline__ int codec_width(int c) {
 __device__ __forceinline__ int sub_kind(int c, int j) {
   switch (c) {
     case C_REC: return j == 0 ? K_PTYPE : K_NRUN;
-    case C_COL: return K_COLOR;
+    case C_COL:
+    case C_COLW: return K_COLOR;
     case C_BT: return j == 0 ? K_BT : K_BTN;
     case C_SXY: return K_SXY;
     default: return j == 0 ? K_MVFLAG : K_MV;
@@ -150,6 +185,10 @@ __device__ __forceinline__ void enc_sub(const Params& p, int c, int j,
       break;
     case C_COL:
       *row = col_row(p, j, r[0], r[1], s0, s1);
+      *sym = r[j];
+      break;
+    case C_COLW:  // compact row from the record (coder.py color_compact_streams)
+      *row = r[3 + j];
       *sym = r[j];
       break;
     case C_BT:
@@ -286,8 +325,12 @@ struct LaneShared {
 __global__ void __launch_bounds__(1024)
 encode_kernel(const Params p) {
   const Section& sec = p.sec[blockIdx.x];
-  const int k = sec.k, t_n = sec.t, c = sec.codec;
+  const int slot = blockIdx.y, stream = p.sidx[slot];
+  const int k = sec.k, t_n = sec.t, c = sec.codec, cap = sec.width;
   const int s_n = codec_nsub(c), w_n = codec_width(c);
+  const int* recs = sec.recs + (size_t)slot * t_n * k * w_n;
+  const int* lens = sec.lens + (size_t)slot * k;
+  unsigned* iv = sec.iv + (size_t)slot * t_n * k * s_n;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nw = blockDim.x >> 5;
   __shared__ LaneShared sh;
@@ -296,11 +339,11 @@ encode_kernel(const Params p) {
 
   for (int t = 0; t < t_n; ++t) {
     for (int j = 0; j < s_n; ++j) {
-      const Table tb = p.tab[sub_kind(c, j)];
+      const Table tb = table_of(p, sub_kind(c, j), slot, stream);
       const int chunk = (tb.alpha + 31) >> 5;
       for (int l = warp; l < k; l += nw) {
-        const int* r = sec.recs + ((size_t)t * k + l) * w_n;
-        const bool lane_active = t < sec.lens[l];
+        const int* r = recs + ((size_t)t * k + l) * w_n;
+        const bool lane_active = t < lens[l];
         int row, sym;
         bool extra;
         enc_sub(p, c, j, r, sh.s0[l], sh.s1[l], &row, &sym, &extra);
@@ -320,7 +363,7 @@ encode_kernel(const Params p) {
         const int freq = __shfl_sync(FULL, fl, sym / chunk);
         __syncwarp();
         if (lane == 0) {
-          sec.iv[((size_t)t * k + l) * s_n + j] =
+          iv[((size_t)t * k + l) * s_n + j] =
               (unsigned)cum | ((unsigned)freq << 15) | ((unsigned)act << 30);
           sh.row[l] = act ? row : 0;
           sh.sym[l] = act ? sym : 0;
@@ -341,14 +384,15 @@ encode_kernel(const Params p) {
   }
 
   // reverse rANS pack, one lane per thread (jx/coder.py:rans_pack)
-  const int cap = sec.width;
+  unsigned char* buf = sec.buf + (size_t)slot * k * cap;
+  int* start = sec.start + (size_t)slot * k;
   for (int l = threadIdx.x; l < k; l += blockDim.x) {
     unsigned x = RANS_L;
     int pos = cap;
-    unsigned char* b = sec.buf + (size_t)l * cap;
+    unsigned char* b = buf + (size_t)l * cap;
     for (int t = t_n - 1; t >= 0; --t) {
       for (int j = s_n - 1; j >= 0; --j) {
-        const unsigned e = sec.iv[((size_t)t * k + l) * s_n + j];
+        const unsigned e = iv[((size_t)t * k + l) * s_n + j];
         const unsigned cm = e & 0x7fff, f = (e >> 15) & 0x7fff, a = e >> 30;
         const unsigned x_max = a ? (f << X_MAX_SHIFT) : 0xffffffffu;
 #pragma unroll
@@ -364,15 +408,19 @@ encode_kernel(const Params p) {
       }
     }
     for (int i = 3; i >= 0; --i) b[--pos] = (unsigned char)((x >> (8 * i)) & 0xff);
-    sec.start[l] = pos;
+    start[l] = pos;
   }
 }
 
 __global__ void __launch_bounds__(1024)
 decode_kernel(const Params p) {
   const Section& sec = p.sec[blockIdx.x];
+  const int slot = blockIdx.y, stream = p.sidx[slot];
   const int k = sec.k, t_n = sec.t, c = sec.codec, plen = sec.width;
   const int s_n = codec_nsub(c), w_n = codec_width(c);
+  int* recs = sec.recs + (size_t)slot * t_n * k * w_n;
+  const int* lens = sec.lens + (size_t)slot * k;
+  const unsigned char* pay = sec.pay + (size_t)slot * k * plen;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nw = blockDim.x >> 5;
   __shared__ LaneShared sh;
@@ -380,7 +428,7 @@ decode_kernel(const Params p) {
   __shared__ int spos[MAX_LANES];
   __shared__ int spart[MAX_SUB][MAX_LANES];
   for (int l = threadIdx.x; l < k; l += blockDim.x) {
-    const unsigned char* q = sec.pay + (size_t)l * plen;
+    const unsigned char* q = pay + (size_t)l * plen;
     sx[l] = q[0] | (q[1] << 8) | (q[2] << 16) | ((unsigned)q[3] << 24);
     spos[l] = 4;
     sh.s0[l] = sh.s1[l] = 0;
@@ -389,10 +437,10 @@ decode_kernel(const Params p) {
 
   for (int t = 0; t < t_n; ++t) {
     for (int j = 0; j < s_n; ++j) {
-      const Table tb = p.tab[sub_kind(c, j)];
+      const Table tb = table_of(p, sub_kind(c, j), slot, stream);
       const int chunk = (tb.alpha + 31) >> 5;
       for (int l = warp; l < k; l += nw) {
-        const bool lane_active = t < sec.lens[l];
+        const bool lane_active = t < lens[l];
         int part_l[MAX_SUB];
 #pragma unroll
         for (int i = 0; i < MAX_SUB; ++i) part_l[i] = i < j ? spart[i][l] : 0;
@@ -439,7 +487,7 @@ decode_kernel(const Params p) {
         if (lane == 0) {
           unsigned xx = freq * (x >> PROB_BITS) + (x & PMASK) - cum;
           int pos = spos[l];
-          const unsigned char* q = sec.pay + (size_t)l * plen;
+          const unsigned char* q = pay + (size_t)l * plen;
 #pragma unroll
           for (int rep = 0; rep < 2; ++rep) {
             if (act && xx < RANS_L) {
@@ -458,7 +506,7 @@ decode_kernel(const Params p) {
           sh.act[l] = act;
           if (j == s_n - 1) {  // substeps.py dec_finish
             part_l[j] = s;
-            int* o = sec.recs + ((size_t)t * k + l) * w_n;
+            int* o = recs + ((size_t)t * k + l) * w_n;
             switch (c) {
               case C_REC:
                 o[0] = part_l[0];
@@ -499,18 +547,20 @@ decode_kernel(const Params p) {
   }
 }
 
-// desc layout (int64): [step, gstep, esc, bits_a, bits_b,
-//   8 x (cnt, cntsum, gcnt, gsum, rows, alpha),
+// desc layout (int64): [step, gstep, esc, bits_a, bits_b, sidx,
+//   8 x (cnt, cntsum, gcnt, gsum, rows, alpha, by_slot),
 //   n_sections x (codec, k, t, width, recs, lens, iv, buf, start, pay)]
-static int unpack(const long long* d, int n_sec, Params* p, int* max_k) {
+static int unpack(const long long* d, int n_sec, bool decode, Params* p,
+                  int* max_k) {
   if (n_sec < 1 || n_sec > MAX_SECTIONS) return (int)cudaErrorInvalidValue;
   p->step = (int)d[0];
   p->gstep = (int)d[1];
   p->esc = (int)d[2];
   p->bits_a = (int)d[3];
   p->bits_b = (int)d[4];
-  const long long* q = d + 5;
-  for (int i = 0; i < N_KINDS; ++i, q += 6) {
+  p->sidx = (const int*)d[5];
+  const long long* q = d + 6;
+  for (int i = 0; i < N_KINDS; ++i, q += 7) {
     Table& tb = p->tab[i];
     tb.cnt = (int*)q[0];
     tb.cntsum = (int*)q[1];
@@ -518,6 +568,7 @@ static int unpack(const long long* d, int n_sec, Params* p, int* max_k) {
     tb.gsum = (int*)q[3];
     tb.rows = (int)q[4];
     tb.alpha = (int)q[5];
+    tb.by_slot = (int)q[6];
     if (tb.alpha > 32 * MAX_CHUNK) return (int)cudaErrorInvalidValue;
   }
   *max_k = 1;
@@ -533,29 +584,36 @@ static int unpack(const long long* d, int n_sec, Params* p, int* max_k) {
     s.buf = (unsigned char*)q[7];
     s.start = (int*)q[8];
     s.pay = (const unsigned char*)q[9];
-    if (s.k < 1 || s.k > MAX_LANES) return (int)cudaErrorInvalidValue;
+    if (s.k < 1 || s.k > MAX_LANES || s.codec < C_REC || s.codec > C_COLW ||
+        (decode && s.codec == C_COLW))
+      return (int)cudaErrorInvalidValue;
     *max_k = s.k > *max_k ? s.k : *max_k;
   }
   return 0;
 }
 
-static int launch(const long long* desc, int n_sec, void* stream, bool decode) {
+static int launch(const long long* desc, int n_sec, int n_streams, void* stream,
+                  bool decode) {
   Params p;
   int max_k;
-  int err = unpack(desc, n_sec, &p, &max_k);
+  int err = unpack(desc, n_sec, decode, &p, &max_k);
   if (err) return err;
+  if (n_streams < 1 || n_streams > 65535) return (int)cudaErrorInvalidValue;
   const int threads = 32 * (max_k < 32 ? max_k : 32);
+  const dim3 grid(n_sec, n_streams);
   if (decode)
-    decode_kernel<<<n_sec, threads, 0, (cudaStream_t)stream>>>(p);
+    decode_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(p);
   else
-    encode_kernel<<<n_sec, threads, 0, (cudaStream_t)stream>>>(p);
+    encode_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-extern "C" int sptc_sections_encode(const long long* desc, int n_sec, void* stream) {
-  return launch(desc, n_sec, stream, false);
+extern "C" int sptc_sections_encode(const long long* desc, int n_sec,
+                                    int n_streams, void* stream) {
+  return launch(desc, n_sec, n_streams, stream, false);
 }
 
-extern "C" int sptc_sections_decode(const long long* desc, int n_sec, void* stream) {
-  return launch(desc, n_sec, stream, true);
+extern "C" int sptc_sections_decode(const long long* desc, int n_sec,
+                                    int n_streams, void* stream) {
+  return launch(desc, n_sec, n_streams, stream, true);
 }

@@ -22,13 +22,15 @@ I32 = torch.int32
 
 def i_phase(frame: torch.Tensor):
     """Keyframe analysis: classification + flat check. Returns (records,
-    lits, counts [6] = n_rec, n_lit, is_flat, r, g, b) on the device."""
+    lits, counts [7] = n_rec, n_lit, is_flat, r, g, b, touched color rows,
+    touched-row bitmap) on the device."""
     records, n_records, lits, n_literals = classify_i(frame)
     c0 = frame.reshape(-1, 3)[0]
     is_flat = (frame == c0).all()
+    bm = tc.color_touched_bitmap(lits, n_literals)
     counts = torch.cat([torch.stack([n_records, n_literals, is_flat.to(I32)]),
-                        c0.to(I32)])
-    return records, lits, counts
+                        c0.to(I32), bm.sum(dtype=I32).reshape(1)])
+    return records, lits, counts, bm
 
 
 def i_geometry(n_rec: int, n_lit: int, cfg: CodecConfig):
@@ -53,9 +55,10 @@ def section_bytes(starts: torch.Tensor, lens: torch.Tensor, cap: int,
 
 
 def encode_i_from_records(records, n_rec: int, lits, n_lit: int, tables: dict,
-                          cfg: CodecConfig):
-    """Section encoding of classification outputs. Returns (buf_rec,
-    start_rec, lens_rec, buf_col, start_col, lens_col, tables')."""
+                          cfg: CodecConfig, col_w=None, col_bm=None):
+    """Section encoding of classification outputs (the col section as colw
+    when col_w is set). Returns (buf_rec, start_rec, lens_rec, buf_col,
+    start_col, lens_col, tables')."""
     k_rec, t_rec, k_col, t_col = i_geometry(n_rec, n_lit, cfg)
     dev = records.device
     lens_rec = tc.lane_lens(n_rec, k_rec, dev)
@@ -63,18 +66,19 @@ def encode_i_from_records(records, n_rec: int, lits, n_lit: int, tables: dict,
     bufs, starts, tables = tc.encode_sections(
         [tc.deal(records, n_rec, k_rec, t_rec), tc.deal(lits, n_lit, k_col, t_col)],
         [lens_rec, lens_col], tables,
-        (("rec", k_rec, t_rec), ("col", k_col, t_col)),
+        (("rec", k_rec, t_rec), ("col", k_col, t_col)), col_w, col_bm,
     )
     return bufs[0], starts[0], lens_rec, bufs[1], starts[1], lens_col, tables
 
 
 def encode_i_raw(records, n_rec: int, lits, n_lit: int, tables: dict,
-                 cfg: CodecConfig, raw_threshold: int):
+                 cfg: CodecConfig, raw_threshold: int, col_w=None, col_bm=None):
     """encode_i_from_records + exact container size + raw-escape table
     select on the device (the host applies the same size rule when it
     assembles the container). Returns (buf_rec, start_rec, lens_rec,
     buf_col, start_col, lens_col, stats [2] = total, is_raw, tables')."""
-    out = encode_i_from_records(records, n_rec, lits, n_lit, tables, cfg)
+    out = encode_i_from_records(records, n_rec, lits, n_lit, tables, cfg, col_w,
+                                col_bm)
     buf_rec, start_rec, lens_rec, buf_col, start_col, lens_col, tables2 = out
     k_rec, _, k_col, _ = i_geometry(n_rec, n_lit, cfg)
     total = (1 + varint_len(n_rec) + varint_len(n_lit)

@@ -3,13 +3,20 @@
 `screenpressor_tpu/jx/kernels.py` (`encode_sections_fused`,
 `decode_sections_fused`).
 
-Same contracts as the plain coder in `coder.py` (`model_scan` +
-`rans_pack`, `decode_section_scan`), which is their plain version. A launch
-runs one thread block per section; the sections of one launch must use
-disjoint table kinds (a frame's sections do: ptype/nrun, color, bt/btn,
-sxy, mvflag/mv), so consecutive sections are grouped greedily by that rule.
-The kernels update copies of the tables they touch in place; the input
-tables are never written.
+Same contracts as the stream loops of the plain coder in `coder.py`
+(`encode_sections_streams_plain`: `model_scan` + `rans_pack`;
+`decode_sections_streams_plain`: `decode_section_scan`), which are their
+plain versions. A launch runs one thread block per (section, stream); the sections
+of one launch must use disjoint table kinds (a frame's sections do:
+ptype/nrun, color, bt/btn, sxy, mvflag/mv), so consecutive sections are
+grouped greedily by that rule, and the streams of a launch are distinct.
+
+The wrappers update the [S, ...] tables they are given in place: a
+64-stream serving session's color tables alone are 805 MB, and a copy per
+launch would double that (a single-stream session passes [1, ...] copies,
+`coder.encode_sections`). The per-stream arrays (records, lens, outputs,
+stream ids) live in device buffers; the launch parameters hold only their
+base pointers.
 """
 
 from __future__ import annotations
@@ -54,84 +61,108 @@ def _groups(kts):
     return groups
 
 
-def _tables_copy(tables: dict, kinds) -> tuple[dict, list]:
-    """Copies of the tables of `kinds` (the kernel's in-place targets) and
-    the table part of the launch descriptor."""
-    out = dict(tables)
+def _table_desc(tables: dict, kinds, slot_kinds, n_slots: int, n_streams: int) -> list:
+    """The table part of the launch descriptor: tables [S, rows, alpha]
+    (slot-indexed kinds: [C, rows, alpha]) of the kinds the launch touches."""
     desc = [STEP, STEP, MIX_ESC_C, COLOR_CTX_BITS_A, COLOR_CTX_BITS_B]
+    tabs = []
     for kd in KIND_ORDER:
         if kd not in kinds:
-            desc += [0, 0, 0, 0, 0, 0]
+            tabs += [0, 0, 0, 0, 0, 0, 0]
             continue
-        tab = {key: v.clone() for key, v in tables[kd].items()}
-        for v in tab.values():
-            if v.dtype != I32 or not v.is_cuda:
-                raise ValueError(f"table {kd}: int32 CUDA tensors expected")
-        out[kd] = tab
-        rows, alpha = tab["cnt"].shape
+        tab = tables[kd]
+        by_slot = kd in slot_kinds
+        need = n_slots if by_slot else n_streams
+        rows, alpha = tab["cnt"].shape[1:]
         mixed = "gcnt" in tab
-        desc += [tab["cnt"].data_ptr(), tab["cntsum"].data_ptr(),
+        want = {"cnt": (rows, alpha), "cntsum": (rows,), "gcnt": (alpha,), "gsum": ()}
+        for key, v in tab.items():
+            _build.require_cuda(v)
+            if v.dtype != I32 or v.shape[1:] != want[key] or v.shape[0] < need:
+                raise ValueError(f"table {kd}.{key}: int32 [{need}, ...] expected, "
+                                 f"got {v.dtype} {tuple(v.shape)}")
+        tabs += [tab["cnt"].data_ptr(), tab["cntsum"].data_ptr(),
                  tab["gcnt"].data_ptr() if mixed else 0,
-                 tab["gsum"].data_ptr() if mixed else 0, rows, alpha]
-    return out, desc
+                 tab["gsum"].data_ptr() if mixed else 0, rows, alpha, int(by_slot)]
+    return desc, tabs
 
 
-def _check_section(name, k, t, recs_or_pay, lens):
+def _check_section(name, k, t, c, arr, lens):
     if not 1 <= k <= MAX_LANES or t < 1:
         raise ValueError(f"section {name}: k={k}, t={t} outside the kernel's range")
-    _build.require_cuda(recs_or_pay, lens)
-    if lens.dtype != I32 or lens.shape != (k,):
-        raise ValueError(f"section {name}: lens must be int32 [{k}]")
+    _build.require_cuda(arr, lens)
+    if lens.dtype != I32 or lens.shape != (c, k):
+        raise ValueError(f"section {name}: lens must be int32 [{c}, {k}]")
 
 
-def encode_sections_kernel(dealt_list, lens_list, tables: dict, kts):
-    """K1: dealt [T, K, W] int32 records + lens [K] per section ->
-    (bufs [K, cap] uint8, starts [K] int32, tables')."""
+def _slots(sidx, dev):
+    if len(set(sidx)) != len(sidx) or min(sidx) < 0:
+        raise ValueError(f"stream ids must be distinct and >= 0: {sidx}")
+    return torch.as_tensor(np.asarray(sidx, np.int32), device=dev)
+
+
+def encode_sections_streams_kernel(dealt_list, lens_list, tables_b: dict, kts, sidx,
+                                   slot_kinds=()):
+    """K1 over C streams: dealt [C, T, K, W] int32 records + lens [C, K] per
+    section -> (bufs [C, K, cap] uint8, starts [C, K] int32). Updates the
+    tables of streams sidx in `tables_b` [S, ...] in place (slot_kinds:
+    kinds whose tables are [C, ...], one per launch slot)."""
+    dev = dealt_list[0].device
+    c = len(sidx)
+    slots = _slots(sidx, dev)
+    n_streams = max(sidx) + 1
     bufs, starts = [None] * len(kts), [None] * len(kts)
     for group in _groups(kts):
         kinds = {kd for i in group for kd in CODECS[kts[i][0]].kinds}
-        tables, desc = _tables_copy(tables, kinds)
-        keep = []
+        desc, tabs = _table_desc(tables_b, kinds, slot_kinds, c, n_streams)
+        secs, keep = [], []  # keep: temporaries alive until the launch is queued
         for i in group:
             name, k, t = kts[i]
             codec = CODECS[name]
             recs = dealt_list[i].to(I32).contiguous()
-            lens = lens_list[i]
-            _check_section(name, k, t, recs, lens)
-            if recs.shape != (t, k, codec.rec_width):
+            _check_section(name, k, t, c, recs, lens_list[i])
+            if recs.shape != (c, t, k, codec.rec_width):
                 raise ValueError(f"section {name}: records {tuple(recs.shape)}")
             cap = pack_cap(name, t)
-            iv = torch.empty((t, k, len(codec.kinds)), dtype=I32, device=recs.device)
-            bufs[i] = torch.zeros((k, cap), dtype=torch.uint8, device=recs.device)
-            starts[i] = torch.empty(k, dtype=I32, device=recs.device)
-            desc += [codec.cid, k, t, cap, recs.data_ptr(), lens.data_ptr(),
+            iv = torch.empty((c, t, k, len(codec.kinds)), dtype=I32, device=dev)
+            bufs[i] = torch.zeros((c, k, cap), dtype=torch.uint8, device=dev)
+            starts[i] = torch.empty((c, k), dtype=I32, device=dev)
+            secs += [codec.cid, k, t, cap, recs.data_ptr(), lens_list[i].data_ptr(),
                      iv.data_ptr(), bufs[i].data_ptr(), starts[i].data_ptr(), 0]
             keep += [recs, iv]
-        d = np.asarray(desc, np.int64)
-        _build.launch("sptc_sections_encode", d.ctypes.data, len(group))
-    return bufs, starts, tables
+        d = np.asarray(desc + [slots.data_ptr()] + tabs + secs, np.int64)
+        colw = any(kts[i][0].startswith("colw") for i in group)
+        _build.launch("sptc_sections_encode", d.ctypes.data, len(group), c,
+                      counts=("sptc_sections_encode", "sptc_sections_encode_colw")
+                      if colw else None)
+    return bufs, starts
 
 
-def decode_sections_kernel(pay_list, lens_list, tables: dict, kts):
-    """K2: payload [K, L] uint8 (L >= 4) + lens [K] per section ->
-    (records [T, K, W] int32 list, tables')."""
+def decode_sections_streams_kernel(pay_list, lens_list, tables_b: dict, kts, sidx):
+    """K2 over C streams: payload [C, K, L] uint8 (L >= 4) + lens [C, K] per
+    section -> records [C, T, K, W] int32 per section. Updates the tables of
+    streams sidx in `tables_b` [S, ...] in place."""
+    dev = pay_list[0].device
+    c = len(sidx)
+    slots = _slots(sidx, dev)
+    n_streams = max(sidx) + 1
     recs = [None] * len(kts)
     for group in _groups(kts):
         kinds = {kd for i in group for kd in CODECS[kts[i][0]].kinds}
-        tables, desc = _tables_copy(tables, kinds)
-        keep = []
+        desc, tabs = _table_desc(tables_b, kinds, (), c, n_streams)
+        secs, keep = [], []  # keep: temporaries alive until the launch is queued
         for i in group:
             name, k, t = kts[i]
             pay = pay_list[i].contiguous()
-            lens = lens_list[i]
-            _check_section(name, k, t, pay, lens)
-            if pay.dtype != torch.uint8 or pay.shape[0] != k or pay.shape[1] < 4:
-                raise ValueError(f"section {name}: payload {tuple(pay.shape)}")
-            recs[i] = torch.empty((t, k, CODECS[name].rec_width), dtype=I32,
-                                  device=pay.device)
-            desc += [CODECS[name].cid, k, t, pay.shape[1], recs[i].data_ptr(),
-                     lens.data_ptr(), 0, 0, 0, pay.data_ptr()]
             keep.append(pay)
-        d = np.asarray(desc, np.int64)
-        _build.launch("sptc_sections_decode", d.ctypes.data, len(group))
-    return recs, tables
+            _check_section(name, k, t, c, pay, lens_list[i])
+            if (name.startswith("colw") or pay.dtype != torch.uint8
+                    or pay.shape[:2] != (c, k) or pay.shape[2] < 4):
+                raise ValueError(f"section {name}: payload {tuple(pay.shape)}")
+            recs[i] = torch.empty((c, t, k, CODECS[name].rec_width), dtype=I32,
+                                  device=dev)
+            secs += [CODECS[name].cid, k, t, pay.shape[2], recs[i].data_ptr(),
+                     lens_list[i].data_ptr(), 0, 0, 0, pay.data_ptr()]
+        d = np.asarray(desc + [slots.data_ptr()] + tabs + secs, np.int64)
+        _build.launch("sptc_sections_decode", d.ctypes.data, len(group), c)
+    return recs

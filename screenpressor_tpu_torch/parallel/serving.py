@@ -1,0 +1,543 @@
+"""Multi-stream serving — PyTorch port of `screenpressor_tpu/parallel/serving.py`
+(the conferencing configuration: S same-sized streams per call).
+
+`BatchedEncoder` / `BatchedDecoder` keep every stream's state on the
+device: the previous frames [S, H, W, 3] and one table set per stream
+([S, ...] tensors, `tables.renew_tables_streams`), which the stream-batched
+section kernels update in place. Each section group of a step is one K1 or
+K2 launch over all the streams that code it (an index list of stream ids,
+not a skip mask); the keyframing streams share one K3 run walk and, on
+decode, one K4 launch. The per-stream analysis, classification, block
+resolution and rebuild are the single-stream plain tensor code, run in a
+loop over the streams that need them.
+
+Streams use a fixed lane count (`CodecConfig.k_fixed`, default
+min(k_max, 256)); the bitstreams are standard SPTC and decode with any
+decoder configured with the same k_fixed. Record arrays, step counts and
+payload buffers take the exact sizes of the pulled counts.
+
+An encode step is a set of generator stages (the P streams' and the I
+streams'); each `yield` is a request for device values, and `_drain` copies
+the requests of all live stages to the host in ONE device-to-host copy per
+round. `encode_begin` runs the stages up to their first request (the
+analysis, which reads no table), so `serve_pipelined` can queue step t+1's
+analysis before it finishes step t.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from screenpressor_tpu import bitstream as bs
+from screenpressor_tpu.config import ALG_FLAT, ALG_I, ALG_P, ALG_RAW, CodecConfig
+
+from screenpressor_tpu_torch import coder as tc
+from screenpressor_tpu_torch.blocks import analyze_compact, mv_candidates
+from screenpressor_tpu_torch.classify import classify_i_streams
+from screenpressor_tpu_torch.codec import (
+    FTYPE_I,
+    FTYPE_P,
+    apply_loss,
+    gather_segments_device,
+)
+from screenpressor_tpu_torch.iframe import parse_i_header
+from screenpressor_tpu_torch.pframe import (
+    SECTION_NAMES,
+    classify_assemble,
+    parse_p_header,
+    raise_p_error,
+    rebuild_p,
+    undeal_sections,
+)
+from screenpressor_tpu_torch.recon import reconstruct_i_streams
+from screenpressor_tpu_torch.tables import renew_rows, renew_tables_streams
+
+I32 = torch.int32
+_NP = {torch.uint8: np.uint8, torch.bool: np.bool_, torch.int32: np.int32,
+       torch.int64: np.int64}
+
+
+def pull(groups):
+    """One device-to-host copy of lists of tensors -> the same lists of
+    numpy arrays (dtype and shape kept)."""
+    flat = [t for g in groups for t in g]
+    if not flat:
+        return [[] for _ in groups]
+    raw = torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8)
+                     for t in flat]).cpu().numpy()
+    out, pos = [], 0
+    for g in groups:
+        got = []
+        for t in g:
+            n = t.numel() * t.element_size()
+            got.append(raw[pos: pos + n].view(_NP[t.dtype]).reshape(t.shape))
+            pos += n
+        out.append(got)
+    return out
+
+
+def _k_fixed(cfg: CodecConfig) -> CodecConfig:
+    if cfg.k_fixed is None:
+        cfg = dataclasses.replace(cfg, k_fixed=min(cfg.k_max, 256))
+    return cfg
+
+
+def _to_device(frames, device) -> torch.Tensor:
+    if isinstance(frames, torch.Tensor):
+        return frames.to(device, torch.uint8)
+    return torch.as_tensor(np.ascontiguousarray(frames, np.uint8), device=device)
+
+
+def _sizes(start: np.ndarray, lens: np.ndarray, cap: int) -> np.ndarray:
+    return np.where(lens > 0, cap - start.astype(np.int64), 0)
+
+
+def _section(k: int, sizes: np.ndarray, payload: np.ndarray) -> bytes:
+    """Container section: status byte + minimal-width size table + lanes."""
+    width = bs.size_width(int(sizes.max(initial=0)))
+    return (bytes([bs.section_status_byte(k, width)])
+            + sizes.astype(f"<u{width}").tobytes() + payload.tobytes())
+
+
+def _deal_streams(srcs, ns, k: int):
+    """Per-stream capacity records -> (dealt [C, T, K, W], lens [C, K], T)
+    with T the largest step count of the streams."""
+    t = max(tc.steps_for(n, k) for n in ns)
+    dealt = torch.stack([tc.deal(src, n, k, t) for src, n in zip(srcs, ns)])
+    lens = torch.stack([tc.lane_lens(n, k, dealt.device) for n in ns])
+    return dealt, lens, t
+
+
+def _lane_segments(parts, segs, buf, starts_h, sizes):
+    """Append the used lane bytes of buf [C, K, cap] to a gather list."""
+    parts.append(buf.reshape(-1))
+    c, k, cap = buf.shape
+    for j in range(c):
+        for lane in range(k):
+            if sizes[j, lane]:
+                segs.append((len(parts) - 1, (j * k + lane) * cap + int(starts_h[j, lane]),
+                             int(sizes[j, lane])))
+
+
+class BatchedEncoder:
+    """Encode S streams in lockstep (staggered keyframes, flat / no-change /
+    raw shortcuts per stream) with device-resident per-stream state."""
+
+    def __init__(self, n_streams: int, cfg: CodecConfig, device, kf_offsets=None):
+        """kf_offsets: optional [S] ints staggering the keyframe phase:
+        stream i keyframes when (fn + kf_offsets[i]) % kf_interval == 0."""
+        self.cfg = _k_fixed(cfg)
+        self.s = n_streams
+        self.device = torch.device(device)
+        self.kf_offsets = (np.zeros(n_streams, np.int64) if kf_offsets is None
+                           else np.asarray(kf_offsets, np.int64))
+        assert self.kf_offsets.shape == (n_streams,)
+        self.tables_b = renew_tables_streams(n_streams, self.device)
+        self.prev = None  # [S, H, W, 3] uint8 on the device (lossy domain)
+        self.fn = 0
+        self.last_flat = np.zeros(n_streams, bool)
+        self.flat_color = np.zeros((n_streams, 3), np.uint8)
+        self.cands = torch.tensor(mv_candidates(self.cfg), dtype=I32,
+                                  device=self.device).reshape(-1, 2)
+
+    def encode(self, frames, force_key: bool = False):
+        """frames: [S, H, W, 3] uint8 (numpy or tensor) -> list of S
+        (payload bytes, ftype)."""
+        return self.encode_finish(self.encode_begin(frames, force_key))
+
+    def encode_begin(self, frames, force_key: bool = False):
+        """Queue the table-free front half of a step (the analysis of the P
+        streams, the classification of the I streams) and return a pending
+        handle for encode_finish. At most one encode may be pending."""
+        cfg = self.cfg
+        s = self.s
+        frames = apply_loss(_to_device(frames, self.device), cfg.loss)
+        assert frames.shape == (s, cfg.height, cfg.width, 3)
+        if force_key or self.prev is None or self.fn == 0:
+            key_mask = np.ones(s, bool)
+        elif cfg.kf_interval > 0:
+            key_mask = ((self.fn + self.kf_offsets) % cfg.kf_interval) == 0
+        else:
+            key_mask = np.zeros(s, bool)
+        self.fn += 1
+        # the P stage first: each round resumes the stages in this order
+        stages = []
+        if (~key_mask).any() and self.prev is not None:
+            stages.append(self._p_stages(frames, self.prev, np.nonzero(~key_mask)[0]))
+        if key_mask.any():
+            stages.append(self._i_stages(frames, np.nonzero(key_mask)[0]))
+        pend = self._prime(stages)
+        self.prev = frames
+        return pend
+
+    def encode_finish(self, pend):
+        """Run a pending step to the end: the host copies, the section
+        launches and the container assembly. Returns the encode() list."""
+        outs = self._drain(*pend)
+        return [next((o[i] for o in outs if o[i] is not None), None)
+                for i in range(self.s)]
+
+    @staticmethod
+    def _prime(stages):
+        """Run each stage to its first request (device work only)."""
+        stages = list(stages)
+        outs, reqs = [None] * len(stages), [[] for _ in stages]
+        for j, st in enumerate(stages):
+            try:
+                reqs[j] = st.send(None)
+            except StopIteration as e:
+                outs[j], stages[j] = e.value, None
+        return stages, reqs, outs
+
+    @staticmethod
+    def _drain(stages, reqs, outs):
+        """Advance primed stages to the end, one host copy per round."""
+        while any(st is not None for st in stages):
+            got = pull([r if st is not None else [] for st, r in zip(stages, reqs)])
+            for j, st in enumerate(stages):
+                if st is None:
+                    continue
+                try:
+                    reqs[j] = st.send(got[j])
+                except StopIteration as e:
+                    outs[j], stages[j], reqs[j] = e.value, None, []
+        return outs
+
+    def _flat(self, i: int, color) -> tuple:
+        """Flat-frame shortcut of stream i (renews its tables when the
+        color changes). Returns (payload, renew)."""
+        color = tuple(int(v) for v in color)
+        renew = not (self.last_flat[i] and tuple(self.flat_color[i]) == color)
+        if renew:
+            self.flat_color[i] = color
+        self.last_flat[i] = True
+        return (bytes([bs.header_byte(ALG_FLAT), *color]), FTYPE_I), renew
+
+    # ------------------------------------------------------------------ I --
+    def _i_stages(self, frames, own):
+        """I-encode the streams `own`; other entries stay None and their
+        state is untouched."""
+        cfg, k = self.cfg, self.cfg.k_fixed
+        own_t = torch.as_tensor(own, device=self.device)
+        fr = frames[own_t]
+        cls = classify_i_streams(fr)
+        bms = [tc.color_touched_bitmap(lits, n_lit) for _, _, lits, n_lit in cls]
+        flat = (fr == fr[:, :1, :1]).flatten(1).all(dim=1)
+        counts = torch.stack([
+            torch.cat([torch.stack([n_rec, n_lit, fl.to(I32)]), fr[j, 0, 0].to(I32),
+                       bm.sum(dtype=I32).reshape(1)])
+            for j, ((_, n_rec, _, n_lit), fl, bm) in enumerate(zip(cls, flat, bms))])
+        (ch,) = yield [counts]
+
+        out = [None] * self.s
+        renew = np.zeros(self.s, bool)
+        coded = []
+        for j, i in enumerate(own):
+            if ch[j, 2]:
+                out[i], renew[i] = self._flat(i, ch[j, 3:6])
+            else:
+                self.last_flat[i] = False
+                coded.append(j)
+                renew[i] = True  # a keyframe codes from renewed tables
+        renew_rows(self.tables_b, renew)
+        if not coded:
+            return out
+        ids = [int(own[j]) for j in coded]
+        n_rec = [int(ch[j, 0]) for j in coded]
+        n_lit = [int(ch[j, 1]) for j in coded]
+        rec, lens_rec, t_rec = _deal_streams([cls[j][0] for j in coded], n_rec, k)
+        col, lens_col, t_col = _deal_streams([cls[j][2] for j in coded], n_lit, k)
+        col_w = tc.col_compact_bucket(max(int(ch[j, 6]) for j in coded))
+        bufs, starts = tc.encode_sections_streams(
+            [rec, col], [lens_rec, lens_col], self.tables_b,
+            (("rec", k, t_rec), ("col", k, t_col)), ids, col_w,
+            torch.stack([bms[j] for j in coded]))
+        starts_h = yield starts
+
+        lens_h = [lens_rec.cpu().numpy(), lens_col.cpu().numpy()]
+        sizes = [_sizes(st, ln, b.shape[2]) for st, ln, b in zip(starts_h, lens_h, bufs)]
+        parts, segs = [], []
+        for j in range(len(ids)):
+            for buf, st, sz in zip(bufs, starts_h, sizes):
+                _lane_segments(parts, segs, buf[j:j + 1], st[j:j + 1], sz[j:j + 1])
+        (tight,) = yield [gather_segments_device(parts, segs, self.device)]
+
+        pos = 0
+        for j, i in enumerate(ids):
+            chunks = []
+            for sz in sizes:
+                end = pos + int(sz[j].sum())
+                chunks.append(_section(k, sz[j], tight[pos:end]))
+                pos = end
+            out[i] = (bytes([bs.header_byte(ALG_I)]) + bs.pack_varint(n_rec[j], n_lit[j])
+                      + b"".join(chunks), FTYPE_I)
+        return out
+
+    # ------------------------------------------------------------------ P --
+    def _p_stages(self, frames, prevs, own):
+        """P-encode the streams `own` against prevs; other entries stay None
+        and their state is untouched."""
+        cfg, k = self.cfg, self.cfg.k_fixed
+        h, w = cfg.height, cfg.width
+        ana = [analyze_compact(frames[i], prevs[i], self.cands, cfg) for i in own]
+        (ch,) = yield [torch.stack([torch.cat([c, f]) for _, c, f in ana])]
+
+        out = [None] * self.s
+        renew = np.zeros(self.s, bool)
+        active = []
+        for j, i in enumerate(own):
+            if ch[j, 7]:
+                out[i], renew[i] = self._flat(i, ch[j, 8:11])
+                continue
+            self.last_flat[i] = False
+            if not ch[j, 0]:
+                out[i] = (bytes([bs.header_byte(ALG_P), 0]), FTYPE_P)
+                continue
+            active.append(j)
+        renew_rows(self.tables_b, renew)
+        if not active:
+            return out
+
+        # data blocks of the active streams: classification + touched rows
+        dev = self.device
+        cls = {}
+        for j in active:
+            if ch[j, 6]:
+                pix, lit, pl = classify_assemble(frames[own[j]], prevs[own[j]],
+                                                 ana[j][0]["data_rects"], int(ch[j, 6]))
+                bm = tc.color_touched_bitmap(lit, pl[1])
+                cls[j] = (pix, lit, bm, torch.cat([pl, bm.sum(dtype=pl.dtype).reshape(1)]))
+        plc = {}
+        if cls:
+            (got,) = yield [torch.stack([cls[j][3] for j in cls])]
+            plc = {j: got[r] for r, j in enumerate(cls)}
+
+        ids = [int(own[j]) for j in active]
+        empty = {"rec": torch.zeros((1, 2), dtype=I32, device=dev),
+                 "col": torch.zeros((1, 3), dtype=I32, device=dev)}
+        bm0 = tc.color_touched_bitmap(empty["col"], 0)  # row 0 only
+        srcs = {name: [] for name in SECTION_NAMES}
+        nums = {name: [] for name in SECTION_NAMES}
+        for j in active:
+            arrs = ana[j][0]
+            pl = plc.get(j, (0, 0, 1))
+            for name, src, n in (("bt", arrs["bt"], ch[j, 3]), ("sxy", arrs["sxy"], ch[j, 4]),
+                                 ("mv", arrs["mv"], ch[j, 5]),
+                                 ("rec", cls[j][0] if j in cls else empty["rec"], pl[0]),
+                                 ("col", cls[j][1] if j in cls else empty["col"], pl[1])):
+                srcs[name].append(src)
+                nums[name].append(int(n))
+        dealt, lens, kts = [], [], []
+        for name in SECTION_NAMES:
+            d, ln, t = _deal_streams(srcs[name], nums[name], k)
+            dealt.append(d)
+            lens.append(ln)
+            kts.append((name, k, t))
+        col_w = tc.col_compact_bucket(max(int(plc.get(j, (0, 0, 1))[2]) for j in active))
+        bms = torch.stack([cls[j][2] if j in cls else bm0 for j in active])
+        bufs, starts = tc.encode_sections_streams(dealt, lens, self.tables_b, tuple(kts),
+                                                  ids, col_w, bms)
+        starts_h = yield starts
+
+        # container sizes on the host; raw escape per stream
+        lens_h = [ln.cpu().numpy() for ln in lens]
+        sizes = [_sizes(st, ln, b.shape[2]) for st, ln, b in zip(starts_h, lens_h, bufs)]
+        hdrs = []
+        for r, j in enumerate(active):
+            vals = [int(ch[j, 1]), int(ch[j, 2])] + [nums[name][r] for name in SECTION_NAMES]
+            vals.append(int(ch[j, 6]))
+            hdrs.append(bytes([bs.header_byte(ALG_P), 1]) + bs.pack_varint(*vals))
+        totals = [len(hd) + sum(1 + k * bs.size_width(int(sz[r].max(initial=0)))
+                                + int(sz[r].sum()) for sz in sizes)
+                  for r, hd in enumerate(hdrs)]
+        is_raw = [t >= 1 + w * h * 3 for t in totals]
+        raw_mask = np.zeros(self.s, bool)
+        raw_mask[[i for i, raw in zip(ids, is_raw) if raw]] = True
+        renew_rows(self.tables_b, raw_mask)
+        parts, segs = [], []
+        for r, i in enumerate(ids):
+            if is_raw[r]:
+                parts.append(frames[i].reshape(-1))
+                segs.append((len(parts) - 1, 0, h * w * 3))
+                continue
+            for buf, st, sz in zip(bufs, starts_h, sizes):
+                _lane_segments(parts, segs, buf[r:r + 1], st[r:r + 1], sz[r:r + 1])
+        (tight,) = yield [gather_segments_device(parts, segs, dev)]
+
+        pos = 0
+        for r, i in enumerate(ids):
+            if is_raw[r]:
+                out[i] = (bytes([bs.header_byte(ALG_RAW)]) + tight[pos:pos + h * w * 3].tobytes(),
+                          FTYPE_I)
+                pos += h * w * 3
+                continue
+            chunks = []
+            for sz in sizes:
+                end = pos + int(sz[r].sum())
+                chunks.append(_section(k, sz[r], tight[pos:end]))
+                pos = end
+            data = hdrs[r] + b"".join(chunks)
+            assert len(data) == totals[r], (len(data), totals[r])
+            out[i] = (data, FTYPE_P)
+        return out
+
+
+class BatchedDecoder:
+    """Decode S streams per call with device-resident per-stream state. A
+    batch may mix flat, raw, no-change, coded I and coded P frames; the
+    coded I streams share one K2 launch per section group and one K4
+    launch, the coded P streams one K2 launch per section group."""
+
+    def __init__(self, n_streams: int, cfg: CodecConfig, device):
+        self.cfg = _k_fixed(cfg)
+        self.s = n_streams
+        self.device = torch.device(device)
+        self.tables_b = renew_tables_streams(n_streams, self.device)
+        self.prev = None  # [S, H, W, 3] uint8 on the device
+        self.last_flat = np.zeros(n_streams, bool)
+        self.flat_color = np.zeros((n_streams, 3), np.uint8)
+        self._pending_err = None  # (device error words [S], P mask)
+
+    def decode(self, payloads, device_out: bool = False):
+        """payloads: S frame byte strings -> [S, H, W, 3] frames (numpy, or
+        the device tensor with device_out, whose stream check is then
+        deferred to the next decode() / validate())."""
+        self.validate()
+        cfg, k, s, dev = self.cfg, self.cfg.k_fixed, self.s, self.device
+        h, w = cfg.height, cfg.width
+        assert len(payloads) == s
+        renew = np.zeros(s, bool)
+        override = {}
+        i_parse, p_parse = {}, {}
+        for i, data in enumerate(payloads):
+            if not data:
+                raise bs.CorruptStreamError(f"stream {i}: empty frame")
+            alg = bs.parse_header_byte(data[0])
+            if alg == ALG_FLAT:
+                if len(data) < 4:
+                    raise bs.CorruptStreamError(f"stream {i}: truncated flat")
+                color = np.frombuffer(data[1:4], np.uint8)
+                if not (self.last_flat[i] and (self.flat_color[i] == color).all()):
+                    renew[i] = True
+                    self.flat_color[i] = color
+                self.last_flat[i] = True
+                override[i] = np.broadcast_to(color, (h, w, 3))
+                continue
+            self.last_flat[i] = False
+            if alg == ALG_RAW:
+                if len(data) < 1 + h * w * 3:
+                    raise bs.CorruptStreamError(f"stream {i}: truncated raw")
+                override[i] = np.frombuffer(data, np.uint8, h * w * 3, 1).reshape(h, w, 3)
+                renew[i] = True
+            elif alg == ALG_I:
+                renew[i] = True
+                i_parse[i] = parse_i_header(data, 1, cfg)
+            elif alg != ALG_P:
+                raise bs.CorruptStreamError(f"stream {i}: unknown algorithm {alg}")
+            elif self.prev is None:
+                raise bs.CorruptStreamError(f"stream {i}: P-frame before keyframe")
+            else:
+                p_parse[i] = parse_p_header(data, 1, cfg)
+        renew_rows(self.tables_b, renew)
+        if self.prev is None:
+            self.prev = torch.zeros((s, h, w, 3), dtype=torch.uint8, device=dev)
+        frames = self.prev.clone()
+        err = torch.zeros(s, dtype=I32, device=dev)
+
+        if i_parse:
+            ids = list(i_parse)
+            n_rec = [i_parse[i][2] for i in ids]
+            n_lit = [i_parse[i][3] for i in ids]
+            pays, lens, kts = [], [], []
+            for name, idx, ns in (("rec", 0, n_rec), ("col", 1, n_lit)):
+                pays.append(self._payloads([i_parse[i][idx] for i in ids]))
+                lens.append(torch.stack([tc.lane_lens(n, k, dev) for n in ns]))
+                kts.append((name, k, max(tc.steps_for(n, k) for n in ns)))
+            recs, lits = tc.decode_sections_streams(pays, lens, self.tables_b, tuple(kts), ids)
+            records = [tc.undeal(recs[j], n, k, max(n, 1)) for j, n in enumerate(n_rec)]
+            literals = [tc.undeal(lits[j], n, k, max(n, 1)) for j, n in enumerate(n_lit)]
+            ids_t = torch.as_tensor(ids, device=dev)
+            frames[ids_t] = reconstruct_i_streams(records, literals, h, w)
+            totals = torch.stack([r[:, 1].sum(dtype=I32) for r in records])
+            err[ids_t] = (totals != h * w).to(I32)
+
+        coded_p = [i for i, x in p_parse.items() if x is not None]
+        if coded_p:
+            pays, lens, kts = [], [], []
+            for name in SECTION_NAMES:
+                ns = [p_parse[i][1][name] for i in coded_p]
+                pays.append(self._payloads([p_parse[i][0][name] for i in coded_p]))
+                lens.append(torch.stack([tc.lane_lens(n, k, dev) for n in ns]))
+                kts.append((name, k, max(tc.steps_for(n, k) for n in ns)))
+            recs_l = tc.decode_sections_streams(pays, lens, self.tables_b, tuple(kts),
+                                                coded_p)
+            for j, i in enumerate(coded_p):
+                _pl, ns, _kts, (xx1, xx2, n_mv, n_data) = p_parse[i]
+                recs = undeal_sections([r[j] for r in recs_l], ns, kts)
+                frames[i], err[i] = rebuild_p(recs, ns, xx1, xx2, n_data, n_mv,
+                                              self.prev[i], cfg)
+        for i, val in override.items():
+            frames[i] = torch.as_tensor(np.array(val), device=dev)
+        self.prev = frames
+
+        p_mask = np.zeros(s, bool)
+        p_mask[coded_p] = True
+        if i_parse or coded_p:
+            if device_out:
+                self._pending_err = (err, p_mask)
+            else:
+                self._raise_errs(err.cpu().numpy(), p_mask)
+        return frames if device_out else frames.cpu().numpy()
+
+    def _payloads(self, pays) -> torch.Tensor:
+        """[K, L_i] numpy lane payloads -> one [C, K, max L] uint8 tensor."""
+        out = np.zeros((len(pays),) + pays[0].shape[:1] + (max(p.shape[1] for p in pays),),
+                       np.uint8)
+        for j, p in enumerate(pays):
+            out[j, :, :p.shape[1]] = p
+        return torch.as_tensor(out, device=self.device)
+
+    @staticmethod
+    def _raise_errs(errs: np.ndarray, p_mask: np.ndarray):
+        """Raise for the first failing stream by index."""
+        if not errs.any():
+            return
+        sidx = int(np.nonzero(errs)[0][0])
+        bad = int(errs[sidx])
+        if not p_mask[sidx]:
+            raise bs.CorruptStreamError(f"stream {sidx}: records do not tile frame")
+        try:
+            raise_p_error(bad)
+        except bs.CorruptStreamError as e:
+            raise bs.CorruptStreamError(f"stream {sidx}: {e}") from None
+
+    def validate(self):
+        """Resolve the deferred stream check of a device_out decode. Called
+        by the next decode(); call it after the last step of a session."""
+        pend, self._pending_err = self._pending_err, None
+        if pend is not None:
+            self._raise_errs(pend[0].cpu().numpy(), pend[1])
+
+
+def serve_pipelined(enc: BatchedEncoder, batches, dec: BatchedDecoder | None = None,
+                    device_out: bool = True):
+    """Serving loop with one step of encoder lookahead: yields, per batch and
+    in order, (outs, decoded) with `outs` the encode() list and `decoded`
+    dec's frames for it (None without dec). Step t+1's analysis is queued
+    before step t's host copies and assembly; the bytes equal step-by-step
+    encode() / decode() (the lookahead reads no table)."""
+    pend = None
+    for frames in batches:
+        nxt = enc.encode_begin(frames)
+        if pend is not None:
+            outs = enc.encode_finish(pend)
+            yield outs, (None if dec is None else
+                         dec.decode([p for p, _ in outs], device_out=device_out))
+        pend = nxt
+    if pend is not None:
+        outs = enc.encode_finish(pend)
+        yield outs, (None if dec is None else
+                     dec.decode([p for p, _ in outs], device_out=device_out))

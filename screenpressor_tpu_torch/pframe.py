@@ -192,9 +192,9 @@ def classify_assemble(frame: torch.Tensor, prev: torch.Tensor,
 
 
 def encode_sections_raw(sources: dict, hdr_vals, tables: dict, cfg: CodecConfig,
-                        raw_threshold: int):
-    """Encode the five sections + exact container size + raw-escape table
-    select on the device.
+                        raw_threshold: int, col_w=None, col_bm=None):
+    """Encode the five sections (col as colw when col_w is set) + exact
+    container size + raw-escape table select on the device.
 
     sources: name -> capacity record arrays; hdr_vals: the 8 host header
     values (xx1, xx2, n_bt, n_sxy, n_mv, n_pix, n_lit, n_data). Returns
@@ -210,7 +210,7 @@ def encode_sections_raw(sources: dict, hdr_vals, tables: dict, cfg: CodecConfig,
         lens_l.append(tc.lane_lens(n, k, src.device))
         kts.append((name, k, t))
     kts = tuple(kts)
-    bufs, starts, tables2 = tc.encode_sections(dealt, lens_l, tables, kts)
+    bufs, starts, tables2 = tc.encode_sections(dealt, lens_l, tables, kts, col_w, col_bm)
     total = 2 + sum(varint_len(int(v)) for v in hdr_vals)
     for (_, k, _), buf, start, lens in zip(kts, bufs, starts, lens_l):
         total = total + section_bytes(start, lens, buf.shape[1], k)
@@ -222,13 +222,18 @@ def encode_sections_raw(sources: dict, hdr_vals, tables: dict, cfg: CodecConfig,
 
 def encode_p_sections(arrs: dict, counts_host, phase_b, pl_counts_host,
                       tables: dict, cfg: CodecConfig):
-    """Phase C of a changed P frame. Returns (handle, tables') where handle
-    = (kts, nums, (xx1, xx2, n_data), bufs, starts, lens, stats)."""
+    """Phase C of a changed P frame. phase_b: (pix_cap, lit_cap, counts,
+    touched-row bitmap) of its data blocks, or None; pl_counts_host: their
+    pulled counts (n_pix, n_lit, touched color rows). Returns (handle,
+    tables') where handle = (kts, nums, (xx1, xx2, n_data), bufs, starts,
+    lens, stats)."""
     _any, xx1, xx2, n_bt, n_sxy, n_mv, n_data = (int(v) for v in counts_host[:7])
     dev = arrs["bt"].device
+    col_w = col_bm = None
     if phase_b is not None:
-        pix_cap, lit_cap = phase_b[0], phase_b[1]
-        n_pix, n_lit = (int(v) for v in pl_counts_host[:2])
+        pix_cap, lit_cap, _counts, col_bm = phase_b
+        n_pix, n_lit, n_touch = (int(v) for v in pl_counts_host[:3])
+        col_w = tc.col_compact_bucket(n_touch)
     else:
         pix_cap = torch.zeros((1, 2), dtype=I32, device=dev)
         lit_cap = torch.zeros((1, 3), dtype=I32, device=dev)
@@ -237,7 +242,7 @@ def encode_p_sections(arrs: dict, counts_host, phase_b, pl_counts_host,
                "rec": pix_cap, "col": lit_cap}
     hdr_vals = [xx1, xx2, n_bt, n_sxy, n_mv, n_pix, n_lit, n_data]
     kts, bufs, starts, lens_l, stats, tables = encode_sections_raw(
-        sources, hdr_vals, tables, cfg, 1 + cfg.width * cfg.height * 3)
+        sources, hdr_vals, tables, cfg, 1 + cfg.width * cfg.height * 3, col_w, col_bm)
     nums = dict(zip(SECTION_NAMES, hdr_vals[2:7]))
     handle = (kts, nums, (xx1, xx2, n_data), bufs, starts, lens_l, stats)
     return handle, tables
@@ -288,20 +293,29 @@ def parse_p_header(data: bytes, pos: int, cfg: CodecConfig):
     return payloads, ns, tuple(kts), (xx1, xx2, n_mv, n_data)
 
 
-def decode_p_resolve(payloads: dict, ns: dict, kts, xx1: int, xx2: int,
-                     n_data: int, tables: dict, cfg: CodecConfig, mcap: int,
-                     bcap: int):
-    """Section decode + BT-run expansion + per-block rect / record
-    resolution. Returns ((mo_rects, mo_mvs, d_rects, pt, rlg, lt), err,
-    tables'): stream-consistency violations set bits of `err` (device
-    int32) instead of raising."""
-    h, w, nbx, nby = cfg.height, cfg.width, cfg.nbx, cfg.nby
+def decode_p_sections(payloads: dict, ns: dict, kts, tables: dict):
+    """The five section decodes of one P frame -> (records {name: [n, W]}
+    in record order, tables')."""
     dev = payloads["bt"].device
     lens_l = [tc.lane_lens(ns[name], k, dev) for name, k, _ in kts]
     recs_l, tables = tc.decode_sections(
         [payloads[name] for name, _, _ in kts], lens_l, tables, kts)
-    recs = {name: tc.undeal(r, ns[name], k, max(ns[name], 1))
+    return undeal_sections(recs_l, ns, kts), tables
+
+
+def undeal_sections(recs_l, ns: dict, kts) -> dict:
+    return {name: tc.undeal(r, ns[name], k, max(ns[name], 1))
             for (name, k, _), r in zip(kts, recs_l)}
+
+
+def decode_p_resolve(recs: dict, ns: dict, xx1: int, xx2: int, n_data: int,
+                     cfg: CodecConfig, mcap: int, bcap: int):
+    """BT-run expansion + per-block rect / record resolution of decoded
+    section records. Returns ((mo_rects, mo_mvs, d_rects, pt, rlg, lt),
+    err): stream-consistency violations set bits of `err` (device int32)
+    instead of raising."""
+    h, w, nbx, nby = cfg.height, cfg.width, cfg.nbx, cfg.nby
+    dev = recs["bt"].device
     bt, sxy, mv = recs["bt"], recs["sxy"], recs["mv"]
     pix, lit = recs["rec"], recs["col"]
     nb = nbx * nby
@@ -400,7 +414,7 @@ def decode_p_resolve(payloads: dict, ns: dict, kts, xx1: int, xx2: int,
     lit_idx = torch.cumsum(is_lit_rec.to(I32), dim=0) - 1
     litv = lit[lit_idx.clamp(0, lit.shape[0] - 1).long()]
     lt = to_grid(torch.where(is_lit_rec[:, None], litv, 0))
-    return (mo_rects, mo_mvs, d_rects, pt, rlg, lt), err, tables
+    return (mo_rects, mo_mvs, d_rects, pt, rlg, lt), err
 
 
 def apply_motion(base: torch.Tensor, prev: torch.Tensor, rects: torch.Tensor,
@@ -512,13 +526,20 @@ def decode_p_device(payloads: dict, ns: dict, kts, xx1: int, xx2: int,
                     cfg: CodecConfig):
     """Whole P-frame decode on the device: sections, block resolution,
     motion apply and data-block rebuild. Returns (frame, err, tables')."""
-    parts, err, tables = decode_p_resolve(
-        payloads, ns, kts, xx1, xx2, n_data, tables, cfg, max(n_mv, 1),
-        max(n_data, 1))
+    recs, tables = decode_p_sections(payloads, ns, kts, tables)
+    frame, err = rebuild_p(recs, ns, xx1, xx2, n_data, n_mv, prev, cfg)
+    return frame, err, tables
+
+
+def rebuild_p(recs: dict, ns: dict, xx1: int, xx2: int, n_data: int, n_mv: int,
+              prev: torch.Tensor, cfg: CodecConfig):
+    """Block resolution, motion apply and data-block rebuild of one P frame
+    from its decoded section records -> (frame, err)."""
+    parts, err = decode_p_resolve(recs, ns, xx1, xx2, n_data, cfg, max(n_mv, 1),
+                                  max(n_data, 1))
     mo_rects, mo_mvs, d_rects, pt, rlg, lt = parts
     out = apply_motion(prev, prev, mo_rects, mo_mvs)
-    out = reconstruct_blocks(out, prev, d_rects, pt, rlg, lt)
-    return out, err, tables
+    return reconstruct_blocks(out, prev, d_rects, pt, rlg, lt), err
 
 
 _P_ERRORS = (

@@ -4,7 +4,8 @@ Records guarantee exact predictor matches inside runs, so each row obeys
 v[x] = a[x] * v[x-1] + b[x] with a in {0, 1}: literal, above and aboveleft
 reset the recurrence, left carries it, gradient adds above - aboveleft.
 Rows chain through the above row. Kernel K4 (`csrc/recon.cu`, replacing
-`jx/recon.py:_recon_kernel`) walks the rows in one thread block;
+`jx/recon.py:_recon_kernel`) walks the rows of a frame in one thread block,
+a batch of frames (the keyframing streams of a serving step) in one launch;
 `recon_rows_plain` is its plain version, a Python loop over rows.
 
 Padding columns are left-runs, so the last pixel of row y-1 carries
@@ -92,19 +93,24 @@ def recon_rows_plain(pt_rows: torch.Tensor, lit_rows: torch.Tensor,
 
 
 def recon_rows(pt_rows: torch.Tensor, lit_rows: torch.Tensor, w: int) -> torch.Tensor:
-    """Row reconstruction: K4 on CUDA tensors, the plain version on CPU."""
+    """Row reconstruction of one frame ([H, Wp] rows) or a batch ([N, H,
+    Wp]): K4 on CUDA tensors, the plain version (per frame) on CPU."""
     if not pt_rows.is_cuda:
-        return recon_rows_plain(pt_rows, lit_rows, w)
+        if pt_rows.dim() == 2:
+            return recon_rows_plain(pt_rows, lit_rows, w)
+        return torch.stack([recon_rows_plain(p, lt, w) for p, lt in zip(pt_rows, lit_rows)])
     pt_rows = pt_rows.to(I32).contiguous()
     lit_rows = lit_rows.to(I32).contiguous()
     _build.require_cuda(pt_rows, lit_rows)
-    h, wp = pt_rows.shape
-    if wp & (wp - 1) or not 128 <= wp <= 8192 or lit_rows.shape != (h, wp, 3):
+    lead = pt_rows.shape[:-1]
+    wp = pt_rows.shape[-1]
+    if wp & (wp - 1) or not 128 <= wp <= 8192 or lit_rows.shape != (*lead, wp, 3):
         raise ValueError(f"recon kernel takes pow2 widths 128..8192, got {wp}")
-    out = torch.empty((h, w, 3), dtype=torch.uint8, device=pt_rows.device)
-    if h:
+    out = torch.empty((*lead, w, 3), dtype=torch.uint8, device=pt_rows.device)
+    n, h = (lead[0], lead[1]) if pt_rows.dim() == 3 else (1, lead[0])
+    if n and h:
         _build.launch("sptc_recon_rows", pt_rows.data_ptr(), lit_rows.data_ptr(),
-                      out.data_ptr(), h, w, wp)
+                      out.data_ptr(), n, h, w, wp)
     return out
 
 
@@ -124,3 +130,10 @@ def reconstruct_i(records: torch.Tensor, lits: torch.Tensor, h: int, w: int):
     """I-frame reconstruction -> [h, w, 3] uint8."""
     pt_pix, lit_pix = expand_records(records, lits, h * w)
     return recon_rows(*pad_rows(pt_pix, lit_pix, h, w), w)
+
+
+def reconstruct_i_streams(records_l, lits_l, h: int, w: int):
+    """reconstruct_i of C keyframes (lists of record / literal arrays) with
+    one K4 launch -> [C, h, w, 3] uint8."""
+    rows = [pad_rows(*expand_records(r, lt, h * w), h, w) for r, lt in zip(records_l, lits_l)]
+    return recon_rows(torch.stack([p for p, _ in rows]), torch.stack([lt for _, lt in rows]), w)

@@ -8,16 +8,18 @@ kernels (`csrc/sections.cu`, `codec_*` device functions) carry the same
 schedule in C++ and are held to these functions by the kernel-vs-plain
 checks. `rec`/`partial` are lists of per-field lane tensors, `state` a
 tuple of lane tensors.
-
-The compact-color `ColW` encoder variant of the JAX package is not ported
-(see ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import torch
 
-from screenpressor_tpu.config import COLOR_CTX_ROWS, MV_OFFSET, color_ctx
+from screenpressor_tpu.config import (
+    COL_COMPACT_BUCKETS,
+    COLOR_CTX_ROWS,
+    MV_OFFSET,
+    color_ctx,
+)
 
 
 def _where(c, a, b):
@@ -178,5 +180,36 @@ class MV:
         )
 
 
+class ColW(Col):
+    """Encoder-internal compact-color variant of `Col` (not a format
+    change): records carry 3 extra fields, this section's color rows
+    remapped into a compact touched-row table (`coder.color_compact_streams`).
+    The coding distributions, and so the bytes, are those of `Col` over the
+    full table; only the table indexing changes. Encode-only: a decoder's
+    rows depend on the symbols it decodes, so decoders run `Col`."""
+
+    rec_width = 6
+    cid = 5
+    compact_rows = 0  # set per registered bucket
+
+    def init_state(self, z):
+        return ()
+
+    def enc_syms(self, j, rec, state):
+        return rec[3 + j], rec[j], None
+
+    def enc_next_state(self, rec, state, active):
+        return ()
+
+    def dec_row(self, j, partial, state):
+        raise NotImplementedError("colw is encode-only; decoders use 'col'")
+
+    def dec_finish(self, partial, state, active):
+        raise NotImplementedError("colw is encode-only; decoders use 'col'")
+
+
 SUBSTEP_CODECS = {"rec": Rec(), "col": Col(), "bt": BT(), "sxy": Sxy(),
                   "mv": MV()}
+for _rows in COL_COMPACT_BUCKETS:
+    SUBSTEP_CODECS[f"colw{_rows}"] = type(
+        f"ColW{_rows}", (ColW,), {"name": f"colw{_rows}", "compact_rows": _rows})()

@@ -2,13 +2,21 @@
 
 State is a plain dict {kind: {"cnt" [R, A], "cntsum" [R], ["gcnt" [A],
 "gsum" []]}} of int32 tensors, keyed exactly like the JAX pytree (the g
-entries exist for mixed kinds, config.MIX_KINDS). The functions here are
-functional: they return new tensors and never write their inputs, so one
-renewed table set can be shared by every session on a device.
+entries exist for mixed kinds, config.MIX_KINDS). The single-stream
+functions here are functional: they return new tensors and never write
+their inputs, so one renewed table set can be shared by every session on a
+device.
+
+A table set for S streams (the serving sessions, `parallel/serving.py`) is
+the same dict with a leading [S] axis on every tensor. The session owns it
+and updates it in place: `renew_rows` here, the stream-batched section
+coder in `coder.py`, which selects the streams of a launch by an index
+list of stream ids.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from screenpressor_tpu.config import (
@@ -132,3 +140,27 @@ def select_tables(cond: torch.Tensor, a: dict, b: dict) -> dict:
         kd: {key: torch.where(cond, a[kd][key], b[kd][key]) for key in b[kd]}
         for kd in b
     }
+
+
+# ---------------------------------------------------------------------------
+# Stream-batched table sets [S, ...]
+# ---------------------------------------------------------------------------
+
+
+def renew_tables_streams(n_streams: int, device) -> dict:
+    """A renewed table set for each of n_streams streams (own memory)."""
+    return {kd: {key: v.expand((n_streams,) + v.shape).clone()
+                 for key, v in tab.items()}
+            for kd, tab in renew_tables_cached(device).items()}
+
+
+def renew_rows(tables_b: dict, mask) -> None:
+    """Renew, in place, the tables of the streams where `mask` [S] holds
+    (keyframes, flat transitions, raw escapes)."""
+    idx = [int(i) for i in np.nonzero(np.asarray(mask, bool))[0]]
+    if not idx:
+        return
+    fresh = renew_tables_cached(next(iter(tables_b["color"].values())).device)
+    for kd, tab in tables_b.items():
+        for key, v in tab.items():
+            v[idx] = fresh[kd][key]

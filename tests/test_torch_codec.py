@@ -14,6 +14,7 @@ from screenpressor_tpu.config import ALG_RAW, CodecConfig
 from screenpressor_tpu.jx.codec import JaxEncoder
 from screenpressor_tpu.spec.codec import apply_loss
 from screenpressor_tpu_torch import TorchDecoder, TorchEncoder
+from screenpressor_tpu_torch.convert import tables_to_numpy
 
 from tests.test_batch import H, W, session_frames
 from tests.torch_support import one_torch_thread  # noqa: F401 (autouse)
@@ -53,11 +54,18 @@ def test_golden_spec_stream_reencodes(hw):
 
 @pytest.mark.parametrize("loss", [0, 2])
 def test_mixed_batch_matches_jx(loss):
-    """Scroll / typing / idle / flat / noise and a raw escape, I and P."""
+    """Scroll / typing / idle / flat / noise and a raw escape, I and P; the
+    col sections go through colw. Bytes and the final tables equal jx's."""
     frames = session_frames(8 if loss else 10)
     cfg = CodecConfig(width=W, height=H, kf_interval=4, loss=loss)
-    ref = JaxEncoder(cfg).encode_batch(frames)
-    got = TorchEncoder(cfg, "cpu").encode_batch(frames)
+    jenc = JaxEncoder(cfg)
+    ref = jenc.encode_batch(frames)
+    enc = TorchEncoder(cfg, "cpu")
+    got = enc.encode_batch(frames)
+    want_t, got_t = tables_to_numpy(jenc.tables), tables_to_numpy(enc.tables)
+    for kd in want_t:
+        for key in want_t[kd]:
+            np.testing.assert_array_equal(got_t[kd][key], want_t[kd][key], err_msg=kd)
     assert any((p[0] & 0x0F) == ALG_RAW for p, _ in got), "fixture lost its raw escape"
     assert any(len(p) == 4 for p, _ in got), "fixture lost its flat frame"
     for i, (g, r) in enumerate(zip(got, ref)):

@@ -12,7 +12,7 @@ from screenpressor_tpu.jx import coder as jc
 from screenpressor_tpu.jx.tables import renew_tables as jx_renew
 from screenpressor_tpu_torch import coder as tc
 from screenpressor_tpu_torch.convert import tables_to_numpy
-from screenpressor_tpu_torch.tables import renew_tables
+from screenpressor_tpu_torch.tables import renew_tables, renew_tables_streams
 
 from tests.test_jx_coder import _spec_records
 from tests.torch_support import one_torch_thread  # noqa: F401 (autouse)
@@ -73,3 +73,36 @@ def test_lane_geometry_matches_jx(n, k):
     np.testing.assert_array_equal(dealt_t.numpy(), dealt_j)
     back_j = np.asarray(jc.undeal_device(jnp.asarray(dealt_j), n, k, cap))
     np.testing.assert_array_equal(tc.undeal(dealt_t, n, k, cap).numpy(), back_j)
+
+
+@pytest.mark.parametrize("col_w", [None, 256])
+def test_single_stream_coder_is_the_one_stream_case(col_w):
+    """encode_sections / decode_sections run the stream-batched coder on
+    [1, ...] copies: the caller's tables are never written, and the bytes
+    and tables equal the batched coder's for one stream of a larger set."""
+    rng = np.random.default_rng(3)
+    lits = rng.integers(0, 256, (6, 3))[rng.integers(0, 6, 300)].astype(np.int32)
+    n, k = len(lits), 4
+    t = tc.steps_for(n, k)
+    lits_t = torch.as_tensor(lits)
+    dealt, lens = tc.deal(lits_t, n, k, t), tc.lane_lens(n, k, "cpu")
+    bm = tc.color_touched_bitmap(lits_t, n) if col_w else None
+    kts = (("col", k, t),)
+    tabs = renew_tables("cpu")
+    before = tables_to_numpy(tabs)
+    bufs, starts, out = tc.encode_sections([dealt], [lens], tabs, kts, col_w, bm)
+    _assert_tables(tabs, before)
+
+    tabs_b = renew_tables_streams(3, "cpu")
+    bufs_b, starts_b = tc.encode_sections_streams(
+        [dealt[None]], [lens[None]], tabs_b, kts, [1], col_w, None if bm is None else bm[None])
+    assert torch.equal(bufs_b[0][0], bufs[0]) and torch.equal(starts_b[0][0], starts[0])
+    _assert_tables({kd: {key: v[1] for key, v in tab.items()} for kd, tab in tabs_b.items()},
+                   tables_to_numpy(out))
+
+    blobs = tc.blobs_from_buf(bufs[0].numpy(), starts[0].numpy(), lens.numpy())
+    pay = torch.as_tensor(tc.pad_payload(blobs, k))
+    recs, dout = tc.decode_sections([pay], [lens], tabs, kts)
+    _assert_tables(tabs, before)
+    _assert_tables(dout, tables_to_numpy(out))
+    np.testing.assert_array_equal(tc.undeal(recs[0], n, k, n).numpy(), lits)

@@ -7,7 +7,8 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MODULES = ("_build", "blocks", "classify", "codec", "coder", "convert",
-           "iframe", "kernels", "pframe", "recon", "substeps", "tables")
+           "iframe", "kernels", "parallel.serving", "pframe", "recon", "substeps",
+           "tables")
 
 
 def test_port_imports_no_jax():
@@ -17,7 +18,8 @@ def test_port_imports_no_jax():
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module('screenpressor_tpu_torch.' + m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m.startswith('screenpressor_tpu.jx'))\n"
+        "             or m.startswith('screenpressor_tpu.jx')\n"
+        "             or m.startswith('screenpressor_tpu.parallel'))\n"
         "print(','.join(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)

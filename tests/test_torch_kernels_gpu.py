@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1-K4) against their plain PyTorch versions, on
-the card. Skips where there is no CUDA device.
+"""The port's CUDA kernels (K1-K4, their stream-batched launches and K1's
+colw variant) against their plain PyTorch versions, on the card. Skips
+where there is no CUDA device.
 
 This file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
@@ -17,9 +18,8 @@ from screenpressor_tpu.config import CodecConfig, lane_count, seg_tile
 from screenpressor_tpu_torch import TorchDecoder, TorchEncoder, _build
 from screenpressor_tpu_torch import classify as tcl
 from screenpressor_tpu_torch import coder as tc
-from screenpressor_tpu_torch import kernels as tk
 from screenpressor_tpu_torch import recon as tr
-from screenpressor_tpu_torch.tables import renew_tables
+from screenpressor_tpu_torch.tables import renew_tables, renew_tables_streams
 
 pytestmark = pytest.mark.gpu
 
@@ -75,7 +75,7 @@ def test_section_kernels_match_plain(cuda, name, n):
     tabs = renew_tables(cuda)
     cum, freq, act, tab_p = tc.model_scan(dealt, lens, tabs, name)
     buf_p, start_p = tc.rans_pack(cum, freq, act, tc.pack_cap(name, t))
-    bufs, starts, tab_k = tk.encode_sections_kernel([dealt], [lens], tabs, kts)
+    bufs, starts, tab_k = tc.encode_sections([dealt], [lens], tabs, kts)
     lens_np = lens.cpu().numpy()
     blobs_p = tc.blobs_from_buf(buf_p.cpu().numpy(), start_p.cpu().numpy(), lens_np)
     blobs_k = tc.blobs_from_buf(bufs[0].cpu().numpy(), starts[0].cpu().numpy(), lens_np)
@@ -84,7 +84,7 @@ def test_section_kernels_match_plain(cuda, name, n):
 
     pay = torch.as_tensor(tc.pad_payload(blobs_k, k), device=cuda)
     rec_p, dtab_p = tc.decode_section_scan(pay, lens, tabs, name, t)
-    recs, dtab_k = tk.decode_sections_kernel([pay], [lens], tabs, kts)
+    recs, dtab_k = tc.decode_sections([pay], [lens], tabs, kts)
     assert torch.equal(recs[0], rec_p)
     _assert_tables_equal(dtab_k, dtab_p)
     _assert_tables_equal(dtab_k, tab_k)
@@ -103,10 +103,10 @@ def test_fused_launch_matches_sequential(cuda):
         dealt.append(d)
         lens_l.append(tc.lane_lens(n, k, cuda))
         kts.append((name, k, t))
-    b1, s1, t1 = tk.encode_sections_kernel(dealt, lens_l, renew_tables(cuda), tuple(kts))
+    b1, s1, t1 = tc.encode_sections(dealt, lens_l, renew_tables(cuda), tuple(kts))
     tabs = renew_tables(cuda)
     for i in range(5):
-        b, s, tabs = tk.encode_sections_kernel([dealt[i]], [lens_l[i]], tabs, (kts[i],))
+        b, s, tabs = tc.encode_sections([dealt[i]], [lens_l[i]], tabs, (kts[i],))
         assert torch.equal(b[0], b1[i]) and torch.equal(s[0], s1[i])
     _assert_tables_equal(t1, tabs)
 
@@ -164,4 +164,131 @@ def test_golden_session_on_card(cuda):
     out = TorchDecoder(cfg, cuda).decode_batch([p for p, _ in got])
     for f, o in zip(frames, out):
         np.testing.assert_array_equal(o, f)
-    assert all(v > 0 for v in _build.LAUNCHES.values()), _build.LAUNCHES
+    single = ("sptc_sections_encode", "sptc_sections_decode", "sptc_run_walk",
+              "sptc_recon_rows")
+    assert all(_build.LAUNCHES[k] > 0 for k in single), _build.LAUNCHES
+
+
+def _clone(tables_b):
+    return {kd: {key: v.clone() for key, v in tab.items()} for kd, tab in tables_b.items()}
+
+
+def _streams_input(names, ns, k, dev, seed):
+    """Per section: dealt [C, T, K, W] records of C streams (n per stream,
+    some 0) and lens [C, K]."""
+    rng = np.random.default_rng(seed)
+    dealt, lens, kts = [], [], []
+    for name in names:
+        t = max(tc.steps_for(n, k) for n in ns)
+        dealt.append(torch.stack([
+            tc.deal(torch.as_tensor(section_records(name, max(n, 1), rng), dtype=torch.int32,
+                                    device=dev), n, k, t) for n in ns]))
+        lens.append(torch.stack([tc.lane_lens(n, k, dev) for n in ns]))
+        kts.append((name, k, t))
+    return dealt, lens, tuple(kts)
+
+
+def test_stream_batched_sections_match_plain(cuda):
+    """K1 / K2 over 4 of 6 streams (stream ids out of order, one stream
+    with no records in some sections) against the stream loop of the plain
+    coder: bytes, starts, records and every stream's tables; the streams
+    left out keep their tables bit for bit."""
+    names = ["bt", "sxy", "mv", "rec", "col"]
+    ns = [300, 0, 41, 1200]
+    sidx = [5, 0, 3, 2]
+    k = 16
+    dealt, lens, kts = _streams_input(names, ns, k, cuda, 9)
+    base = renew_tables_streams(6, cuda)
+    base["color"]["cnt"][4] += 1  # a stream left out, with its own state
+    tk_, tp_ = _clone(base), _clone(base)
+    bufs, starts = tc.encode_sections_streams(dealt, lens, tk_, kts, sidx)
+    plain = {kd: {key: v.cpu() for key, v in tab.items()} for kd, tab in tp_.items()}
+    bufs_p, starts_p = tc.encode_sections_streams(
+        [d.cpu() for d in dealt], [ln.cpu() for ln in lens], plain, kts, sidx)
+    pays = []
+    for i, (name, _, t) in enumerate(kts):
+        blobs = [tc.blobs_from_buf(bufs[i][j].cpu().numpy(), starts[i][j].cpu().numpy(),
+                                   lens[i][j].cpu().numpy()) for j in range(len(sidx))]
+        blobs_p = [tc.blobs_from_buf(bufs_p[i][j].numpy(), starts_p[i][j].numpy(),
+                                     lens[i][j].cpu().numpy()) for j in range(len(sidx))]
+        assert blobs == blobs_p, name
+        arrs = [tc.pad_payload(bl, k) for bl in blobs]
+        width = max(a.shape[1] for a in arrs)
+        pays.append(torch.as_tensor(
+            np.stack([np.pad(a, ((0, 0), (0, width - a.shape[1]))) for a in arrs]),
+            device=cuda))
+    _assert_tables_equal(tk_, plain)
+    for key, v in base["color"].items():
+        assert torch.equal(tk_["color"][key][4], v[4]), key
+        assert torch.equal(tk_["color"][key][1], v[1]), key
+
+    dk_, dp_ = _clone(base), _clone(base)
+    recs = tc.decode_sections_streams(pays, lens, dk_, kts, sidx)
+    plain_d = {kd: {key: v.cpu() for key, v in tab.items()} for kd, tab in dp_.items()}
+    recs_p = tc.decode_sections_streams([p.cpu() for p in pays], [ln.cpu() for ln in lens],
+                                        plain_d, kts, sidx)
+    for i, (name, _, _) in enumerate(kts):
+        assert torch.equal(recs[i].cpu(), recs_p[i]), name
+        valid = (torch.arange(recs[i].shape[1], device=cuda)[None, :, None]
+                 < lens[i][:, None, :])[..., None]
+        assert torch.equal(torch.where(valid, recs[i], 0), torch.where(valid, dealt[i], 0))
+    _assert_tables_equal(dk_, plain_d)
+    _assert_tables_equal(dk_, tk_)
+
+
+def _row_last_section(c, dev):
+    """C streams' col sections whose literals touch color row 12287 (R 255,
+    G >= 240) and fit the 256-row compact bucket."""
+    rng = np.random.default_rng(7)
+    pal = rng.integers(0, 256, (5, 3))
+    pal[0] = (255, 250, 17)
+    ns = [900, 60, 333][:c]
+    lits = [torch.as_tensor(pal[rng.integers(0, 5, n)], dtype=torch.int32, device=dev)
+            for n in ns]
+    k = 32
+    t = max(tc.steps_for(n, k) for n in ns)
+    dealt = torch.stack([tc.deal(lt, n, k, t) for lt, n in zip(lits, ns)])
+    lens = torch.stack([tc.lane_lens(n, k, dev) for n in ns])
+    bm = torch.stack([tc.color_touched_bitmap(lt, n) for lt, n in zip(lits, ns)])
+    return dealt, lens, bm, (("col", k, t),)
+
+
+def test_colw_kernel_matches_full_col_kernel(cuda):
+    """K1-colw (compact table gathered and restored in torch) against
+    full-table K1 col and against the plain colw coder: bytes, starts and
+    the restored full tables, on sections that touch row 12287."""
+    dealt, lens, bm, kts = _row_last_section(3, cuda)
+    assert tc.col_compact_bucket(int(bm.sum(dim=1).max())) == 256
+    sidx = [2, 0, 1]
+    base = renew_tables_streams(3, cuda)
+    full, colw = _clone(base), _clone(base)
+    _build.reset_counts()
+    b_full, s_full = tc.encode_sections_streams([dealt], [lens], full, kts, sidx)
+    b_w, s_w = tc.encode_sections_streams([dealt], [lens], colw, kts, sidx, 256, bm)
+    assert _build.LAUNCHES["sptc_sections_encode_colw"] == 1
+    assert torch.equal(s_w[0], s_full[0])
+    for j in range(3):
+        ln = lens[j].cpu().numpy()
+        assert (tc.blobs_from_buf(b_w[0][j].cpu().numpy(), s_w[0][j].cpu().numpy(), ln)
+                == tc.blobs_from_buf(b_full[0][j].cpu().numpy(), s_full[0][j].cpu().numpy(), ln))
+    _assert_tables_equal(colw, full)
+    plain = {kd: {key: v.cpu() for key, v in tab.items()} for kd, tab in base.items()}
+    b_p, s_p = tc.encode_sections_streams([dealt.cpu()], [lens.cpu()], plain, kts, sidx, 256,
+                                          bm.cpu())
+    assert torch.equal(s_p[0], s_w[0].cpu())
+    _assert_tables_equal(colw, plain)
+
+
+def test_recon_streams_match_plain(cuda):
+    frames = torch.stack([torch.as_tensor(_frame(48, 64, s), device=cuda) for s in (1, 2, 3)])
+    cls = tcl.classify_i_streams(frames)
+    records = [r[: int(n)] for r, n, _, _ in cls]
+    lits = [lt[: max(int(n), 1)] for _, _, lt, n in cls]
+    got = tr.reconstruct_i_streams(records, lits, 48, 64)
+    assert torch.equal(got, frames)
+    rows = [tr.pad_rows(*tr.expand_records(r, lt, 48 * 64), 48, 64)
+            for r, lt in zip(records, lits)]
+    pt = torch.stack([p for p, _ in rows])
+    lt = torch.stack([lt for _, lt in rows])
+    assert torch.equal(tr.recon_rows(pt, lt, 64),
+                       torch.stack([tr.recon_rows_plain(p, q, 64) for p, q in zip(pt, lt)]))
