@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from screenpressor_tpu.config import (
+from screenpressor_tpu_torch.config import (
     BLOCK,
     BT_FULL_DATA,
     BT_FULL_MOTION,

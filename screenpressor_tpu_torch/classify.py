@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from screenpressor_tpu.config import (
+from screenpressor_tpu_torch.config import (
     MAX_RUN,
     NUM_PTYPES,
     PT_ABOVE,
@@ -22,7 +22,6 @@ from screenpressor_tpu.config import (
     PT_LITERAL,
     seg_tile,
 )
-
 from screenpressor_tpu_torch import _build
 
 I32 = torch.int32

@@ -17,9 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from screenpressor_tpu import bitstream as bs
-from screenpressor_tpu.config import ALG_FLAT, ALG_I, ALG_P, ALG_RAW, CodecConfig
-
+from screenpressor_tpu_torch import bitstream as bs
+from screenpressor_tpu_torch.config import ALG_FLAT, ALG_I, ALG_P, ALG_RAW, CodecConfig
 from screenpressor_tpu_torch.blocks import analyze_compact, mv_candidates
 from screenpressor_tpu_torch.coder import col_compact_bucket, color_touched_bitmap
 from screenpressor_tpu_torch.iframe import (

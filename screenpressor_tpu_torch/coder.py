@@ -27,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from screenpressor_tpu.config import (
+from screenpressor_tpu_torch.config import (
     COL_COMPACT_BUCKETS,
     COLOR_CTX_ROWS,
     PROB_BITS,
@@ -37,7 +37,6 @@ from screenpressor_tpu.config import (
     kind_gstep,
     kind_step,
 )
-
 from screenpressor_tpu_torch.substeps import SUBSTEP_CODECS as CODECS
 from screenpressor_tpu_torch.tables import effective_rows, update_batch
 

@@ -9,9 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from screenpressor_tpu import bitstream as bs
-from screenpressor_tpu.config import CodecConfig
-
+from screenpressor_tpu_torch import bitstream as bs
+from screenpressor_tpu_torch.config import CodecConfig
 from screenpressor_tpu_torch import coder as tc
 from screenpressor_tpu_torch.classify import classify_i
 from screenpressor_tpu_torch.recon import reconstruct_i

@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from screenpressor_tpu.config import (
+from screenpressor_tpu_torch.config import (
     COLOR_CTX_BITS_A,
     COLOR_CTX_BITS_B,
     MIX_ESC_C,
@@ -33,7 +33,6 @@ from screenpressor_tpu.config import (
     kind_gstep,
     kind_step,
 )
-
 from screenpressor_tpu_torch import _build
 from screenpressor_tpu_torch.coder import pack_cap
 from screenpressor_tpu_torch.substeps import SUBSTEP_CODECS as CODECS

@@ -31,9 +31,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from screenpressor_tpu import bitstream as bs
-from screenpressor_tpu.config import ALG_FLAT, ALG_I, ALG_P, ALG_RAW, CodecConfig
-
+from screenpressor_tpu_torch import bitstream as bs
+from screenpressor_tpu_torch.config import ALG_FLAT, ALG_I, ALG_P, ALG_RAW, CodecConfig
 from screenpressor_tpu_torch import coder as tc
 from screenpressor_tpu_torch.blocks import analyze_compact, mv_candidates
 from screenpressor_tpu_torch.classify import classify_i_streams

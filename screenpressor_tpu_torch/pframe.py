@@ -16,8 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from screenpressor_tpu import bitstream as bs
-from screenpressor_tpu.config import (
+from screenpressor_tpu_torch import bitstream as bs
+from screenpressor_tpu_torch.config import (
     ALG_P,
     BLOCK,
     BT_FULL_DATA,
@@ -33,7 +33,6 @@ from screenpressor_tpu.config import (
     PT_PREVFRAME,
     CodecConfig,
 )
-
 from screenpressor_tpu_torch import coder as tc
 from screenpressor_tpu_torch.classify import fits_bits, run_walk
 from screenpressor_tpu_torch.iframe import section_bytes, varint_len

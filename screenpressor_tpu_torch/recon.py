@@ -17,14 +17,13 @@ from __future__ import annotations
 
 import torch
 
-from screenpressor_tpu.config import (
+from screenpressor_tpu_torch.config import (
     PT_ABOVE,
     PT_ABOVELEFT,
     PT_GRADIENT,
     PT_LEFT,
     PT_LITERAL,
 )
-
 from screenpressor_tpu_torch import _build
 
 I32 = torch.int32

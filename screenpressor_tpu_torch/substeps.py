@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from screenpressor_tpu.config import (
+from screenpressor_tpu_torch.config import (
     COL_COMPACT_BUCKETS,
     COLOR_CTX_ROWS,
     MV_OFFSET,

@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from screenpressor_tpu.config import (
+from screenpressor_tpu_torch.config import (
     MIX_ESC_C,
     PROB_SCALE,
     RESCALE_SHIFT,

@@ -9,15 +9,17 @@ import zlib
 import numpy as np
 import pytest
 
-from screenpressor_tpu import bitstream as bs
-from screenpressor_tpu.config import ALG_RAW, CodecConfig
+from screenpressor_tpu.config import CodecConfig as RefCodecConfig
 from screenpressor_tpu.jx.codec import JaxEncoder
 from screenpressor_tpu.spec.codec import apply_loss
 from screenpressor_tpu_torch import TorchDecoder, TorchEncoder
+from screenpressor_tpu_torch import bitstream as bs
+from screenpressor_tpu_torch.config import ALG_RAW, CodecConfig
 from screenpressor_tpu_torch.convert import tables_to_numpy
 
 from tests.test_batch import H, W, session_frames
 from tests.torch_support import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_support import port_config
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
@@ -57,8 +59,9 @@ def test_mixed_batch_matches_jx(loss):
     """Scroll / typing / idle / flat / noise and a raw escape, I and P; the
     col sections go through colw. Bytes and the final tables equal jx's."""
     frames = session_frames(8 if loss else 10)
-    cfg = CodecConfig(width=W, height=H, kf_interval=4, loss=loss)
-    jenc = JaxEncoder(cfg)
+    jcfg = RefCodecConfig(width=W, height=H, kf_interval=4, loss=loss)
+    cfg = port_config(jcfg)
+    jenc = JaxEncoder(jcfg)
     ref = jenc.encode_batch(frames)
     enc = TorchEncoder(cfg, "cpu")
     got = enc.encode_batch(frames)

@@ -20,6 +20,7 @@ from screenpressor_tpu_torch.tables import renew_tables
 
 from tests.test_batch import H, W
 from tests.torch_support import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_support import port_config
 
 ROW_LAST = 3 * COLOR_CTX_ROWS - 1  # 12287 under the default (8, 4) context bits
 
@@ -135,7 +136,7 @@ def test_row_last_two_frame_round_trip():
     mp = pytest.MonkeyPatch()
     mp.setattr(tc, "color_compact_streams", counted)
     try:
-        enc = TorchEncoder(cfg, "cpu")
+        enc = TorchEncoder(port_config(cfg), "cpu")
         got = enc.encode_batch([f0, f1])
     finally:
         mp.undo()
@@ -145,6 +146,6 @@ def test_row_last_two_frame_round_trip():
     _assert_tables(tables_to_numpy(enc.tables),
                    {kd: {key: np.asarray(v) for key, v in tab.items()}
                     for kd, tab in jenc.tables.items()})
-    out = TorchDecoder(cfg, "cpu").decode_batch([p for p, _ in got])
+    out = TorchDecoder(port_config(cfg), "cpu").decode_batch([p for p, _ in got])
     np.testing.assert_array_equal(out[0], f0)
     np.testing.assert_array_equal(out[1], f1)

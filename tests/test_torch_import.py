@@ -1,14 +1,51 @@
-"""The port never imports JAX: checked in a fresh interpreter."""
+"""The port imports neither JAX nor the JAX package: checked on the sources
+(every import statement) and in a fresh interpreter."""
 
+import ast
+import glob
 import os
 import subprocess
 import sys
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-MODULES = ("_build", "blocks", "classify", "codec", "coder", "convert",
-           "iframe", "kernels", "parallel.serving", "pframe", "recon", "substeps",
-           "tables")
+MODULES = ("_build", "bitstream", "blocks", "classify", "codec", "coder", "config",
+           "convert", "iframe", "kernels", "parallel.serving", "pframe", "recon",
+           "substeps", "synth", "tables")
+
+# files that run on the card, where neither JAX nor the reference is imported
+PORT_FILES = sorted(
+    os.path.relpath(p, ROOT)
+    for p in glob.glob(os.path.join(ROOT, "screenpressor_tpu_torch", "**", "*.py"),
+                       recursive=True)
+) + ["chip_smoke.py", "tests/test_torch_kernels_gpu.py"]
+FORBIDDEN = ("screenpressor_tpu", "bench", "jax")
+
+
+def _imported(src):
+    """Top-level package of every module an absolute import names."""
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_no_import_of_the_reference(path):
+    with open(os.path.join(ROOT, path)) as fh:
+        bad = sorted({m for m in _imported(fh.read()) if m in FORBIDDEN})
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_import_check_sees_the_reference():
+    """The AST check flags a dotted import and a plain one."""
+    src = ("import screenpressor_tpu.jx.coder\nfrom bench import synth_screencast\n"
+           "def f():\n    from screenpressor_tpu import native\n"
+           "from screenpressor_tpu_torch import coder\n")
+    assert set(_imported(src)) == {"screenpressor_tpu", "bench", "screenpressor_tpu_torch"}
 
 
 def test_port_imports_no_jax():
@@ -18,8 +55,8 @@ def test_port_imports_no_jax():
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module('screenpressor_tpu_torch.' + m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m.startswith('screenpressor_tpu.jx')\n"
-        "             or m.startswith('screenpressor_tpu.parallel'))\n"
+        "             or m == 'bench'\n"
+        "             or m == 'screenpressor_tpu' or m.startswith('screenpressor_tpu.'))\n"
         "print(','.join(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -14,11 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from screenpressor_tpu.config import CodecConfig, lane_count, seg_tile
 from screenpressor_tpu_torch import TorchDecoder, TorchEncoder, _build
 from screenpressor_tpu_torch import classify as tcl
 from screenpressor_tpu_torch import coder as tc
 from screenpressor_tpu_torch import recon as tr
+from screenpressor_tpu_torch.config import CodecConfig, lane_count, seg_tile
 from screenpressor_tpu_torch.tables import renew_tables, renew_tables_streams
 
 pytestmark = pytest.mark.gpu
@@ -292,3 +292,85 @@ def test_recon_streams_match_plain(cuda):
     lt = torch.stack([lt for _, lt in rows])
     assert torch.equal(tr.recon_rows(pt, lt, 64),
                        torch.stack([tr.recon_rows_plain(p, q, 64) for p, q in zip(pt, lt)]))
+
+
+def _k2_matches_plain(pay, lens, tabs, name, k, t):
+    """K2 against decode_section_scan on one payload: records and every
+    table tensor equal; returns the kernel's records."""
+    rec_p, tab_p = tc.decode_section_scan(pay, lens, tabs, name, t)
+    _build.reset_counts()
+    recs, tab_k = tc.decode_sections([pay], [lens], tabs, ((name, k, t),))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sptc_sections_decode"] == 1
+    assert torch.equal(recs[0], rec_p)
+    _assert_tables_equal(tab_k, tab_p)
+    return recs[0]
+
+
+def _encoded(name, records, k, dev, tabs=None):
+    n = len(records)
+    dealt, t = _dealt(records, n, k, dev)
+    lens = tc.lane_lens(n, k, dev)
+    tabs = renew_tables(dev) if tabs is None else tabs
+    bufs, starts, _ = tc.encode_sections([dealt], [lens], tabs, ((name, k, t),))
+    blobs = tc.blobs_from_buf(bufs[0].cpu().numpy(), starts[0].cpu().numpy(),
+                              lens.cpu().numpy())
+    return blobs, lens, t, tabs
+
+
+@pytest.mark.parametrize("case", ["k512_col", "k512_rec", "mv_full_range", "window_col",
+                                  "window_mv", "k64_mixed_rescale"])
+def test_k2_shared_memory_cases(cuda, case):
+    """K2's shared-memory design on the shapes the main path does not
+    reach: 512 lanes (warps striding over lanes, rows re-read in phase
+    (b)), the mv alphabet of 512, payloads too large to stage whole (the
+    sliding window), and 64 lanes whose adds push a mixed kind's global
+    row over the rescale threshold in one substep."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case.startswith("k512"):
+        name, n, k = case[5:], 512 * 21 + 77, 512
+        records = section_records(name, n, rng)
+    elif case == "mv_full_range":
+        name, k = "mv", 32
+        records = rng.integers(-255, 256, (4000, 2))
+        records[1::3] = records[0::3][: len(records[1::3])]
+        n = len(records)
+    elif case == "window_col":
+        name, n, k = "col", 32 * 700, 32
+        records = rng.integers(0, 256, (n, 3))
+    elif case == "window_mv":
+        name, n, k = "mv", 32 * 900, 32
+        records = rng.integers(-255, 256, (n, 2))
+    else:
+        name, n, k = "rec", 64 * 40, 64
+        records = section_records(name, n, rng)
+    blobs, lens, t, tabs = _encoded(name, records, k, cuda)
+    pay = torch.as_tensor(tc.pad_payload(blobs, k), device=cuda)
+    if case.startswith("window"):
+        assert k * pay.shape[1] > 48 * 1024, "the payload must exceed the staged budget"
+    recs = _k2_matches_plain(pay, lens, tabs, name, k, t)
+    np.testing.assert_array_equal(tc.undeal(recs, n, k, n).cpu().numpy(), records)
+    if case == "k64_mixed_rescale":
+        g0 = int(tabs["nrun"]["gsum"])
+        _, tab_p = tc.decode_section_scan(pay, lens, tabs, name, 1)
+        assert g0 + 64 * 512 > 16384 - 512 >= int(tab_p["nrun"]["gsum"])
+
+
+@pytest.mark.parametrize("name", ["rec", "col", "mv"])
+@pytest.mark.parametrize("damage", ["truncated", "corrupt"])
+def test_k2_damaged_payload_matches_plain_clamp(cuda, name, damage):
+    """A truncated or corrupt payload finishes, never reads out of bounds,
+    and decodes to the plain version's clamped records and tables."""
+    rng = np.random.default_rng(len(name) + len(damage))
+    n, k = 2000, 16
+    blobs, lens, t, tabs = _encoded(name, section_records(name, n, rng), k, cuda)
+    if damage == "truncated":
+        blobs = [b[: max(4, len(b) // 3)] for b in blobs]
+        pay = torch.as_tensor(tc.pad_payload(blobs, k), device=cuda)
+        pay = pay[:, : max(4, pay.shape[1] // 2)].contiguous()
+    else:
+        arr = tc.pad_payload(blobs, k)
+        hit = rng.random(arr.shape) < 0.05
+        arr[hit] = rng.integers(0, 256, int(hit.sum()))
+        pay = torch.as_tensor(arr, device=cuda)
+    _k2_matches_plain(pay, lens, tabs, name, k, t)

@@ -19,16 +19,17 @@ from screenpressor_tpu_torch import pframe as tp
 from tests.test_spec_iframe import synth_desktop
 from tests.test_spec_pframe import scrolling_sequence, typing_sequence
 from tests.torch_support import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_support import port_config
 
 MSR = dict(msr_x=12, msr_y=12)
 
 
 def _session_matches_jx(frames, cfg):
     ref = JaxEncoder(cfg).encode_batch(frames)
-    got = TorchEncoder(cfg, "cpu").encode_batch(frames)
+    got = TorchEncoder(port_config(cfg), "cpu").encode_batch(frames)
     for i, (g, r) in enumerate(zip(got, ref)):
         assert g == r, f"frame {i}: type or bytes differ from jx"
-    out = TorchDecoder(cfg, "cpu").decode_batch([p for p, _ in got])
+    out = TorchDecoder(port_config(cfg), "cpu").decode_batch([p for p, _ in got])
     for i, (o, f) in enumerate(zip(out, frames)):
         np.testing.assert_array_equal(o, f, err_msg=f"frame {i}")
 
@@ -47,7 +48,7 @@ def test_mv_candidates_match_spec():
 
     for kw in (MSR, dict(msr_x=3, msr_y=5, msr_low_x=8, msr_low_y=8), {}):
         cfg = CodecConfig(width=64, height=48, **kw)
-        assert tb.mv_candidates(cfg) == mv_candidates(cfg)
+        assert tb.mv_candidates(port_config(cfg)) == mv_candidates(cfg)
 
 
 def test_analysis_matches_spec():
@@ -61,7 +62,7 @@ def test_analysis_matches_spec():
     cfg = CodecConfig(width=64, height=48, **MSR)
     for prev, cur in ((frames[0], frames[1]), (frames[1], f2)):
         bts, rects, mvs = analyze_p(cur, prev, cfg)
-        cands = torch.tensor(tb.mv_candidates(cfg), dtype=torch.int32)
+        cands = torch.tensor(tb.mv_candidates(port_config(cfg)), dtype=torch.int32)
         changed, rects_t = tb.change_analysis(torch.as_tensor(cur), torch.as_tensor(prev),
                                               cfg.nby, cfg.nbx)
         choice = tb.motion_search(torch.as_tensor(cur), torch.as_tensor(prev), rects_t,
@@ -111,7 +112,7 @@ def test_motion_adjacent_data_block_predictors():
     frame[0:16, 17:32] = rng.integers(0, 256, (16, 15, 3), dtype=np.uint8)
     spec = SpecEncoder(cfg)
     ref = [spec.encode(f) for f in (prev, frame)]
-    got = TorchEncoder(cfg, "cpu").encode_batch([prev, frame])
+    got = TorchEncoder(port_config(cfg), "cpu").encode_batch([prev, frame])
     assert got == ref
-    out = TorchDecoder(cfg, "cpu").decode_batch([p for p, _ in got])
+    out = TorchDecoder(port_config(cfg), "cpu").decode_batch([p for p, _ in got])
     np.testing.assert_array_equal(out[1], frame)

@@ -13,6 +13,7 @@ from screenpressor_tpu_torch.parallel.serving import BatchedEncoder
 
 from tests.test_serving import staggered_session_batches
 from tests.torch_support import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_support import port_config
 
 S, H, W = 4, 32, 48
 OFFSETS = [0, 1, 2, 0]
@@ -41,7 +42,7 @@ def port_session(monkeypatch_module):
         return real(*args, **kw)
 
     monkeypatch_module.setattr(tc, "color_compact_streams", counted)
-    enc = BatchedEncoder(S, CFG, "cpu", kf_offsets=OFFSETS)
+    enc = BatchedEncoder(S, port_config(CFG), "cpu", kf_offsets=OFFSETS)
     steps = []
     for f in staggered_session_batches(S, H, W):
         outs = enc.encode(f)

@@ -11,9 +11,9 @@ import zlib
 import numpy as np
 import pytest
 
-from screenpressor_tpu import bitstream as bs
-from screenpressor_tpu.config import ALG_RAW, CodecConfig
 from screenpressor_tpu_torch import TorchDecoder, TorchEncoder
+from screenpressor_tpu_torch import bitstream as bs
+from screenpressor_tpu_torch.config import ALG_RAW, CodecConfig
 from screenpressor_tpu_torch.convert import tables_to_numpy
 from screenpressor_tpu_torch.parallel.serving import (
     BatchedDecoder,

@@ -1,5 +1,7 @@
 """Shared fixture of the port's CPU tests (tests/test_torch_*.py)."""
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -15,3 +17,10 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def port_config(cfg):
+    """The port's CodecConfig with the fields of the reference's `cfg`."""
+    from screenpressor_tpu_torch.config import CodecConfig
+
+    return CodecConfig(**dataclasses.asdict(cfg))
