@@ -11,9 +11,12 @@ Phases, each printed with its seconds:
      exact equality of bytes, records and table state, both times from
      CUDA events; K1-colw, on each of those col sections whose touched rows
      fit a compact bucket (as the session takes it), also against full-table
-     K1 col; then K2's time per substep on the keyframe's rec and col
-     records dealt to 1, 8 and 32 lanes over 600 steps (its chain's
-     latency at one lane, and what 32 lanes' warps add);
+     K1 col; K1's forward (modeling) and pack phases apart on the keyframe's
+     rec and col (the device's nanosecond timer read inside the block); K3
+     on the data-block walks of the scroll and the typing P frame (one
+     256-position tile a block); then K1's and K2's time per substep on the
+     keyframe's rec and col records dealt to 1, 8 and 32 lanes over 600
+     steps (the chain's latency at one lane, and what 32 lanes' warps add);
   4. the single-stream main path: TorchEncoder.encode_batch on the
      64-frame 1080p synth_screencast batch, then TorchDecoder.decode_batch,
      run twice (new sessions each time); the second run's kernel launches
@@ -505,9 +508,10 @@ def main() -> int:
     from screenpressor_tpu_torch import blocks as tb
     from screenpressor_tpu_torch import classify as tcl
     from screenpressor_tpu_torch import coder as tc
+    from screenpressor_tpu_torch import kernels as tk
     from screenpressor_tpu_torch import pframe as tp
     from screenpressor_tpu_torch import recon as tr
-    from screenpressor_tpu_torch.config import CodecConfig, seg_tile
+    from screenpressor_tpu_torch.config import NUM_PTYPES, CodecConfig, seg_tile
     from screenpressor_tpu_torch.synth import synth_screencast
     from screenpressor_tpu_torch.tables import renew_tables
 
@@ -589,6 +593,17 @@ def main() -> int:
         pix, plit, pcounts = tp.classify_assemble(cur, prv, arrs["data_rects"],
                                                   int(counts[6]))
         n_pix, n_plit = (int(v) for v in pcounts.cpu().numpy())
+        # K3 on this frame's data-block walk (pframe._segment_seq's inputs)
+        rects = arrs["data_rects"][: int(counts[6])]
+        bfits, bst, _, _ = tp._block_fits(tp._windows(tp._apron(cur), rects),
+                                          tp._windows(tp._apron(prv), rects), rects)
+        wbits, wst = tcl.fits_bits(bfits.reshape(-1, NUM_PTYPES)), bst.reshape(-1)
+        ms, got = cuda_ms(lambda: tcl.run_walk(wbits, wst, tp.AREA), TIMED_REPS)
+        plain_ms, ref = cuda_ms(lambda: tcl.run_walk_plain(wbits, wst, tp.AREA), 1, False)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K3 {label} data-block walk differs from plain")
+        print(f"K3 {label} data-block walk: {rects.shape[0]} blocks x tile {tp.AREA}: kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.1f} ms, equal, on {smi}")
         srcs = {"bt": (arrs["bt"], int(counts[3])), "sxy": (arrs["sxy"], int(counts[4])),
                 "mv": (arrs["mv"], int(counts[5])), "rec": (pix, n_pix),
                 "col": (plit, n_plit)}
@@ -635,6 +650,15 @@ def main() -> int:
         print(f"K1/K2 {label}: n={n} k={k} t={t} bytes={sum(map(len, blobs))}: "
               f"encode {ms:.3f} ms (plain {plain_ms:.1f} ms), decode {dms:.3f} ms "
               f"(plain {dplain_ms:.1f} ms), bytes, records and tables equal")
+        if label.startswith("I "):
+            # K1's two phases apart, from the device timer inside the block
+            clocks = []
+            tk.encode_sections_streams_kernel([dealt[None]], [lens[None]],
+                                              tc._one_stream(tabs, kts), kts, [0],
+                                              clocks=clocks)
+            t_in, t_fwd, t_end = (int(v) for v in clocks[0][0].cpu())
+            print(f"K1 {label} phases: forward {(t_fwd - t_in) / 1e6:.3f} ms, pack "
+                  f"{(t_end - t_fwd) / 1e6:.3f} ms (device timer, one launch) on {smi}")
         if nm != "col":
             continue
         bm = tc.color_touched_bitmap(src, n)
@@ -672,18 +696,20 @@ def main() -> int:
     if "sptc_sections_encode_colw" not in rows:
         raise AssertionError("no 1080p col section fits a colw bucket")
 
-    # K2's time per substep against the lanes: the keyframe's rec and col
-    # records dealt to K lanes over 600 steps (K 1: the chain's latency
-    # floor; K 32: the 1080p keyframe's lanes). Decoded records must equal
-    # the dealt ones.
+    # K1's and K2's time per substep against the lanes: the keyframe's rec
+    # and col records dealt to K lanes over 600 steps (K 1: the chain's
+    # latency floor; K 32: the 1080p keyframe's lanes). Decoded records must
+    # equal the dealt ones.
     for nm, src, s_n in (("rec", records, 2), ("col", lits, 3)):
-        per = []
+        per, per_e = [], []
         for k in (1, 8, 32):
             t = 600
             dealt = tc.deal(src, k * t, k, t)
             lens = tc.lane_lens(k * t, k, dev)
             kts = ((nm, k, t),)
-            bufs, starts, _ = tc.encode_sections([dealt], [lens], tabs, kts)
+            ems, (bufs, starts, _) = cuda_ms(
+                lambda: tc.encode_sections([dealt], [lens], tabs, kts), TIMED_REPS)
+            per_e.append(f"K {k} {1e3 * ems / (t * s_n):.3f} us")
             pay = torch.as_tensor(tc.pad_payload(tc.blobs_from_buf(
                 bufs[0].cpu().numpy(), starts[0].cpu().numpy(), lens.cpu().numpy()), k),
                 device=dev)
@@ -692,6 +718,7 @@ def main() -> int:
             if not torch.equal(recs[0], dealt):
                 raise AssertionError(f"K2 {nm} K {k}: records differ from the dealt ones")
             per.append(f"K {k} {1e3 * ms / (t * s_n):.3f} us")
+        print(f"K1 time per substep, keyframe {nm} records, T 600: {', '.join(per_e)} on {smi}")
         print(f"K2 time per substep, keyframe {nm} records, T 600: {', '.join(per)} on {smi}")
     phase("kernels vs plain", t0)
 

@@ -3,8 +3,10 @@ of `screenpressor_tpu/jx/classify.py`.
 
 Predicate planes and start types are plain tensor ops. The segmentation walk
 is kernel K3 (`csrc/run_walk.cu`, replacing `jx/classify.py:_run_walk`): a
-serial state machine per seg tile, parallel across tiles. `run_walk_plain`
-is its plain version. Record and literal compaction is a cumsum + scatter
+state machine per seg tile, which the kernel runs as a jump walk (every
+position finds the record start that would follow it; one thread hops from
+start to start), a thread block per tile. `run_walk_plain` is its plain
+version. Record and literal compaction is a cumsum + scatter
 that yields the JAX package's record and literal order.
 """
 

@@ -499,8 +499,10 @@ def blobs_from_buf(buf: np.ndarray, start: np.ndarray, lens: np.ndarray):
 
 
 def encode_section(records: np.ndarray, k: int, tables: dict,
-                   codec_name: str, device="cpu"):
-    """Host wrapper. records: [n, W] int array. Returns (blobs, tables')."""
+                   codec_name: str, device=None):
+    """Host wrapper. records: [n, W] int array. Returns (blobs, tables').
+    Runs on the card (`tables` on it) unless `device` says otherwise."""
+    device = "cuda" if device is None else device
     codec = CODECS[codec_name]
     n = len(records)
     if n == 0:
@@ -518,8 +520,10 @@ def encode_section(records: np.ndarray, k: int, tables: dict,
 
 
 def decode_section(blobs, n: int, k: int, tables: dict, codec_name: str,
-                   device="cpu"):
-    """Host wrapper: returns (records [n, W] np.ndarray, tables')."""
+                   device=None):
+    """Host wrapper: returns (records [n, W] np.ndarray, tables'). Runs on
+    the card (`tables` on it) unless `device` says otherwise."""
+    device = "cuda" if device is None else device
     codec = CODECS[codec_name]
     if n == 0:
         return np.zeros((0, codec.rec_width), np.int32), tables

@@ -101,11 +101,14 @@ def _slots(sidx, dev):
 
 
 def encode_sections_streams_kernel(dealt_list, lens_list, tables_b: dict, kts, sidx,
-                                   slot_kinds=()):
+                                   slot_kinds=(), clocks=None):
     """K1 over C streams: dealt [C, T, K, W] int32 records + lens [C, K] per
     section -> (bufs [C, K, cap] uint8, starts [C, K] int32). Updates the
     tables of streams sidx in `tables_b` [S, ...] in place (slot_kinds:
-    kinds whose tables are [C, ...], one per launch slot)."""
+    kinds whose tables are [C, ...], one per launch slot). clocks: a list
+    that receives, per section, an int64 [C, 3] tensor of each block's
+    device nanosecond timer at its start, after its forward (modeling)
+    phase and at its end (after the rANS pack)."""
     dev = dealt_list[0].device
     c = len(sidx)
     slots = _slots(sidx, dev)
@@ -123,11 +126,16 @@ def encode_sections_streams_kernel(dealt_list, lens_list, tables_b: dict, kts, s
             if recs.shape != (c, t, k, codec.rec_width):
                 raise ValueError(f"section {name}: records {tuple(recs.shape)}")
             cap = pack_cap(name, t)
-            iv = torch.empty((c, t, k, len(codec.kinds)), dtype=I32, device=dev)
+            iv = torch.empty((c, k, t * len(codec.kinds)), dtype=I32, device=dev)
             bufs[i] = torch.zeros((c, k, cap), dtype=torch.uint8, device=dev)
             starts[i] = torch.empty((c, k), dtype=I32, device=dev)
+            clk = None
+            if clocks is not None:
+                clk = torch.zeros((c, 3), dtype=torch.int64, device=dev)
+                clocks.append(clk)
             secs += [codec.cid, k, t, cap, recs.data_ptr(), lens_list[i].data_ptr(),
-                     iv.data_ptr(), bufs[i].data_ptr(), starts[i].data_ptr(), 0]
+                     iv.data_ptr(), bufs[i].data_ptr(), starts[i].data_ptr(), 0,
+                     0 if clk is None else clk.data_ptr()]
             keep += [recs, iv]
         d = np.asarray(desc + [slots.data_ptr()] + tabs + secs, np.int64)
         colw = any(kts[i][0].startswith("colw") for i in group)
@@ -161,7 +169,7 @@ def decode_sections_streams_kernel(pay_list, lens_list, tables_b: dict, kts, sid
             recs[i] = torch.empty((c, t, k, CODECS[name].rec_width), dtype=I32,
                                   device=dev)
             secs += [CODECS[name].cid, k, t, pay.shape[2], recs[i].data_ptr(),
-                     lens_list[i].data_ptr(), 0, 0, 0, pay.data_ptr()]
+                     lens_list[i].data_ptr(), 0, 0, 0, pay.data_ptr(), 0]
         d = np.asarray(desc + [slots.data_ptr()] + tabs + secs, np.int64)
         _build.launch("sptc_sections_decode", d.ctypes.data, len(group), c)
     return recs

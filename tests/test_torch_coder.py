@@ -36,7 +36,7 @@ def test_section_coder_matches_jx(name, n):
     records = np.asarray([list(r) for r in _spec_records(name, n, rng)], np.int32)
     k = lane_count(n)
     blobs_j, tab_j = jc.encode_section(records, k, jx_renew(), name)
-    blobs_t, tab_t = tc.encode_section(records, k, renew_tables("cpu"), name)
+    blobs_t, tab_t = tc.encode_section(records, k, renew_tables("cpu"), name, "cpu")
     assert blobs_t == blobs_j
     _assert_tables(tab_t, tab_j)
 
@@ -52,7 +52,7 @@ def test_section_coder_matches_jx(name, n):
         torch.as_tensor(pay), tc.lane_lens(n, k, "cpu"), renew_tables("cpu"), name, t)
     np.testing.assert_array_equal(recs_t.numpy(), np.asarray(recs_j)[:t])
     _assert_tables(dtab_t, dtab_j)
-    out, _ = tc.decode_section(blobs_t, n, k, renew_tables("cpu"), name)
+    out, _ = tc.decode_section(blobs_t, n, k, renew_tables("cpu"), name, "cpu")
     np.testing.assert_array_equal(out, records)
 
 

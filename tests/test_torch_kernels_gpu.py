@@ -374,3 +374,169 @@ def test_k2_damaged_payload_matches_plain_clamp(cuda, name, damage):
         arr[hit] = rng.integers(0, 256, int(hit.sum()))
         pay = torch.as_tensor(arr, device=cuda)
     _k2_matches_plain(pay, lens, tabs, name, k, t)
+
+
+def _k1_matches_plain(names, records_l, k, dev, tabs=None, col_w=None):
+    """K1 on the sections of one stream (one fused launch per group of
+    disjoint kinds) against model_scan + rans_pack chained over the
+    sections: bytes, starts and every table tensor equal. Returns the
+    plain version's tables."""
+    tabs = renew_tables(dev) if tabs is None else tabs
+    dealt, lens_l, kts = [], [], []
+    for name, records in zip(names, records_l):
+        n = len(records)
+        d, t = _dealt(records, n, k, dev)
+        dealt.append(d)
+        lens_l.append(tc.lane_lens(n, k, dev))
+        kts.append((name, k, t))
+    bm = None
+    if col_w is not None:
+        i = names.index("col")
+        bm = tc.color_touched_bitmap(
+            torch.as_tensor(records_l[i], dtype=torch.int32, device=dev), len(records_l[i]))
+        assert tc.col_compact_bucket(int(bm.sum())) == col_w, int(bm.sum())
+    _build.reset_counts()
+    bufs, starts, tab_k = tc.encode_sections(dealt, lens_l, tabs, tuple(kts), col_w, bm)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sptc_sections_encode"] >= 1
+    assert (_build.LAUNCHES["sptc_sections_encode_colw"] > 0) == (col_w is not None)
+    tab_p = tabs
+    for (name, _, t), d, ln, b, st in zip(kts, dealt, lens_l, bufs, starts):
+        cum, freq, act, tab_p = tc.model_scan(d, ln, tab_p, name)
+        buf_p, start_p = tc.rans_pack(cum, freq, act, tc.pack_cap(name, t))
+        ln = ln.cpu().numpy()
+        assert torch.equal(st, start_p), name
+        assert (tc.blobs_from_buf(b.cpu().numpy(), st.cpu().numpy(), ln)
+                == tc.blobs_from_buf(buf_p.cpu().numpy(), start_p.cpu().numpy(), ln)), name
+    _assert_tables_equal(tab_k, tab_p)
+    return tab_p
+
+
+@pytest.mark.parametrize("case", ["k512_col", "k512_rec", "k512_mv", "mv_full_range",
+                                  "k64_nrun_rescale", "k64_color_rescale", "col_one_row",
+                                  "colw256_row_last", "colw1024_row_last", "fused_five",
+                                  "long_pack"])
+def test_k1_shared_memory_cases(cuda, case):
+    """K1's on-chip design on the shapes the main path does not reach: 512
+    lanes (warps striding over lanes, color rows re-read in phase (b)), the
+    mv alphabet of 512 over its full range, 64 lanes whose adds push a mixed
+    kind's global row over the rescale threshold in one substep, a col
+    section in which every lane hits one row in one substep, the compact
+    color table in shared memory (colw256, 16-bit counts) and in L2
+    (colw1024) on literals that touch color row 12287, five sections in one
+    launch, and a section long enough for hundreds of pack passes."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    col_w = None
+    if case.startswith("k512"):
+        names, k = [case[5:]], 512
+        records_l = [section_records(names[0], 512 * 9 + 77, rng)]
+    elif case == "mv_full_range":
+        names, k = ["mv"], 32
+        records = rng.integers(-255, 256, (4000, 2))
+        records[1::3] = records[0::3][: len(records[1::3])]
+        records_l = [records]
+    elif case == "k64_nrun_rescale":
+        names, k = ["rec"], 64
+        records_l = [section_records("rec", 64 * 40, rng)]
+    elif case == "k64_color_rescale":
+        names, k = ["col"], 64
+        records_l = [section_records("col", 64 * 40, rng)]
+    elif case == "col_one_row":
+        names, k = ["col"], 32
+        records = np.tile(np.array([[200, 100, 50]]), (32 * 60, 1))
+        records[rng.random(len(records)) < 0.1] = (7, 100, 50)
+        records_l = [records]
+    elif case.startswith("colw"):
+        col_w = int(case[4:].split("_")[0])
+        names, k = ["col"], 32
+        pal = rng.integers(0, 256, (5 if col_w == 256 else 24, 3))
+        pal[0] = (255, 250, 17)  # R 255, G >= 240: color row 12287
+        records_l = [pal[rng.integers(0, len(pal), 3000)]]
+    elif case == "fused_five":
+        names, k = ["bt", "sxy", "mv", "rec", "col"], 16
+        records_l = [section_records(nm, n, rng)
+                     for nm, n in zip(names, [400, 300, 200, 6000, 3000])]
+    else:
+        names, k = ["rec"], 4
+        records_l = [section_records("rec", 4 * 3000, rng)]
+    tab_p = _k1_matches_plain(names, records_l, k, cuda, col_w=col_w)
+    if case == "k64_nrun_rescale":
+        # one substep of 64 adds crosses the global row's threshold
+        g0 = int(renew_tables(cuda)["nrun"]["gsum"])
+        assert g0 + 64 * 512 > 16384 - 512 >= int(tab_p["nrun"]["gsum"])
+    if case == "colw256_row_last":
+        assert int(tab_p["color"]["cntsum"][12287]) > 0
+
+
+def test_k1_stream_batched_colw_unequal_t(cuda):
+    """Stream-batched K1 with unequal T (each stream's lens mask the padding
+    steps), 64 lanes and one stream without records, full-table col and the
+    colw path, against the plain coder's stream loop: bytes, starts and
+    every stream's tables."""
+    ns = [2500, 0, 64, 777, 5]
+    sidx = [4, 1, 0, 6, 3]
+    k = 64
+    rng = np.random.default_rng(21)
+    pal = rng.integers(0, 256, (7, 3))
+    lits = [torch.as_tensor(pal[rng.integers(0, 7, max(n, 1))], dtype=torch.int32, device=cuda)
+            for n in ns]
+    t = max(tc.steps_for(n, k) for n in ns)
+    dealt = [torch.stack([tc.deal(lt, n, k, t) for lt, n in zip(lits, ns)])]
+    lens = [torch.stack([tc.lane_lens(n, k, cuda) for n in ns])]
+    bm = torch.stack([tc.color_touched_bitmap(lt, n) for lt, n in zip(lits, ns)])
+    kts = (("col", k, t),)
+    base = renew_tables_streams(7, cuda)
+    plain = {kd: {key: v.cpu() for key, v in tab.items()} for kd, tab in base.items()}
+    b_p, s_p = tc.encode_sections_streams([dealt[0].cpu()], [lens[0].cpu()], plain, kts, sidx)
+    for col_w in (None, 256):
+        tabs = _clone(base)
+        b_k, s_k = tc.encode_sections_streams(dealt, lens, tabs, kts, sidx, col_w,
+                                              None if col_w is None else bm)
+        assert torch.equal(s_k[0].cpu(), s_p[0])
+        for j in range(len(ns)):
+            ln = lens[0][j].cpu().numpy()
+            assert (tc.blobs_from_buf(b_k[0][j].cpu().numpy(), s_k[0][j].cpu().numpy(), ln)
+                    == tc.blobs_from_buf(b_p[0][j].numpy(), s_p[0][j].numpy(), ln)), (col_w, j)
+        _assert_tables_equal(tabs, plain)
+
+
+def walk_case(case, tile, rng):
+    """fits bits and start types [n] for one K3 case."""
+    n = 5 * tile + 77 if tile <= 3200 else 2 * tile + 1234  # a short last tile
+    bits = rng.integers(0, 64, n, dtype=np.int32)
+    st = rng.integers(0, 6, n, dtype=np.int32)
+    if case == "random":
+        bits[rng.random(n) < 0.9] = 63  # long runs with breaks in between
+    elif case == "all_fits":
+        bits[:] = 63
+    elif case == "never_fits":
+        bits[:] = 0
+    elif case == "runs_255_256":
+        # type-2 runs of exactly 255 and 256 fitting positions after a start
+        bits[:] = 0
+        st[:] = 2
+        for start, run in ((3, 255), (300, 256), (tile - 100, 255), (tile + 7, 256)):
+            bits[start + 1: start + run] = 4
+    elif case == "short_tile":
+        n = tile + 5
+        bits, st = bits[:n].copy(), st[:n].copy()
+        bits[-40:] = 63
+    return bits, st
+
+
+@pytest.mark.parametrize("tile", [256, 1000, 1024, 3200, 15360])
+@pytest.mark.parametrize("case", ["random", "all_fits", "never_fits", "runs_255_256",
+                                  "short_tile"])
+def test_k3_jump_walk_cases(cuda, case, tile):
+    """K3's jump walk against the plain walk: every tile size of the main
+    paths (256: P-frame data blocks; 1,024; 3,200: 360p serving; 15,360:
+    1080p) and one that is no multiple of 32, with a short last tile, runs
+    of exactly MAX_RUN and MAX_RUN + 1, tiles where every bit fits and
+    where none does."""
+    bits, st = walk_case(case, tile, np.random.default_rng(tile + len(case)))
+    bits, st = torch.as_tensor(bits, device=cuda), torch.as_tensor(st, device=cuda)
+    _build.reset_counts()
+    got = tcl.run_walk(bits, st, tile)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sptc_run_walk"] == 1
+    assert torch.equal(got, tcl.run_walk_plain(bits, st, tile))

@@ -1,0 +1,222 @@
+#!/usr/bin/env python3
+"""K1 (section encode) and K3 (run walk) of two checkouts of the PyTorch /
+CUDA port on one card, in one process tree: before / after numbers that may
+stand side by side.
+
+    python3 tools/torch_kernels_before_after.py --parent DIR
+
+DIR is a checkout of the commit to compare with (for example `git archive
+<commit> | tar -x -C DIR`); the change is the checkout this script lies in.
+Each checkout is measured in a process of its own, which builds that
+checkout's kernels: parent, change, change, parent, then a copy of the
+parent whose K1 returns before its rANS pack (its forward phase alone; a
+checkout whose wrapper hands out the block's device timer reports its own
+phases). Every run works on the same inputs, made from seeds:
+  - K1 on the ten 1080p sections chip_smoke.py compares (the keyframe's rec
+    and col, the five sections of the scroll P frame, the three of the
+    typing P frame; of the one-step sections also the launch alone, on
+    tables copied beforehand), and the colw path against full-table col on
+    the keyframe's col;
+  - K1 per substep on the keyframe's rec and col records dealt to 1, 8 and
+    32 lanes over 600 steps;
+  - K1 on the serving keyframe step (64 streams of 360x640, 64 lanes, rec
+    and col in one launch), full-table col and the colw path;
+  - K3 on the full 1080p keyframe, on the 64 serving keyframes padded to
+    whole tiles, and on the data-block walks of the scroll and the typing P
+    frame.
+Times are CUDA events, the mean of 5 launches after a warm-up. Prints one
+JSON line per run, then a table, with the card's nvidia-smi name and power
+limit. Needs a CUDA device and nvcc; imports nothing of JAX.
+"""
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PACK_MARK = "  // reverse rANS pack, one lane per thread (jx/coder.py:rans_pack)\n"
+REPS = 5
+
+
+def measure(root: str) -> dict:
+    sys.path.insert(0, root)
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from screenpressor_tpu_torch import blocks as tb
+    from screenpressor_tpu_torch import classify as tcl
+    from screenpressor_tpu_torch import coder as tc
+    from screenpressor_tpu_torch import kernels as tk
+    from screenpressor_tpu_torch import pframe as tp
+    from screenpressor_tpu_torch.config import NUM_PTYPES, CodecConfig, seg_tile
+    from screenpressor_tpu_torch.synth import synth_screencast
+    from screenpressor_tpu_torch.tables import renew_tables, renew_tables_streams
+
+    dev = torch.device("cuda")
+    h, w = 1080, 1920
+
+    def ms_of(fn):
+        fn()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(REPS):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / REPS
+
+    out = {"k1": {}, "k1_probe": {}, "k3": {}}
+    frames = synth_screencast(h, w, 3)
+    cfg = CodecConfig(width=w, height=h)
+    kf = torch.as_tensor(frames[0], device=dev)
+
+    # K3 on the keyframe
+    fits = tcl.fits_planes_i(kf)
+    st, bits = tcl.start_types_i(fits), tcl.fits_bits(fits)
+    tile = seg_tile(h * w, w)
+    out["k3"]["1080p keyframe"] = ms_of(lambda: tcl.run_walk(bits, st, tile))
+
+    records, n_rec, lits, n_lit = tcl.classify_i(kf)
+    sections = [("I rec", "rec", records, int(n_rec)), ("I col", "col", lits, int(n_lit))]
+    cands = torch.tensor(tb.mv_candidates(cfg), dtype=torch.int32, device=dev)
+    for label, i, names in (("P scroll", 1, ("bt", "sxy", "mv", "rec", "col")),
+                            ("P typing", 2, ("rec", "col"))):
+        cur = torch.as_tensor(frames[i], device=dev)
+        prv = torch.as_tensor(frames[i - 1], device=dev)
+        arrs, counts, _flat = tb.analyze_compact(cur, prv, cands, cfg)
+        counts = counts.cpu().numpy()
+        rects = arrs["data_rects"][: int(counts[6])]
+        bfits, bst, _, _ = tp._block_fits(tp._windows(tp._apron(cur), rects),
+                                          tp._windows(tp._apron(prv), rects), rects)
+        wbits, wst = tcl.fits_bits(bfits.reshape(-1, NUM_PTYPES)), bst.reshape(-1)
+        out["k3"][f"{label} data blocks ({rects.shape[0]})"] = ms_of(
+            lambda: tcl.run_walk(wbits, wst, tp.AREA))
+        pix, plit, pcounts = tp.classify_assemble(cur, prv, arrs["data_rects"], int(counts[6]))
+        n_pix, n_plit = (int(v) for v in pcounts.cpu().numpy())
+        srcs = {"bt": (arrs["bt"], int(counts[3])), "sxy": (arrs["sxy"], int(counts[4])),
+                "mv": (arrs["mv"], int(counts[5])), "rec": (pix, n_pix), "col": (plit, n_plit)}
+        sections += [(f"{label} {nm}", nm, *srcs[nm]) for nm in names]
+
+    tabs = renew_tables(dev)
+    with_clocks = "clocks" in inspect.signature(tk.encode_sections_streams_kernel).parameters
+    for label, nm, src, n in sections:
+        k = cfg.lanes(n)
+        t = tc.steps_for(n, k)
+        dealt, lens, kts = tc.deal(src, n, k, t), tc.lane_lens(n, k, dev), ((nm, k, t),)
+        out["k1"][f"{label} (K {k}, T {t})"] = ms_of(
+            lambda: tc.encode_sections([dealt], [lens], tabs, kts))
+        if t == 1:  # a one-step section: the launch alone, without the tables' copy
+            one = tc._one_stream(tabs, kts)
+            out["k1"][f"{label} (K {k}, T {t}), the launch alone"] = ms_of(
+                lambda: tk.encode_sections_streams_kernel([dealt[None]], [lens[None]], one,
+                                                          kts, [0]))
+        if label.startswith("I ") and with_clocks:
+            clocks = []
+            tk.encode_sections_streams_kernel([dealt[None]], [lens[None]],
+                                              tc._one_stream(tabs, kts), kts, [0], clocks=clocks)
+            t_in, t_fwd, t_end = (int(v) for v in clocks[0][0].cpu())
+            out["k1"][f"{label} forward phase (device timer)"] = (t_fwd - t_in) / 1e6
+            out["k1"][f"{label} pack phase (device timer)"] = (t_end - t_fwd) / 1e6
+        if label == "I col":
+            bm = tc.color_touched_bitmap(src, n)
+            col_w = tc.col_compact_bucket(int(bm.sum()))
+            out["k1"][f"I col colw{col_w} path"] = ms_of(
+                lambda: tc.encode_sections([dealt], [lens], tabs, kts, col_w, bm))
+
+    for nm, src, s_n in (("rec", records, 2), ("col", lits, 3)):
+        for k in (1, 8, 32):
+            t = 600
+            dealt, lens, kts = tc.deal(src, k * t, k, t), tc.lane_lens(k * t, k, dev), ((nm, k, t),)
+            ms = ms_of(lambda: tc.encode_sections([dealt], [lens], tabs, kts))
+            out["k1_probe"][f"{nm} K {k} us/substep"] = 1e3 * ms / (t * s_n)
+
+    # the serving keyframe step: 64 keyframes of 360x640, 64 lanes
+    s_n, s_h, s_w, k = 64, 360, 640, 64
+    base = synth_screencast(s_h, s_w, 1, seed=3)[0]
+    batch = torch.as_tensor(np.stack([np.roll(base, 3 * i, axis=1) for i in range(s_n)]),
+                            device=dev)
+    wb, ws, wtile = tcl.walk_inputs_streams(batch)
+    wb, ws = wb.reshape(-1), ws.reshape(-1)
+    out["k3"]["64 serving keyframes"] = ms_of(lambda: tcl.run_walk(wb, ws, wtile))
+    cls = tcl.classify_i_streams(batch)
+    dealt_l, lens_l, kts = [], [], []
+    for nm, pick in (("rec", lambda c: (c[0], int(c[1]))), ("col", lambda c: (c[2], int(c[3])))):
+        pairs = [pick(c) for c in cls]
+        t = max(tc.steps_for(n, k) for _, n in pairs)
+        dealt_l.append(torch.stack([tc.deal(src, n, k, t) for src, n in pairs]))
+        lens_l.append(torch.stack([tc.lane_lens(n, k, dev) for _, n in pairs]))
+        kts.append((nm, k, t))
+    kts = tuple(kts)
+    bm = torch.stack([tc.color_touched_bitmap(c[2], int(c[3])) for c in cls])
+    col_w = tc.col_compact_bucket(int(bm.sum(dim=1).max()))
+    tabs_b = renew_tables_streams(s_n, dev)
+    sidx = list(range(s_n))
+    out["k1"][f"serving keyframe step (T {[t for _, _, t in kts]})"] = ms_of(
+        lambda: tc.encode_sections_streams(dealt_l, lens_l, tabs_b, kts, sidx))
+    out["k1"][f"serving keyframe step, colw{col_w} path"] = ms_of(
+        lambda: tc.encode_sections_streams(dealt_l, lens_l, tabs_b, kts, sidx, col_w, bm))
+    return out
+
+
+def forward_only_copy(parent: str) -> str:
+    """A copy of the parent whose K1 returns before its pack."""
+    dst = parent.rstrip("/") + "_k1_forward_only"
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(parent, dst, ignore=shutil.ignore_patterns("build", "__pycache__"))
+    path = os.path.join(dst, "screenpressor_tpu_torch", "csrc", "sections.cu")
+    with open(path) as fh:
+        src = fh.read()
+    if PACK_MARK not in src:
+        return ""
+    with open(path, "w") as fh:
+        fh.write(src.replace(PACK_MARK, "  return;\n" + PACK_MARK))
+    return dst
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="checkout of the commit to compare with")
+    ap.add_argument("--measure", help="(internal) measure this checkout, print one JSON line")
+    args = ap.parse_args()
+    if args.measure:
+        print(json.dumps(measure(args.measure)))
+        return 0
+    if not args.parent:
+        ap.error("--parent is required")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    parent = os.path.abspath(args.parent)
+    runs = [("parent", parent), ("change", ROOT), ("change", ROOT), ("parent", parent)]
+    fwd = forward_only_copy(parent)
+    if fwd:
+        runs.append(("parent, K1 forward phase only", fwd))
+    results = []
+    for tag, root in runs:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", root],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stdout + proc.stderr)
+            return 1
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        results.append((tag, res))
+        print(json.dumps({"run": tag, "card": smi, **res}), flush=True)
+    print(f"\nms (us where the name says so) on {smi}; columns: "
+          + " | ".join(tag for tag, _ in results))
+    for group in ("k1", "k1_probe", "k3"):
+        names = []
+        for _, res in results:
+            names += [nm for nm in res[group] if nm not in names]
+        for nm in names:
+            cells = [f"{res[group][nm]:.3f}" if nm in res[group] else "-" for _, res in results]
+            print(f"{group} {nm}: " + " | ".join(cells))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
