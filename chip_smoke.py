@@ -29,13 +29,19 @@ Phases, each printed with its seconds:
      sections of the keyframe step and of the scroll and the typing P steps,
      K1-colw against full-table K1 col on the typing step's and the
      keyframe step's color sections and on sections that touch color row
-     12287, K3 and K4 over the keyframe step's 64 frames;
+     12287, K3 and K4 over the keyframe step's 64 frames (K4 also on one of
+     them alone: its latency a row at a batch of one);
   6. the serving main path: serve_pipelined(BatchedEncoder,
      BatchedDecoder) over 5 steps of 64 staggered-keyframe streams (the
      fourth step keyframes stream 63), run twice in new sessions, the
      second counted: every serving kernel must appear, decode must be
      lossless, each stream's bytes must equal its own TorchEncoder session,
-     and the pinned procedural_serving_kfixed golden must reproduce.
+     and the pinned procedural_serving_kfixed golden must reproduce;
+  7. damaged streams: one-byte corruptions and truncations of a 48x64
+     stream decode on the card to the CPU port's verdicts, and a clean
+     stream decodes after them in the same process.
+K4 in phase 3 and 5 also reports its time a row and the whole
+reconstruct_i (expand, pad, kernel).
 The kernels' JSON summary gives each kernel's launches on its main path,
 its time, its plain version's, its largest error and its roofline bound
 (the larger of the bytes it must move over 3.35 TB/s and its scalar
@@ -142,14 +148,27 @@ def walk_work(bits, starts):
     return bits.numel() * 8 + starts.numel() * starts.element_size(), 4 * bits.numel()
 
 
-def recon_work(pt, lit, out):
-    """K4: ptypes and literals in, pixels out; per padded position and
-    channel a log2(Wp)-step scan of affine compositions (3 operations a
-    step) and the predictor (4)."""
-    wp = pt.shape[-1]
-    n = pt.numel() * 3
-    return (pt.numel() * pt.element_size() + lit.numel() * lit.element_size()
-            + out.numel() * out.element_size()), n * (3 * max(wp.bit_length() - 1, 1) + 4)
+def recon_work(rows, out, unpacked=False):
+    """K4: its packed rows in (one int32 a padded position) and 3 B out per
+    pixel; per padded position and channel a log2(Wp)-step scan of affine
+    compositions (3 operations a step) and the predictor (4). unpacked
+    counts the rows as an int32 ptype and three int32 literals (16 B a
+    padded position), the inputs before recon.pack_rows."""
+    wp = rows.shape[-1]
+    n = rows.numel() * 3
+    per_pos = 16 if unpacked else rows.element_size()
+    return rows.numel() * per_pos + out.numel(), n * (3 * max(wp.bit_length() - 1, 1) + 4)
+
+
+def recon_timings(tr, records, lits, h, w, reps):
+    """K4 on one frame's records: (kernel ms, whole reconstruct_i ms with
+    its expand and pad, rows, kernel output)."""
+    rows = tr.pad_rows(*tr.expand_records(records, lits, h * w), h, w)
+    ms, got = cuda_ms(lambda: tr.recon_rows(rows, w), reps)
+    whole_ms, whole = cuda_ms(lambda: tr.reconstruct_i(records, lits, h, w), reps)
+    if not (whole == got).all():
+        raise AssertionError("reconstruct_i differs from K4 on its padded rows")
+    return ms, whole_ms, rows, got
 
 
 def phase(name, t0):
@@ -210,7 +229,7 @@ def serving_batches(dev, synth_screencast):
     return cfg, offsets, host, [torch.as_tensor(b, device=dev) for b in host]
 
 
-def serving_kernels_vs_plain(t0, dev, record, cfg, offsets, host, batches):
+def serving_kernels_vs_plain(t0, dev, smi, record, cfg, offsets, host, batches):
     """Phase 5 (its tensors are freed on return, before phase 6 measures
     the session's peak memory)."""
     import torch
@@ -405,20 +424,31 @@ def serving_kernels_vs_plain(t0, dev, record, cfg, offsets, host, batches):
           f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, equal")
     del bits, sts, got, ref
 
-    # K4 over the keyframe step's 64 frames
+    # K4 over the keyframe step's 64 frames, then one of them alone (the
+    # chain floor: rows x the latency of a row at a batch of one)
     cls = tcl.classify_i_streams(batches[0])
-    rows_l = [tr.pad_rows(*tr.expand_records(r[: int(n)], lt[: max(int(nl), 1)], S_H * S_W),
-                          S_H, S_W) for r, n, lt, nl in cls]
-    pt = torch.stack([p for p, _ in rows_l])
-    lit = torch.stack([q for _, q in rows_l])
-    ms, got = cuda_ms(lambda: tr.recon_rows(pt, lit, S_W), TIMED_REPS)
-    plain_ms, ref = cuda_ms(lambda: torch.stack([tr.recon_rows_plain(p, q, S_W)
-                                                 for p, q in zip(pt, lit)]), 1, False)
-    err = max_abs_err([(got.cpu().numpy(), ref.cpu().numpy()), (got.cpu().numpy(), host[0])])
-    record("sptc_recon_rows_streams", ms, plain_ms, err, recon_work(pt, lit, got))
-    print(f"K4 streams: {S_STREAMS} keyframes {S_H}x{S_W}: kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.1f} ms, equal, equal the frames")
-    del cls, rows_l, pt, lit, got, ref
+    recs = [(r[: int(n)], lt[: max(int(nl), 1)]) for r, n, lt, nl in cls]
+    k4_rows = torch.stack([tr.pad_rows(*tr.expand_records(r, lt, S_H * S_W), S_H, S_W)
+                           for r, lt in recs])
+    ms, got = cuda_ms(lambda: tr.recon_rows(k4_rows, S_W), TIMED_REPS)
+    whole_ms, whole = cuda_ms(lambda: tr.reconstruct_i_streams(*zip(*recs), S_H, S_W),
+                              TIMED_REPS)
+    plain_ms, ref = cuda_ms(lambda: torch.stack([tr.recon_rows_plain(r, S_W) for r in k4_rows]),
+                            1, False)
+    err = max_abs_err([(got.cpu().numpy(), ref.cpu().numpy()), (got.cpu().numpy(), host[0]),
+                       (whole.cpu().numpy(), host[0])])
+    record("sptc_recon_rows_streams", ms, plain_ms, err, recon_work(k4_rows, got))
+    one_ms, one_whole_ms, _, one = recon_timings(tr, *recs[0], S_H, S_W, TIMED_REPS)
+    if not torch.equal(one, got[0]):
+        raise AssertionError("K4 on one serving frame differs from the batch")
+    print(f"K4 streams: {S_STREAMS} keyframes {S_H}x{S_W} (Wp={k4_rows.shape[-1]}): kernel "
+          f"{ms:.3f} ms ({1e3 * ms / S_H:.3f} us a row), bound "
+          f"{bound(*recon_work(k4_rows, got))[0]:.4f} ms (unpacked inputs "
+          f"{bound(*recon_work(k4_rows, got, True))[0]:.4f} ms), reconstruct_i_streams with expand "
+          f"and pad {whole_ms:.3f} ms, plain {plain_ms:.1f} ms, equal, equal the frames; one "
+          f"frame alone: kernel {one_ms:.3f} ms ({1e3 * one_ms / S_H:.3f} us a row: chain "
+          f"floor {S_H} x that), reconstruct_i {one_whole_ms:.3f} ms, on {smi}")
+    del cls, recs, k4_rows, got, whole, ref
     phase("serving kernels vs plain", t0)
 
 
@@ -497,6 +527,44 @@ def serving_main_path(t0, dev, smi, cfg, offsets, host, batches):
     return launches
 
 
+def damaged_streams(t0, dev, smi):
+    """Phase 7: the damaged payloads of tests/test_torch_corrupt.py decoded
+    on the card and on the CPU; the verdicts must agree, nothing but
+    CorruptStreamError may be raised, and a clean stream must decode after
+    them in this process (a device-side assert would end it)."""
+    import torch
+
+    from screenpressor_tpu_torch import TorchDecoder
+    from screenpressor_tpu_torch import bitstream as bs
+    sys.path.insert(0, os.path.join(ROOT, "tests"))  # a `tests` package elsewhere
+    from torch_support import corrupt_payloads  # would shadow ROOT/tests
+
+    cfg, frames, payloads, damaged = corrupt_payloads()
+
+    def verdict(device, i, data):
+        dec = TorchDecoder(cfg, device)
+        dec.decode_batch(payloads[:i])
+        try:
+            return "ok", np.asarray(dec.decode_batch([data])[0])
+        except bs.CorruptStreamError:
+            return "corrupt", None
+
+    n_bad = 0
+    for c, (i, data) in enumerate(damaged):
+        (got, frame), (want, ref) = verdict(dev, i, data), verdict("cpu", i, data)
+        if got != want or (got == "ok" and not np.array_equal(frame, ref)):
+            raise AssertionError(f"damaged payload {c}: card {got}, CPU {want}")
+        n_bad += got == "corrupt"
+    torch.cuda.synchronize()
+    for f, o in zip(frames, TorchDecoder(cfg, dev).decode_batch(payloads)):
+        if not np.array_equal(o, f):
+            raise AssertionError("a clean stream after the damaged ones is not lossless")
+    print(f"damaged streams: {len(damaged)} payloads, {n_bad} raised CorruptStreamError on the "
+          f"card as on the CPU, the rest decoded equal; a clean stream then decoded losslessly "
+          f"on {smi}")
+    phase("damaged streams", t0)
+
+
 def main() -> int:
     import torch
 
@@ -568,15 +636,17 @@ def main() -> int:
     # K4 on the keyframe's records
     records, n_rec, lits, n_lit = tcl.classify_i(kf)
     n_rec, n_lit = int(n_rec), int(n_lit)
-    pt_pix, lit_pix = tr.expand_records(records[:n_rec], lits[:max(n_lit, 1)], H * W)
-    pt_rows, lit_rows = tr.pad_rows(pt_pix, lit_pix, H, W)
-    ms, got = cuda_ms(lambda: tr.recon_rows(pt_rows, lit_rows, W), TIMED_REPS)
-    plain_ms, ref = cuda_ms(lambda: tr.recon_rows_plain(pt_rows, lit_rows, W), 1, False)
+    ms, whole_ms, k4_rows, got = recon_timings(tr, records[:n_rec], lits[:max(n_lit, 1)], H,
+                                               W, TIMED_REPS)
+    plain_ms, ref = cuda_ms(lambda: tr.recon_rows_plain(k4_rows, W), 1, False)
     err = max_abs_err([(got.cpu().numpy(), ref.cpu().numpy()),
                        (got.cpu().numpy(), frames[0])])
-    record("sptc_recon_rows", ms, plain_ms, err, recon_work(pt_rows, lit_rows, got))
-    print(f"K4 recon {H}x{W} (Wp={pt_rows.shape[1]}): kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.1f} ms, equal, equals the keyframe")
+    record("sptc_recon_rows", ms, plain_ms, err, recon_work(k4_rows, got))
+    print(f"K4 recon {H}x{W} (Wp={k4_rows.shape[1]}): kernel {ms:.3f} ms ({1e3 * ms / H:.3f} us "
+          f"a row), bound {bound(*recon_work(k4_rows, got))[0]:.4f} ms (unpacked inputs "
+          f"{bound(*recon_work(k4_rows, got, True))[0]:.4f} ms), reconstruct_i with expand and "
+          f"pad {whole_ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms, equal, equals the keyframe, on {smi}")
 
     # K1 / K2 on the keyframe's rec and col, the five sections of a scroll
     # frame (frame 1) and the data-block sections of a typing frame (frame 2)
@@ -772,8 +842,9 @@ def main() -> int:
               f"at {W}x{H} on {smi}")
 
     s_cfg, s_offsets, s_host, s_batches = serving_batches(dev, synth_screencast)
-    serving_kernels_vs_plain(t0, dev, record, s_cfg, s_offsets, s_host, s_batches)
+    serving_kernels_vs_plain(t0, dev, smi, record, s_cfg, s_offsets, s_host, s_batches)
     serve = serving_main_path(t0, dev, smi, s_cfg, s_offsets, s_host, s_batches)
+    damaged_streams(t0, dev, smi)
 
     sections = "screenpressor_tpu_torch/csrc/sections.cu"
     walk = "screenpressor_tpu_torch/csrc/run_walk.cu"

@@ -65,6 +65,15 @@ def _pull(tensors):
     return out
 
 
+def owned_frames(frames, device) -> torch.Tensor:
+    """Frames (numpy or tensor) as uint8 on `device`, in storage of their
+    own: a session keeps the last ones as `prev`, which must not change when
+    the caller refills its capture buffer. One copy."""
+    if isinstance(frames, torch.Tensor):
+        return frames.to(device, torch.uint8, copy=True)
+    return torch.tensor(np.ascontiguousarray(frames, np.uint8), device=device)
+
+
 def gather_segments_device(parts, segs, device) -> torch.Tensor:
     """One torch.cat + index on the device: parts are flat uint8 tensors,
     segs (part, offset, length) byte ranges. Returns the concatenated bytes
@@ -101,12 +110,6 @@ class TorchEncoder:
     def encode(self, frame, force_key: bool = False):
         return self.encode_batch([frame], force_key=force_key)[0]
 
-    def _to_device(self, frame) -> torch.Tensor:
-        if isinstance(frame, torch.Tensor):
-            return frame.to(self.device, torch.uint8)
-        return torch.as_tensor(np.ascontiguousarray(frame, np.uint8),
-                               device=self.device)
-
     def encode_batch(self, frames, force_key: bool = False):
         """Encode a list of frames -> list of (payload bytes, ftype),
         byte-identical to encoding them one by one."""
@@ -116,7 +119,7 @@ class TorchEncoder:
         n = len(frames)
         if n == 0:
             return []
-        devs = [apply_loss(self._to_device(f), cfg.loss) for f in frames]
+        devs = [apply_loss(owned_frames(f, self.device), cfg.loss) for f in frames]
         prev_chain = [self.prev] + devs[:-1]
 
         # ---- phase A: analysis of every frame, one pull of the counts ----
@@ -362,6 +365,8 @@ class TorchDecoder:
         self.prev = prev
         self.last_was_flat = last_flat
         self.last_flat_color = last_color
-        if device_out:
-            return outs
-        return [o.cpu().numpy() for o in outs]
+        # the caller may write into what it gets: never hand out prev itself
+        # (.cpu() of a CUDA tensor is a copy already)
+        if device_out or dev.type == "cpu":
+            outs = [o.clone() if o is prev else o for o in outs]
+        return outs if device_out else [o.cpu().numpy() for o in outs]

@@ -3,152 +3,240 @@
 // Replaces the Pallas kernel of screenpressor_tpu/jx/recon.py
 // (_recon_kernel / reconstruct_i). Each row obeys v[x] = a[x] * v[x-1] + b[x]
 // with a in {0, 1}: literal, above and aboveleft reset (a = 0, b = the
-// known value), left carries (a = 1, b = 0), gradient adds above -
-// aboveleft (a = 1). Rows are sequential through the above row. Padding
-// columns are left-runs, so the last pixel of row y-1 carries into column 0
-// of row y, and column 0's aboveleft is the last slot of the previous
-// padded row (jx/recon.py:96).
+// known value), gradient adds above - aboveleft (a = 1), every other type
+// carries (a = 1, b = 0). Rows are sequential through the above row.
+// Padding columns are left-runs, so the last slot of row y-1 carries into
+// column 0 of row y, and column 0's aboveleft is that slot too
+// (jx/recon.py:96).
 //
-// Design: one thread block walks all rows of one frame; a launch takes a
-// batch of frames [N, H, Wp] (the keyframing streams of a serving step, or
-// one frame), one block each (blockIdx.x = frame). Per row each thread
-// loads its contiguous chunk of pt/lit, builds its (a, b) pairs against the
-// previous row held in shared memory (a 2048 x 3 int32 row is 24 KB at
-// 1080p), composes them, and a block-wide scan of the affine compositions
-// (warp shuffles, then one warp over the warp totals) gives the value
-// entering each chunk; the thread then writes its pixels and the new row.
-//
-// What bounds it on this card: the serial row chain (1080 rows, four block
-// barriers each) on one SM per frame; bytes are 2 x 24 KB per row. A batch
-// of frames fills more SMs. Accepted for bring-up. Arithmetic is uint32 so
-// it wraps exactly like jx's int32.
+// What bounds it: not bytes (a 1080p frame is 8.8 MB of packed words in and
+// 6.2 MB out) but the row chain, 1,080 rows one after the other on the one
+// SM that holds the frame, and the instructions each row issues there. The
+// design keeps everything but one exchange of warp totals off that chain:
+// - Exact per-channel mod-256 arithmetic in one 32-bit word. The output is
+//   the low byte of each channel and the recurrence only copies, adds and
+//   subtracts, so low bytes depend only on low bytes. Each channel has a
+//   10-bit field (R bits 0-7, G 10-17, B 20-27): a field sum stays below
+//   2^10, so one integer add and one mask add all three channels mod 256.
+//   The affine map (a, b) is one word, a in bit 31; composing two is an
+//   add, a mask and a select, and a scan step is one shuffle.
+// - The input is one packed word per position (recon.py:pack_rows: the
+//   fields, and a type code whose bits select the map, so that a position's
+//   map is three selects with no branch). Each thread streams its own chunk
+//   of the rows ahead into a shared-memory ring with cp.async, kRing rows
+//   deep, so the row loop reads only shared memory and needs no barrier for
+//   it.
+// - The previous row stays in registers. A thread owns PER consecutive
+//   positions; it keeps their values of the row before, the value entering
+//   its chunk then (its aboveleft at the first position) and the carry into
+//   the row. Every warp composes all warp totals itself after the row's one
+//   barrier, so it knows the carry of the next row (the whole row's map
+//   applied to this row's carry) without a second exchange. Warp totals are
+//   double-buffered by row parity.
+// - The output leaves off the chain: each row is assembled in shared memory
+//   and written during the next row with 16-byte stores where the row pitch
+//   allows.
+// One barrier a row, one block per frame, a batch of frames per launch.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-#define PT_LITERAL 0
-#define PT_ABOVE 2
-#define PT_GRADIENT 4
-#define PT_ABOVELEFT 5
-#define MAX_PER 8
-#define FULL 0xffffffffu
+namespace {
 
-struct Aff {
-  unsigned a, b0, b1, b2;
-};
+constexpr unsigned kFields = 0x0FF3FCFFu;  // R bits 0-7, G 10-17, B 20-27
+constexpr unsigned kBorrow = 0x10040100u;  // bit 8 above each field
+constexpr unsigned kA = 0x80000000u;       // a = 1 (carries v[x-1])
+constexpr unsigned kFieldsA = kFields | kA;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRing = 4;      // rows staged ahead
+constexpr int kMaxWarps = 8;  // at most 256 threads a block
 
-// f1 then f2: v -> a2 * (a1 * v + b1) + b2
-__device__ __forceinline__ Aff compose(const Aff& f1, const Aff& f2) {
-  return {f1.a * f2.a, f2.a * f1.b0 + f2.b0, f2.a * f1.b1 + f2.b1,
-          f2.a * f1.b2 + f2.b2};
+// f1 then f2 (f1's a-bit kept when f2 carries)
+__device__ __forceinline__ unsigned compose(unsigned f1, unsigned f2) {
+  return (f2 & kA) ? ((f1 + (f2 & kFields)) & kFieldsA) : f2;
 }
 
-__device__ __forceinline__ Aff shfl_up(const Aff& f, int o) {
-  return {__shfl_up_sync(FULL, f.a, o), __shfl_up_sync(FULL, f.b0, o),
-          __shfl_up_sync(FULL, f.b1, o), __shfl_up_sync(FULL, f.b2, o)};
+// the map g applied to a value v (a-bit clear)
+__device__ __forceinline__ unsigned apply(unsigned g, unsigned v) {
+  return (g & kA) ? ((v + g) & kFields) : g;
 }
 
-__global__ void __launch_bounds__(1024)
-recon_kernel(const int* __restrict__ pt, const int* __restrict__ lit,
-             unsigned char* __restrict__ out, int h, int w, int wp) {
-  pt += (size_t)blockIdx.x * h * wp;
-  lit += (size_t)blockIdx.x * h * wp * 3;
-  out += (size_t)blockIdx.x * h * w * 3;
-  extern __shared__ unsigned smem[];
-  unsigned* prev = smem;              // [wp * 3] previous row
-  Aff* wtot = (Aff*)(smem + wp * 3);  // [32] warp totals, then prefixes
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nw = blockDim.x >> 5;
-  const int per = wp / blockDim.x;
-  const int x0 = tid * per;
-  const Aff ident = {1u, 0u, 0u, 0u};
-  for (int i = tid; i < wp * 3; i += blockDim.x) prev[i] = 0;
-  __syncthreads();
+// the map of one position from its packed word and the row before. The
+// type code (recon.py:pack_rows) is three selector bits: bit 30 a = 1
+// (gradient or carry), bit 29 the row before (above, aboveleft, gradient),
+// bit 28 aboveleft; a literal's code is 0, so its word is its value. Every
+// candidate is computed and selected: lanes of mixed types never diverge.
+__device__ __forceinline__ unsigned affine(unsigned word, unsigned above, unsigned aboveleft) {
+  const unsigned grad = (((above | kBorrow) - aboveleft) & kFields) | kA;
+  const bool from_row = word & (1u << 29);
+  const unsigned known = from_row ? ((word & (1u << 28)) ? aboveleft : above) : word;
+  const unsigned adds = from_row ? grad : kA;
+  return (word & (1u << 30)) ? adds : known;
+}
 
-  for (int y = 0; y < h; ++y) {
-    const unsigned c0 = prev[(wp - 1) * 3], c1 = prev[(wp - 1) * 3 + 1],
-                   c2 = prev[(wp - 1) * 3 + 2];
-    Aff f[MAX_PER];
-    Aff acc = ident;
-#pragma unroll
-    for (int i = 0; i < MAX_PER; ++i) {
-      if (i >= per) break;
-      const int x = x0 + i;
-      const int p = pt[(size_t)y * wp + x];
-      const unsigned* ab = prev + x * 3;
-      const unsigned* al = prev + (x == 0 ? wp - 1 : x - 1) * 3;
-      const int* lt = lit + ((size_t)y * wp + x) * 3;
-      Aff g;
-      if (p == PT_LITERAL) {
-        g = {0u, (unsigned)lt[0], (unsigned)lt[1], (unsigned)lt[2]};
-      } else if (p == PT_ABOVE) {
-        g = {0u, ab[0], ab[1], ab[2]};
-      } else if (p == PT_ABOVELEFT) {
-        g = {0u, al[0], al[1], al[2]};
-      } else if (p == PT_GRADIENT) {
-        g = {1u, ab[0] - al[0], ab[1] - al[1], ab[2] - al[2]};
-      } else {
-        g = ident;
-      }
-      f[i] = g;
-      acc = compose(acc, g);
-    }
-    // inclusive scan of the thread aggregates within the warp
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      Aff up = shfl_up(acc, o);
-      if (lane >= o) acc = compose(up, acc);
-    }
-    Aff excl = shfl_up(acc, 1);
-    if (lane == 0) excl = ident;
-    __syncthreads();  // every read of prev is done
-    if (lane == 31) wtot[warp] = acc;
-    __syncthreads();
-    if (warp == 0) {
-      Aff t = lane < nw ? wtot[lane] : ident;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        Aff up = shfl_up(t, o);
-        if (lane >= o) t = compose(up, t);
-      }
-      Aff e = shfl_up(t, 1);
-      if (lane == 0) e = ident;
-      if (lane < nw) wtot[lane] = e;  // exclusive warp prefix
-    }
-    __syncthreads();
-    const Aff pre = compose(wtot[warp], excl);
-    unsigned v0 = pre.a * c0 + pre.b0, v1 = pre.a * c1 + pre.b1,
-             v2 = pre.a * c2 + pre.b2;
-#pragma unroll
-    for (int i = 0; i < MAX_PER; ++i) {
-      if (i >= per) break;
-      const int x = x0 + i;
-      v0 = f[i].a * v0 + f[i].b0;
-      v1 = f[i].a * v1 + f[i].b1;
-      v2 = f[i].a * v2 + f[i].b2;
-      prev[x * 3] = v0;
-      prev[x * 3 + 1] = v1;
-      prev[x * 3 + 2] = v2;
-      if (x < w) {
-        unsigned char* o = out + ((size_t)y * w + x) * 3;
-        o[0] = (unsigned char)(v0 & 0xff);
-        o[1] = (unsigned char)(v1 & 0xff);
-        o[2] = (unsigned char)(v2 & 0xff);
-      }
-    }
-    __syncthreads();  // the new row is complete before the next row reads it
+// R, G, B fields -> bytes 0, 1, 2
+__device__ __forceinline__ unsigned to_rgb(unsigned v) {
+  return (v & 0xffu) | ((v >> 2) & 0xff00u) | ((v >> 4) & 0xff0000u);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// the 3 * w bytes of a staged row -> out (16-, 4- or 1-byte stores)
+__device__ __forceinline__ void flush_row(const unsigned char* stage, unsigned char* out,
+                                          int nbytes) {
+  if ((nbytes & 15) == 0) {
+    for (int i = threadIdx.x; i < nbytes / 16; i += blockDim.x)
+      reinterpret_cast<uint4*>(out)[i] = reinterpret_cast<const uint4*>(stage)[i];
+  } else if ((nbytes & 3) == 0) {
+    for (int i = threadIdx.x; i < nbytes / 4; i += blockDim.x)
+      reinterpret_cast<unsigned*>(out)[i] = reinterpret_cast<const unsigned*>(stage)[i];
+  } else {
+    for (int i = threadIdx.x; i < nbytes; i += blockDim.x) out[i] = stage[i];
   }
 }
 
-// pt [n, h, wp], lit [n, h, wp, 3] -> out [n, h, w, 3]
-extern "C" int sptc_recon_rows(const int* pt, const int* lit, unsigned char* out,
-                               int n, int h, int w, int wp, void* stream) {
-  if (wp < 128 || wp > 8192 || (wp & (wp - 1)) || w > wp || n < 1)
-    return (int)cudaErrorInvalidValue;
-  const int threads = wp < 1024 ? wp : 1024;
-  const size_t smem = (size_t)wp * 3 * sizeof(unsigned) + 32 * sizeof(Aff);
+// rows [n, h, wp] packed words -> out [n, h, w, 3]; blockDim.x = wp / PER
+template <int PER>
+__global__ void __launch_bounds__(256)
+recon_kernel(const unsigned* __restrict__ rows, unsigned char* __restrict__ out, int h,
+             int w, int wp) {
+  static_assert(PER % 4 == 0, "a thread's chunk is whole 16-byte copies");
+  rows += (size_t)blockIdx.x * h * wp;
+  out += (size_t)blockIdx.x * h * w * 3;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned* ring = reinterpret_cast<unsigned*>(smem);   // [kRing][wp]
+  unsigned char* stage = smem + (size_t)kRing * wp * 4;  // [2][3 * wp]
+  unsigned* wtot = reinterpret_cast<unsigned*>(stage + 6 * (size_t)wp);  // [2][8]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int x0 = tid * PER;
+  const int row_bytes = 3 * w;
+
+  auto stage_in = [&](int y) {  // this thread's chunk of row y, into the ring
+    if (y < h) {
+      unsigned* dst = ring + (y % kRing) * wp + x0;
+      const unsigned* src = rows + (size_t)y * wp + x0;
+#pragma unroll
+      for (int q = 0; q < PER; q += 4) cp_async16(dst + q, src + q);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int y = 0; y < kRing - 1; ++y) stage_in(y);
+  if (tid < 2 * kMaxWarps) wtot[tid] = kA;  // the totals of absent warps: identity
+  __syncthreads();
+
+  unsigned prev[PER];  // the row before at this thread's positions
+#pragma unroll
+  for (int i = 0; i < PER; ++i) prev[i] = 0;
+  unsigned al0 = 0;    // the row before at x0 - 1 (thread 0: at wp - 1)
+  unsigned carry = 0;  // the row before at wp - 1
+
+  for (int y = 0; y < h; ++y) {
+    stage_in(y + kRing - 1);
+    cp_async_wait<kRing - 1>();  // this thread's copies of row y have landed
+    unsigned word[PER];
+    const uint4* src = reinterpret_cast<const uint4*>(ring + (y % kRing) * wp + x0);
+#pragma unroll
+    for (int q = 0; q < PER / 4; ++q) {
+      const uint4 v = src[q];
+      word[4 * q] = v.x;
+      word[4 * q + 1] = v.y;
+      word[4 * q + 2] = v.z;
+      word[4 * q + 3] = v.w;
+    }
+    // inclusive prefix maps of the chunk
+    unsigned g[PER];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const unsigned f = affine(word[i], prev[i], i ? prev[i - 1] : al0);
+      g[i] = i ? compose(g[i - 1], f) : f;
+    }
+    unsigned incl = g[PER - 1];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned up = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl = compose(up, incl);
+    }
+    unsigned excl = __shfl_up_sync(kFull, incl, 1);
+    if (lane == 0) excl = kA;
+    unsigned* tot = wtot + (y & 1) * kMaxWarps;
+    if (lane == 31) tot[warp] = incl;
+    __syncthreads();  // the row's one barrier: every warp total is in
+
+    // the warp totals in two chains of four: the map of warps [0, warp) and
+    // of all of them
+    const uint4 lo = reinterpret_cast<const uint4*>(tot)[0];
+    const uint4 hi = reinterpret_cast<const uint4*>(tot)[1];
+    const unsigned a1 = lo.x, a2 = compose(a1, lo.y), a3 = compose(a2, lo.z),
+                   a4 = compose(a3, lo.w);
+    const unsigned b5 = hi.x, b6 = compose(b5, hi.y), b7 = compose(b6, hi.z),
+                   b8 = compose(b7, hi.w);
+    const unsigned all = compose(a4, b8);
+    unsigned pre = warp == 1 ? a1 : warp == 2 ? a2 : warp == 3 ? a3 : kA;
+    pre = warp == 4 ? a4 : pre;
+    pre = warp >= 5 ? compose(a4, warp == 5 ? b5 : warp == 6 ? b6 : b7) : pre;
+    const unsigned v_in = apply(excl, apply(pre, carry));
+    carry = apply(all, carry);
+    al0 = tid == 0 ? carry : v_in;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) prev[i] = apply(g[i], v_in);
+
+    // the row's bytes, 12 per 4 positions
+    unsigned b[3 * PER / 4];
+#pragma unroll
+    for (int q = 0; q < PER / 4; ++q) {
+      const unsigned c0 = to_rgb(prev[4 * q]), c1 = to_rgb(prev[4 * q + 1]);
+      const unsigned c2 = to_rgb(prev[4 * q + 2]), c3 = to_rgb(prev[4 * q + 3]);
+      b[3 * q] = __byte_perm(c0, c1, 0x4210);
+      b[3 * q + 1] = __byte_perm(c1, c2, 0x5421);
+      b[3 * q + 2] = __byte_perm(c2, c3, 0x6542);
+    }
+    unsigned* st = reinterpret_cast<unsigned*>(stage + (y & 1) * 3 * wp + 3 * x0);
+#pragma unroll
+    for (int k = 0; k < 3 * PER / 4; ++k) st[k] = b[k];
+    // the row before leaves (its stage was filled before this row's barrier)
+    if (y > 0)
+      flush_row(stage + ((y - 1) & 1) * 3 * wp, out + (size_t)(y - 1) * row_bytes, row_bytes);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  flush_row(stage + ((h - 1) & 1) * 3 * wp, out + (size_t)(h - 1) * row_bytes, row_bytes);
+}
+
+template <int PER>
+int launch(const unsigned* rows, unsigned char* out, int n, int h, int w, int wp,
+           cudaStream_t stream) {
+  const size_t smem = (size_t)kRing * wp * 4 + 6 * (size_t)wp + 2 * kMaxWarps * 4;
   cudaError_t err = cudaFuncSetAttribute(
-      recon_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      recon_kernel<PER>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  recon_kernel<<<n, threads, smem, (cudaStream_t)stream>>>(pt, lit, out, h, w, wp);
+  recon_kernel<PER><<<n, wp / PER, smem, stream>>>(rows, out, h, w, wp);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// rows [n, h, wp] packed int32 (recon.py:pack_rows) -> out [n, h, w, 3]
+extern "C" int sptc_recon_rows(const unsigned* rows, unsigned char* out, int n, int h, int w,
+                               int wp, void* stream) {
+  if (wp < 128 || wp > 8192 || (wp & (wp - 1)) || w < 1 || w > wp || n < 1 || h < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  // 32 to 256 threads: 8 positions a thread, 4 below Wp 256, more above 2048
+  if (wp < 256) return launch<4>(rows, out, n, h, w, wp, s);
+  if (wp <= 2048) return launch<8>(rows, out, n, h, w, wp, s);
+  if (wp == 4096) return launch<16>(rows, out, n, h, w, wp, s);
+  return launch<32>(rows, out, n, h, w, wp, s);
 }

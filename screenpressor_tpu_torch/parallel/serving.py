@@ -41,6 +41,7 @@ from screenpressor_tpu_torch.codec import (
     FTYPE_P,
     apply_loss,
     gather_segments_device,
+    owned_frames,
 )
 from screenpressor_tpu_torch.iframe import parse_i_header
 from screenpressor_tpu_torch.pframe import (
@@ -82,12 +83,6 @@ def _k_fixed(cfg: CodecConfig) -> CodecConfig:
     if cfg.k_fixed is None:
         cfg = dataclasses.replace(cfg, k_fixed=min(cfg.k_max, 256))
     return cfg
-
-
-def _to_device(frames, device) -> torch.Tensor:
-    if isinstance(frames, torch.Tensor):
-        return frames.to(device, torch.uint8)
-    return torch.as_tensor(np.ascontiguousarray(frames, np.uint8), device=device)
 
 
 def _sizes(start: np.ndarray, lens: np.ndarray, cap: int) -> np.ndarray:
@@ -153,7 +148,7 @@ class BatchedEncoder:
         handle for encode_finish. At most one encode may be pending."""
         cfg = self.cfg
         s = self.s
-        frames = apply_loss(_to_device(frames, self.device), cfg.loss)
+        frames = apply_loss(owned_frames(frames, self.device), cfg.loss)
         assert frames.shape == (s, cfg.height, cfg.width, 3)
         if force_key or self.prev is None or self.fn == 0:
             key_mask = np.ones(s, bool)
@@ -489,7 +484,10 @@ class BatchedDecoder:
                 self._pending_err = (err, p_mask)
             else:
                 self._raise_errs(err.cpu().numpy(), p_mask)
-        return frames if device_out else frames.cpu().numpy()
+        # the caller may write into what it gets: never hand out prev itself
+        # (.cpu() of a CUDA tensor is a copy already)
+        out = frames.clone() if device_out or not frames.is_cuda else frames
+        return out if device_out else out.cpu().numpy()
 
     def _payloads(self, pays) -> torch.Tensor:
         """[K, L_i] numpy lane payloads -> one [C, K, max L] uint8 tensor."""

@@ -54,10 +54,11 @@ def _apron(img: torch.Tensor) -> torch.Tensor:
 
 
 def _windows(padded: torch.Tensor, rects: torch.Tensor) -> torch.Tensor:
-    """[B, 17, 17, 3] windows with origin (y1 - 1, x1 - 1) per rect."""
+    """[B, 17, 17, 3] windows with origin (y1 - 1, x1 - 1) per rect. A
+    corrupt stream's rect (its error bit set) reads clamped to the apron."""
     ar = torch.arange(BLOCK + 1, device=rects.device)
-    ys = rects[:, 1].long()[:, None] + ar
-    xs = rects[:, 0].long()[:, None] + ar
+    ys = (rects[:, 1].long()[:, None] + ar).clamp(0, padded.shape[0] - 1)
+    xs = (rects[:, 0].long()[:, None] + ar).clamp(0, padded.shape[1] - 1)
     return padded[ys[:, :, None], xs[:, None, :]]
 
 
@@ -307,6 +308,15 @@ def undeal_sections(recs_l, ns: dict, kts) -> dict:
             for (name, k, _), r in zip(kts, recs_l)}
 
 
+def _to_slots(mask, idx, vals, cap):
+    """vals where mask -> [cap, ...] slots by idx. A corrupt bt section can
+    hold more blocks than the header's count (bit 4 or 8 is set): those go
+    to the sink slot."""
+    out = torch.zeros((cap + 1,) + vals.shape[1:], dtype=I32, device=vals.device)
+    out.index_put_((torch.where(mask & (idx < cap), idx, cap).long(),), vals.to(I32))
+    return out[:cap]
+
+
 def decode_p_resolve(recs: dict, ns: dict, xx1: int, xx2: int, n_data: int,
                      cfg: CodecConfig, mcap: int, bcap: int):
     """BT-run expansion + per-block rect / record resolution of decoded
@@ -367,17 +377,12 @@ def decode_p_resolve(recs: dict, ns: dict, xx1: int, xx2: int, n_data: int,
 
     rects_all = torch.stack([x1, y1, x2, y2], dim=1).to(I32)
 
-    def to_slots(mask, idx, vals, cap):
-        out = torch.zeros((cap + 1,) + vals.shape[1:], dtype=I32, device=dev)
-        out.index_put_((torch.where(mask, idx, cap).long(),), vals.to(I32))
-        return out[:cap]
-
-    mo_rects = to_slots(is_motion, midx, rects_all, mcap)
-    mo_mvs = to_slots(is_motion, midx, m, mcap)
+    mo_rects = _to_slots(is_motion, midx, rects_all, mcap)
+    mo_mvs = _to_slots(is_motion, midx, m, mcap)
     didx = torch.cumsum(is_data.to(I32), dim=0) - 1
-    d_rects = to_slots(is_data, didx, rects_all, bcap)
+    d_rects = _to_slots(is_data, didx, rects_all, bcap)
     areas_nb = (x2 - x1).clamp_min(0) * (y2 - y1).clamp_min(0)
-    areas = to_slots(is_data, didx, areas_nb[:, None], bcap)[:, 0].long()
+    areas = _to_slots(is_data, didx, areas_nb[:, None], bcap)[:, 0].long()
     a_start = torch.cumsum(areas, dim=0) - areas
     a_end = a_start + areas
     total_area = areas.sum()
@@ -425,7 +430,7 @@ def apply_motion(base: torch.Tensor, prev: torch.Tensor, rects: torch.Tensor,
     x1, y1, x2, y2 = (rects[:, i].long()[:, None, None] for i in range(4))
     ys = y1 + ar[None, :, None]
     xs = x1 + ar[None, None, :]
-    inside = (ys < y2) & (xs < x2)
+    inside = (ys < y2) & (xs < x2) & (ys < h) & (xs < w)  # a corrupt rect sinks
     src = ((ys + mvs[:, 1].long()[:, None, None]) * w
            + xs + mvs[:, 0].long()[:, None, None]).clamp(0, h * w - 1)
     dst = torch.where(inside, ys * w + xs, h * w)
@@ -470,8 +475,9 @@ def reconstruct_blocks(base: torch.Tensor, prev: torch.Tensor, rects: torch.Tens
     rec_id = (torch.cumsum(marks[:, :AREA], dim=1) - 1).clamp(0, AREA - 1).long()
     pt_seq = ptypes.gather(1, rec_id)
     lit_seq = lits.gather(1, rec_id[..., None].expand(-1, -1, 3))
-    bw = (rects[:, 2] - rects[:, 0]).long()[:, None]
-    bh = (rects[:, 3] - rects[:, 1]).long()[:, None]
+    # a corrupt sub-rect (bit 16 set) can be wider than a block or negative
+    bw = (rects[:, 2] - rects[:, 0]).long()[:, None].clamp(0, BLOCK)
+    bh = (rects[:, 3] - rects[:, 1]).long()[:, None].clamp(0, BLOCK)
     p = torch.arange(AREA, device=dev)[None, :]
     ry = torch.where(p < bw * bh, p // bw.clamp_min(1), BLOCK)
     rx = p % bw.clamp_min(1)
@@ -511,9 +517,10 @@ def reconstruct_blocks(base: torch.Tensor, prev: torch.Tensor, rects: torch.Tens
 
     ry2 = torch.arange(BLOCK, device=dev)[None, :, None]
     rx2 = torch.arange(BLOCK, device=dev)[None, None, :]
-    inside = (ry2 < bh[:, :, None]) & (rx2 < bw[:, :, None])
-    flat_idx = torch.where(inside, (rects[:, 1].long()[:, None, None] + ry2) * w
-                           + rects[:, 0].long()[:, None, None] + rx2, h * w)
+    ys = rects[:, 1].long()[:, None, None] + ry2
+    xs = rects[:, 0].long()[:, None, None] + rx2
+    inside = (ry2 < bh[:, :, None]) & (rx2 < bw[:, :, None]) & (ys < h) & (xs < w)
+    flat_idx = torch.where(inside, ys * w + xs, h * w)
     out = torch.cat([base.reshape(h * w, 3).to(I32),
                      torch.zeros((1, 3), dtype=I32, device=dev)])
     out[flat_idx.reshape(-1)] = grids.reshape(-1, 3)

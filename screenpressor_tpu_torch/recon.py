@@ -11,9 +11,19 @@ a batch of frames (the keyframing streams of a serving step) in one launch;
 Padding columns are left-runs, so the last pixel of row y-1 carries
 through them into column 0 of row y, and column 0's aboveleft is the last
 slot of the previous padded row (`jx/recon.py:96`).
+
+The rows reach K4 as one int32 word per padded position (`pack_rows`): the
+low byte of each channel in a 10-bit field (R bits 0-7, G 10-17, B 20-27)
+and a type code in bits 28-30 whose bits select K4's map (`_CODE_OF`).
+The recurrence only copies, adds and subtracts, and the frame keeps the
+low byte of each channel, so each channel's low byte depends only on low
+bytes: the kernel works mod 256 per field, exactly as the reference's
+int32 arithmetic does on those bytes.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -59,12 +69,48 @@ def padded_width(w: int) -> int:
     return max(128, 1 << (w - 1).bit_length())
 
 
-def recon_rows_plain(pt_rows: torch.Tensor, lit_rows: torch.Tensor,
-                     w: int) -> torch.Tensor:
-    """Plain version of K4. pt_rows [H, Wp] int32, lit_rows [H, Wp, 3]
-    int32 -> frame [H, w, 3] uint8. Within a row, v[x] is the value at the
-    last reset r <= x plus the gradient deltas after it (or the carry pixel
-    plus all deltas when no reset precedes x)."""
+FIELD_SHIFTS = (0, 10, 20)  # R, G, B in the packed word
+TYPE_SHIFT = 28
+# ptype -> K4's type code: bit 2 "adds to v[x-1]" (gradient, and every
+# type that carries), bit 1 "from the row before" (above, aboveleft,
+# gradient), bit 0 "aboveleft". A literal's code is 0.
+CODE_CARRY = 4
+# indexed by ptype + 1 for ptypes clamped to -1..6 (-1 and 6: outside 0..5)
+_CODE_OF = (CODE_CARRY, 0, CODE_CARRY, 2, CODE_CARRY, 6, 3, CODE_CARRY)
+# indexed by code 0..7 (the unused codes carry)
+_TYPE_OF = (PT_LITERAL, PT_LEFT, PT_ABOVE, PT_ABOVELEFT, PT_LEFT, PT_LEFT, PT_GRADIENT, PT_LEFT)
+
+
+@functools.lru_cache(maxsize=None)
+def _table(values: tuple, device: torch.device) -> torch.Tensor:
+    """A lookup table on the device, made once: a host-to-device copy per
+    call would stall the queue of the launches around it."""
+    return torch.tensor(values, dtype=I32, device=device)
+
+
+def pack_rows(pt: torch.Tensor, lit: torch.Tensor) -> torch.Tensor:
+    """Per-position ptype [...] and literal [..., 3] (int32) -> packed words
+    [...]. A ptype outside 0..5 is carried like left, as the recurrence
+    treats it."""
+    dev = pt.device
+    code = _table(_CODE_OF, dev)[(pt.clamp(-1, PT_ABOVELEFT + 1) + 1).long()]
+    fields = ((lit.to(I32) & 0xFF) << _table(FIELD_SHIFTS, dev)).sum(dim=-1, dtype=I32)
+    return fields | (code << TYPE_SHIFT)
+
+
+def unpack_rows(rows: torch.Tensor):
+    """Packed words [...] -> (ptype [...], literal [..., 3]) int32."""
+    lit = torch.stack([(rows >> sh) & 0xFF for sh in FIELD_SHIFTS], dim=-1)
+    code = ((rows >> TYPE_SHIFT) & 7).long()
+    return _table(_TYPE_OF, rows.device)[code], lit
+
+
+def recon_rows_plain(rows: torch.Tensor, w: int) -> torch.Tensor:
+    """Plain version of K4. rows [H, Wp] packed int32 -> frame [H, w, 3]
+    uint8. Within a row, v[x] is the value at the last reset r <= x plus the
+    gradient deltas after it (or the carry pixel plus all deltas when no
+    reset precedes x)."""
+    pt_rows, lit_rows = unpack_rows(rows)
     h, wp = pt_rows.shape
     dev = pt_rows.device
     xs = torch.arange(wp, device=dev)
@@ -91,48 +137,56 @@ def recon_rows_plain(pt_rows: torch.Tensor, lit_rows: torch.Tensor,
     return (out[:, :w] & 0xFF).to(torch.uint8)
 
 
-def recon_rows(pt_rows: torch.Tensor, lit_rows: torch.Tensor, w: int) -> torch.Tensor:
-    """Row reconstruction of one frame ([H, Wp] rows) or a batch ([N, H,
-    Wp]): K4 on CUDA tensors, the plain version (per frame) on CPU."""
-    if not pt_rows.is_cuda:
-        if pt_rows.dim() == 2:
-            return recon_rows_plain(pt_rows, lit_rows, w)
-        return torch.stack([recon_rows_plain(p, lt, w) for p, lt in zip(pt_rows, lit_rows)])
-    pt_rows = pt_rows.to(I32).contiguous()
-    lit_rows = lit_rows.to(I32).contiguous()
-    _build.require_cuda(pt_rows, lit_rows)
-    lead = pt_rows.shape[:-1]
-    wp = pt_rows.shape[-1]
-    if wp & (wp - 1) or not 128 <= wp <= 8192 or lit_rows.shape != (*lead, wp, 3):
-        raise ValueError(f"recon kernel takes pow2 widths 128..8192, got {wp}")
-    out = torch.empty((*lead, w, 3), dtype=torch.uint8, device=pt_rows.device)
-    n, h = (lead[0], lead[1]) if pt_rows.dim() == 3 else (1, lead[0])
+def recon_rows(rows: torch.Tensor, w: int) -> torch.Tensor:
+    """Row reconstruction of one frame ([H, Wp] packed rows) or a batch
+    ([N, H, Wp]): K4 on CUDA tensors, the plain version (per frame) on CPU."""
+    if not rows.is_cuda:
+        if rows.dim() == 2:
+            return recon_rows_plain(rows, w)
+        return torch.stack([recon_rows_plain(r, w) for r in rows])
+    rows = rows.to(I32).contiguous()
+    if rows.data_ptr() % 16:  # K4 stages rows with 16-byte copies
+        rows = rows.clone()
+    _build.require_cuda(rows)
+    lead = rows.shape[:-1]
+    wp = rows.shape[-1]
+    if wp & (wp - 1) or not 128 <= wp <= 8192 or not 1 <= w <= wp:
+        raise ValueError(f"recon kernel takes pow2 widths 128..8192 and 1 <= w <= Wp, "
+                         f"got Wp {wp}, w {w}")
+    out = torch.empty((*lead, w, 3), dtype=torch.uint8, device=rows.device)
+    n, h = (lead[0], lead[1]) if rows.dim() == 3 else (1, lead[0])
     if n and h:
-        _build.launch("sptc_recon_rows", pt_rows.data_ptr(), lit_rows.data_ptr(),
-                      out.data_ptr(), n, h, w, wp)
+        _build.launch("sptc_recon_rows", rows.data_ptr(), out.data_ptr(), n, h, w, wp)
     return out
 
 
+def _padding(n: int, h: int, w: int, device) -> torch.Tensor:
+    """[n, H, Wp] packed rows of left-runs."""
+    return torch.full((n, h, padded_width(w)), CODE_CARRY << TYPE_SHIFT, dtype=I32,
+                      device=device)
+
+
 def pad_rows(pt_pix: torch.Tensor, lit_pix: torch.Tensor, h: int, w: int):
-    """Per-pixel arrays -> padded rows [H, Wp] / [H, Wp, 3]; padding
-    columns are left-runs."""
-    wp = padded_width(w)
-    dev = pt_pix.device
-    pt_rows = torch.full((h, wp), PT_LEFT, dtype=I32, device=dev)
-    pt_rows[:, :w] = pt_pix.reshape(h, w)
-    lit_rows = torch.zeros((h, wp, 3), dtype=I32, device=dev)
-    lit_rows[:, :w] = lit_pix.reshape(h, w, 3)
-    return pt_rows, lit_rows
+    """Per-pixel arrays -> packed rows [H, Wp]; padding columns are
+    left-runs."""
+    rows = _padding(1, h, w, pt_pix.device)[0]
+    rows[:, :w] = pack_rows(pt_pix, lit_pix).reshape(h, w)
+    return rows
 
 
 def reconstruct_i(records: torch.Tensor, lits: torch.Tensor, h: int, w: int):
     """I-frame reconstruction -> [h, w, 3] uint8."""
     pt_pix, lit_pix = expand_records(records, lits, h * w)
-    return recon_rows(*pad_rows(pt_pix, lit_pix, h, w), w)
+    return recon_rows(pad_rows(pt_pix, lit_pix, h, w), w)
 
 
 def reconstruct_i_streams(records_l, lits_l, h: int, w: int):
     """reconstruct_i of C keyframes (lists of record / literal arrays) with
-    one K4 launch -> [C, h, w, 3] uint8."""
-    rows = [pad_rows(*expand_records(r, lt, h * w), h, w) for r, lt in zip(records_l, lits_l)]
-    return recon_rows(torch.stack([p for p, _ in rows]), torch.stack([lt for _, lt in rows]), w)
+    one K4 launch -> [C, h, w, 3] uint8. Each frame packs into its slot of
+    the batch: packing all at once would hold every frame's per-pixel
+    literals and their packing temporaries at the same time, which raises
+    the serving session's peak device memory."""
+    rows = _padding(len(records_l), h, w, records_l[0].device)
+    for j, (r, lt) in enumerate(zip(records_l, lits_l)):
+        rows[j, :, :w] = pack_rows(*expand_records(r, lt, h * w)).reshape(h, w)
+    return recon_rows(rows, w)

@@ -1,11 +1,14 @@
-"""The two facts the Hopper designs of K1 and K3 rest on, pinned on the CPU
+"""The facts the Hopper designs of K1, K3 and K4 rest on, pinned on the CPU
 against the plain versions and, through them, against jx. Tolerance 0.
 
 K1 (csrc/sections.cu, encode_kernel) takes the lookups of all substeps of a
 step before any update of that step (rec, bt, sxy, mv), and for col computes
 the three substeps' row parts at the step start and chains only the global
 row. K3 (csrc/run_walk.cu) takes the start mask as the orbit of each tile's
-position 0 under next(p). Inputs are made from a seed with numpy.
+position 0 under next(p). K4 (csrc/recon.cu) runs the row recurrence mod
+256 per channel in 10-bit fields of one word, as a scan of affine maps over
+thread chunks, warps and warp totals, with the row before kept per thread.
+Inputs are made from a seed with numpy.
 """
 
 import jax
@@ -16,10 +19,20 @@ import torch
 
 from screenpressor_tpu.jx import classify as jcl
 from screenpressor_tpu.jx import coder as jc
+from screenpressor_tpu.jx import recon as jr
 from screenpressor_tpu.jx.tables import renew_tables as jx_renew
 from screenpressor_tpu_torch import classify as tcl
 from screenpressor_tpu_torch import coder as tc
-from screenpressor_tpu_torch.config import MAX_RUN, kind_gstep, kind_step
+from screenpressor_tpu_torch import recon as tr
+from screenpressor_tpu_torch.config import (
+    MAX_RUN,
+    PT_ABOVE,
+    PT_ABOVELEFT,
+    PT_GRADIENT,
+    PT_LITERAL,
+    kind_gstep,
+    kind_step,
+)
 from screenpressor_tpu_torch.substeps import SUBSTEP_CODECS as CODECS
 from screenpressor_tpu_torch.tables import effective_rows, renew_tables, update_batch
 
@@ -129,3 +142,92 @@ def test_design_fact_matches_plain_and_jx(kernel, name, n, k):
     blobs = tc.blobs_from_buf(buf.numpy(), start.numpy(), lens.numpy())
     blobs_j, _ = jc.encode_section(records, k, jx_renew(), name)
     assert blobs == blobs_j
+
+
+FIELDS, BORROW, A_BIT = np.uint32(0x0FF3FCFF), np.uint32(0x10040100), np.uint32(0x80000000)
+
+
+def k4_compose(f1, f2):
+    """f1 then f2 on packed maps (a in bit 31, b in the channel fields)."""
+    return np.where(f2 & A_BIT, ((f1 + (f2 & FIELDS)) & (FIELDS | A_BIT)), f2)
+
+
+def k4_apply(g, v):
+    return np.where(g & A_BIT, (v + g) & FIELDS, g)
+
+
+def k4_emulation(words, w, per):
+    """K4's arithmetic and schedule in numpy: words [H, Wp] packed (uint32),
+    Wp / per threads of per positions, warps of 32 threads. Per row: each
+    position's map from the row before (kept per thread, with the value
+    entering the chunk as the first aboveleft and the carry at Wp - 1), the
+    chunk's inclusive maps, a Hillis-Steele scan over the warp's lanes, the
+    composed warp totals, then the values. -> [H, w, 3] uint8."""
+    h, wp = words.shape
+    nt = wp // per
+    nw = nt // 32
+    prev = np.zeros((nt, per), np.uint32)
+    al0 = np.zeros(nt, np.uint32)
+    carry = np.uint32(0)
+    out = np.zeros((h, wp), np.uint32)
+    for y in range(h):
+        wd = words[y].reshape(nt, per)
+        above, aboveleft = prev, np.concatenate([al0[:, None], prev[:, :-1]], axis=1)
+        grad = (((above | BORROW) - aboveleft) & FIELDS) | A_BIT
+        from_row = (wd >> np.uint32(29)) & np.uint32(1)
+        known = np.where(from_row, np.where((wd >> np.uint32(28)) & np.uint32(1), aboveleft,
+                                            above), wd)
+        f = np.where((wd >> np.uint32(30)) & np.uint32(1), np.where(from_row, grad, A_BIT),
+                     known).astype(np.uint32)
+        g = f.copy()
+        for i in range(1, per):
+            g[:, i] = k4_compose(g[:, i - 1], f[:, i])
+        incl = g[:, -1].reshape(nw, 32).copy()
+        o = 1
+        while o < 32:
+            nxt = incl.copy()
+            nxt[:, o:] = k4_compose(incl[:, :-o], incl[:, o:])
+            incl, o = nxt, 2 * o
+        excl = np.concatenate([np.full((nw, 1), A_BIT, np.uint32), incl[:, :-1]], axis=1)
+        pre = [A_BIT]
+        for j in range(nw):
+            pre.append(k4_compose(pre[-1], incl[j, 31]))
+        v_in = k4_apply(excl.reshape(-1), k4_apply(np.asarray(pre[:nw])[:, None].repeat(32, 1)
+                                                   .reshape(-1), carry))
+        carry = k4_apply(pre[nw], carry)
+        al0 = v_in.copy()
+        al0[0] = carry
+        prev = k4_apply(g, v_in[:, None]).astype(np.uint32)
+        out[y] = prev.reshape(-1)
+    rgb = np.stack([(out >> np.uint32(sh)) & np.uint32(0xFF) for sh in tr.FIELD_SHIFTS], -1)
+    return rgb[:, :w].astype(np.uint8)
+
+
+# (h, w, positions a thread, gradients forced at column 0, share of resets)
+K4_CASES = [(5, 128, 4, False, 0.5), (7, 100, 4, True, 0.5), (1, 200, 8, False, 0.5),
+            (6, 256, 4, True, 0.5), (4, 300, 8, True, 0.5), (3, 512, 4, False, 0.5),
+            (3, 2048, 8, True, 0.002)]
+
+
+@pytest.mark.parametrize("h,w,per,grad0,resets", K4_CASES)
+def test_k4_packed_recurrence_matches_plain_and_jx(h, w, per, grad0, resets):
+    """Arbitrary ptypes 0..5, int32 literals over the full range (only the
+    low bytes reach the frame), w == Wp and w < Wp, one row, gradients at
+    column 0 (their aboveleft is the last padded slot of the row before),
+    and rows so poor in resets that whole warps carry (their totals compose
+    with a = 1)."""
+    rng = np.random.default_rng(h * 1000 + w + per)
+    n = h * w
+    carried = rng.choice([1, 3, PT_GRADIENT], n)
+    reset = rng.choice([PT_LITERAL, PT_ABOVE, PT_ABOVELEFT], n)
+    pt = np.where(rng.random(n) < resets, reset, carried).astype(np.int32)
+    if grad0:
+        pt.reshape(h, w)[1:, 0] = PT_GRADIENT
+    records = np.stack([pt, np.ones(n, np.int32)], axis=1)
+    lits = rng.integers(-2**31, 2**31, (n, 3), dtype=np.int64).astype(np.int32)
+    ref = np.asarray(jr.reconstruct_i(jnp.asarray(records), jnp.asarray(lits), h, w))
+    words = tr.pad_rows(*tr.expand_records(torch.as_tensor(records), torch.as_tensor(lits), n),
+                        h, w)
+    got = k4_emulation(words.numpy().view(np.uint32), w, per)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(tr.recon_rows_plain(words, w).numpy(), ref)

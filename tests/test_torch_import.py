@@ -75,5 +75,5 @@ def test_cpu_tensors_take_the_plain_path():
     bits = torch.zeros(300, dtype=torch.int32)
     classify.run_walk(bits, bits, 256)
     pt = torch.ones((2, 128), dtype=torch.int32)
-    recon.recon_rows(pt, torch.zeros((2, 128, 3), dtype=torch.int32), 100)
+    recon.recon_rows(recon.pack_rows(pt, torch.zeros((2, 128, 3), dtype=torch.int32)), 100)
     assert all(v == 0 for v in _build.LAUNCHES.values())

@@ -145,8 +145,8 @@ def test_recon_and_classify_kernels_match_plain(cuda, hw):
     records, n_rec, lits, n_lit = tcl.classify_i(frame)
     pt_pix, lit_pix = tr.expand_records(records[: int(n_rec)], lits[: max(int(n_lit), 1)], h * w)
     rows = tr.pad_rows(pt_pix, lit_pix, h, w)
-    got = tr.recon_rows(*rows, w)
-    assert torch.equal(got, tr.recon_rows_plain(*rows, w))
+    got = tr.recon_rows(rows, w)
+    assert torch.equal(got, tr.recon_rows_plain(rows, w))
     assert torch.equal(got, frame)
 
 
@@ -286,12 +286,106 @@ def test_recon_streams_match_plain(cuda):
     lits = [lt[: max(int(n), 1)] for _, _, lt, n in cls]
     got = tr.reconstruct_i_streams(records, lits, 48, 64)
     assert torch.equal(got, frames)
-    rows = [tr.pad_rows(*tr.expand_records(r, lt, 48 * 64), 48, 64)
-            for r, lt in zip(records, lits)]
-    pt = torch.stack([p for p, _ in rows])
-    lt = torch.stack([lt for _, lt in rows])
-    assert torch.equal(tr.recon_rows(pt, lt, 64),
-                       torch.stack([tr.recon_rows_plain(p, q, 64) for p, q in zip(pt, lt)]))
+    rows = torch.stack([tr.pad_rows(*tr.expand_records(r, lt, 48 * 64), 48, 64)
+                        for r, lt in zip(records, lits)])
+    assert torch.equal(tr.recon_rows(rows, 64),
+                       torch.stack([tr.recon_rows_plain(r, 64) for r in rows]))
+
+
+def k4_rows(n, h, wp, seed, dev):
+    """[n, h, wp] packed rows of arbitrary ptypes 0..5 (resets rare, so
+    whole warps carry; gradients at column 0) and int32 literals over the
+    full range, padding columns included."""
+    rng = np.random.default_rng(seed)
+    size = (n, h, wp)
+    carried = rng.choice([1, 3, 4], size)
+    pt = np.where(rng.random(size) < 0.01, rng.choice([0, 2, 5], size), carried)
+    pt[:, 1:, 0] = 4
+    lit = rng.integers(-2**31, 2**31, size + (3,), dtype=np.int64).astype(np.int32)
+    return tr.pack_rows(torch.as_tensor(pt, dtype=torch.int32, device=dev),
+                        torch.as_tensor(lit, device=dev))
+
+
+# Wp -> w: rows leave with 16-byte stores (Wp 128, 2048), 1-byte (1024), 4-byte
+K4_WIDTHS = {128: 128, 512: 504, 1024: 1021, 2048: 1920, 4096: 4092, 8192: 8188}
+
+
+@pytest.mark.parametrize("wp", sorted(K4_WIDTHS))
+@pytest.mark.parametrize("n", [1, 64, 200])
+def test_k4_matches_plain(cuda, wp, n):
+    """K4 against recon_rows_plain on arbitrary packed rows: every width
+    class (4, 8, 16 and 32 positions a thread) and store width, one frame (37 rows, deeper than
+    the staging ring) and batches of 64 and 200 frames (5 and 2 rows)."""
+    h = {1: 37, 64: 5, 200: 2}[n]
+    w = K4_WIDTHS[wp]
+    rows = k4_rows(n, h, wp, wp + n, cuda)
+    _build.reset_counts()
+    got = tr.recon_rows(rows if n > 1 else rows[0], w)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sptc_recon_rows"] == 1
+    want = torch.stack([tr.recon_rows_plain(r, w) for r in rows])
+    assert torch.equal(got.reshape(want.shape), want)
+
+
+def test_corrupt_p_frames_on_card(cuda):
+    """The damaged payloads of the CPU test (tests/test_torch_corrupt.py):
+    the CUDA decoder's verdict equals the CPU port's on each, nothing but
+    CorruptStreamError is raised, and a clean stream still decodes on the
+    same device afterwards (no device-side assert). The last payloads are
+    the INDEX_SITE_FLIPS, which once took indices past their tensors."""
+    from screenpressor_tpu_torch import bitstream as bs
+
+    from torch_support import INDEX_SITE_FLIPS, corrupt_payloads  # tests/ is on the path
+
+    cfg, frames, payloads, damaged = corrupt_payloads()
+
+    def verdict(device, i, data):
+        dec = TorchDecoder(cfg, device)
+        dec.decode_batch(payloads[:i])
+        try:
+            return "ok", np.asarray(dec.decode_batch([data])[0])
+        except bs.CorruptStreamError:
+            return "corrupt", None
+
+    for c, (i, data) in enumerate(damaged):
+        got, frame = verdict(cuda, i, data)
+        want, ref = verdict("cpu", i, data)
+        assert got == want, f"case {c}: card {got}, CPU {want}"
+        if got == "ok":
+            np.testing.assert_array_equal(frame, ref)
+        assert c < len(damaged) - len(INDEX_SITE_FLIPS) or got == "corrupt"
+    torch.cuda.synchronize()
+    out = TorchDecoder(cfg, cuda).decode_batch(payloads)
+    for f, o in zip(frames, out):
+        np.testing.assert_array_equal(o, f)
+
+
+def test_batched_decoder_corrupt_stream_on_card(cuda):
+    """One stream of a BatchedDecoder step damaged: CorruptStreamError, and
+    the next keyframe step decodes losslessly on the same device. The
+    SERVING_SITE_FLIPS, which once took indices past their tensors, fail."""
+    from screenpressor_tpu_torch import bitstream as bs
+    from screenpressor_tpu_torch.parallel.serving import BatchedDecoder, BatchedEncoder
+
+    from torch_support import SERVING_SITE_FLIPS, corrupt_payloads, flip  # tests/ is on the path
+
+    cfg, frames, _, damaged = corrupt_payloads(seed=8, k_fixed=8)
+    enc = BatchedEncoder(4, cfg, cuda)
+    steps = [[p for p, _ in enc.encode(np.stack([f] * 4))] for f in frames[:3]]
+    key = [p for p, _ in BatchedEncoder(4, cfg, cuda).encode(np.stack([frames[2]] * 4))]
+    sites = [flip(steps[2][1], pos, x) for pos, x in SERVING_SITE_FLIPS]
+    failed = 0
+    for c, data in enumerate([d for _, d in damaged[:12]] + sites):
+        dec = BatchedDecoder(4, cfg, cuda)
+        for step in steps[:2]:
+            dec.decode(step)
+        try:
+            dec.decode([steps[2][0], data, steps[2][2], steps[2][3]])
+            assert c < 12, f"serving site flip {c - 12} decoded"
+        except bs.CorruptStreamError:
+            failed += 1
+            np.testing.assert_array_equal(dec.decode(key), np.stack([frames[2]] * 4))
+    assert failed > len(sites)
 
 
 def _k2_matches_plain(pay, lens, tabs, name, k, t):

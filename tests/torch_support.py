@@ -24,3 +24,81 @@ def port_config(cfg):
     from screenpressor_tpu_torch.config import CodecConfig
 
     return CodecConfig(**dataclasses.asdict(cfg))
+
+
+# One-byte flips (payload, byte, xor) of the default stream of
+# corrupt_payloads whose indices the port once took past their tensors
+# (IndexError, a device-side assert on the card) before the error word
+# decided: two make the bt runs hold at least two more blocks than the
+# header counts (a slot index past the sink slot), two give a sub-rect with
+# x1 > x2 and y1 > y2 (grid positions past the block).
+INDEX_SITE_FLIPS = ((2, 2, 4), (2, 3, 15), (2, 19, 170), (2, 22, 87))
+# the same two kinds, (byte, xor) of stream 1's frame 2 in the serving
+# tests' steps (corrupt_payloads(seed=8, k_fixed=8) through BatchedEncoder)
+SERVING_SITE_FLIPS = ((2, 4), (34, 2))
+
+
+def flip(data: bytes, pos: int, x: int) -> bytes:
+    p = bytearray(data)
+    p[pos] ^= x
+    return bytes(p)
+
+
+def corrupt_payloads(n_flips=40, n_cuts=10, seed=6, device="cpu", k_fixed=None):
+    """A 6-frame 48x64 synth_screencast stream encoded by the port, and
+    damaged copies of its frames that carry sections: n_flips one-byte
+    corruptions and n_cuts truncations, from a seed, then the
+    INDEX_SITE_FLIPS. Returns (cfg, frames, payloads, [(frame index,
+    damaged payload)])."""
+    import numpy as np
+
+    from screenpressor_tpu_torch import TorchEncoder
+    from screenpressor_tpu_torch.config import CodecConfig
+    from screenpressor_tpu_torch.synth import synth_screencast
+
+    frames = synth_screencast(48, 64, 6)
+    cfg = CodecConfig(width=64, height=48, k_fixed=k_fixed)
+    payloads = [p for p, _ in TorchEncoder(cfg, device).encode_batch(frames)]
+    coded = [i for i, p in enumerate(payloads) if len(p) > 8]
+    rng = np.random.default_rng(seed)
+    damaged = []
+    for c in range(n_flips + n_cuts):
+        i = coded[int(rng.integers(len(coded)))]
+        if c < n_flips:
+            p = payloads[i]
+            data = flip(p, int(rng.integers(len(p))), int(rng.integers(1, 256)))
+        else:
+            data = payloads[i][:int(rng.integers(1, len(payloads[i])))]
+        damaged.append((i, data))
+    damaged += [(i, flip(payloads[i], pos, x)) for i, pos, x in INDEX_SITE_FLIPS]
+    return cfg, frames, payloads, damaged
+
+
+def record_index_sites(monkeypatch) -> set:
+    """Watch the P decode's index sites that a corrupt stream can push out
+    of range: the returned set gains "slots" when a block's slot index
+    reaches its cap (pframe._to_slots) and "grid" when a data block's
+    sub-rect would put a position past the 17 x 16 grid without the clamp
+    (pframe.reconstruct_blocks)."""
+    from screenpressor_tpu_torch import pframe
+
+    hits = set()
+    to_slots, rebuild = pframe._to_slots, pframe.reconstruct_blocks
+
+    def slots(mask, idx, vals, cap):
+        if bool((mask & (idx > cap)).any()):
+            hits.add("slots")
+        return to_slots(mask, idx, vals, cap)
+
+    def blocks(base, prev, rects, *rest):
+        bw = (rects[:, 2] - rects[:, 0]).long()[:, None]
+        bh = (rects[:, 3] - rects[:, 1]).long()[:, None]
+        p = torch.arange(pframe.AREA)[None, :]
+        ry = torch.where(p < bw * bh, p // bw.clamp_min(1), pframe.BLOCK)
+        if bool(((ry > pframe.BLOCK) | (p % bw.clamp_min(1) >= pframe.BLOCK)).any()):
+            hits.add("grid")
+        return rebuild(base, prev, rects, *rest)
+
+    monkeypatch.setattr(pframe, "_to_slots", slots)
+    monkeypatch.setattr(pframe, "reconstruct_blocks", blocks)
+    return hits

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""K1 (section encode) and K3 (run walk) of two checkouts of the PyTorch /
-CUDA port on one card, in one process tree: before / after numbers that may
-stand side by side.
+"""K1 (section encode), K3 (run walk), K4 (row reconstruction) and the
+serving session of two checkouts of the PyTorch / CUDA port on one card, in
+one process tree: before / after numbers that may stand side by side.
 
-    python3 tools/torch_kernels_before_after.py --parent DIR
+    python3 tools/torch_kernels_before_after.py --parent DIR [--kernels k4,serving]
 
 DIR is a checkout of the commit to compare with (for example `git archive
 <commit> | tar -x -C DIR`); the change is the checkout this script lies in.
@@ -23,8 +23,16 @@ phases). Every run works on the same inputs, made from seeds:
     and col in one launch), full-table col and the colw path;
   - K3 on the full 1080p keyframe, on the 64 serving keyframes padded to
     whole tiles, and on the data-block walks of the scroll and the typing P
-    frame.
-Times are CUDA events, the mean of 5 launches after a warm-up. Prints one
+    frame;
+  - K4 on the 1080p keyframe and on the serving keyframe step (64 frames,
+    and one of them alone): the kernel on its padded rows, its time a row,
+    and the whole reconstruct_i (expand, pad, kernel);
+  - serving: chip_smoke.py's serving session (serve_pipelined over 64
+    streams of 360x640 for 5 steps, BatchedEncoder and BatchedDecoder, one
+    keyframe step in each), three sessions after a warm-up one, each as
+    stream-frames/s on the host clock.
+--kernels picks the groups to run (k1, k3, k4, serving; default k1,k3,k4).
+Kernel times are CUDA events, the mean of 5 launches after a warm-up. Prints one
 JSON line per run, then a table, with the card's nvidia-smi name and power
 limit. Needs a CUDA device and nvcc; imports nothing of JAX.
 """
@@ -41,7 +49,7 @@ PACK_MARK = "  // reverse rANS pack, one lane per thread (jx/coder.py:rans_pack)
 REPS = 5
 
 
-def measure(root: str) -> dict:
+def measure(root: str, kernels) -> dict:
     sys.path.insert(0, root)
     import inspect
 
@@ -53,6 +61,7 @@ def measure(root: str) -> dict:
     from screenpressor_tpu_torch import coder as tc
     from screenpressor_tpu_torch import kernels as tk
     from screenpressor_tpu_torch import pframe as tp
+    from screenpressor_tpu_torch import recon as tr
     from screenpressor_tpu_torch.config import NUM_PTYPES, CodecConfig, seg_tile
     from screenpressor_tpu_torch.synth import synth_screencast
     from screenpressor_tpu_torch.tables import renew_tables, renew_tables_streams
@@ -71,10 +80,41 @@ def measure(root: str) -> dict:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / REPS
 
-    out = {"k1": {}, "k1_probe": {}, "k3": {}}
+    def k4(label, recs, hh, ww):
+        """K4 on keyframes' (records, literals): the kernel on the padded
+        rows (whatever layout this checkout's pad_rows makes) and the whole
+        reconstruct_i."""
+        rows = [tr.pad_rows(*tr.expand_records(r, lt, hh * ww), hh, ww) for r, lt in recs]
+        rows = [r if isinstance(r, tuple) else (r,) for r in rows]
+        args = [torch.stack(a) for a in zip(*rows)] if len(rows) > 1 else list(rows[0])
+        ms = ms_of(lambda: tr.recon_rows(*args, ww))
+        out["k4"][f"{label}: kernel"] = ms
+        out["k4"][f"{label}: kernel, us a row"] = 1e3 * ms / hh
+        if len(recs) > 1:
+            whole = ms_of(lambda: tr.reconstruct_i_streams(*zip(*recs), hh, ww))
+        else:
+            whole = ms_of(lambda: tr.reconstruct_i(*recs[0], hh, ww))
+        out["k4"][f"{label}: reconstruct_i with expand and pad"] = whole
+
+    out = {"k1": {}, "k1_probe": {}, "k3": {}, "k4": {}, "serving": {}}
+    if "serving" in kernels:
+        serving(out["serving"], dev, synth_screencast)
     frames = synth_screencast(h, w, 3)
     cfg = CodecConfig(width=w, height=h)
     kf = torch.as_tensor(frames[0], device=dev)
+    if "k4" in kernels:
+        records, n_rec, lits, n_lit = tcl.classify_i(kf)
+        k4("1080p keyframe", [(records[: int(n_rec)], lits[: max(int(n_lit), 1)])], h, w)
+        s_h, s_w = 360, 640
+        base = synth_screencast(s_h, s_w, 1, seed=3)[0]
+        batch = torch.as_tensor(np.stack([np.roll(base, 3 * i, axis=1) for i in range(64)]),
+                                device=dev)
+        recs = [(r[: int(n)], lt[: max(int(nl), 1)])
+                for r, n, lt, nl in tcl.classify_i_streams(batch)]
+        k4("serving keyframe step (64 x 360x640)", recs, s_h, s_w)
+        k4("one serving keyframe (360x640)", recs[:1], s_h, s_w)
+    if "k1" not in kernels and "k3" not in kernels:
+        return out
 
     # K3 on the keyframe
     fits = tcl.fits_planes_i(kf)
@@ -164,6 +204,37 @@ def measure(root: str) -> dict:
     return out
 
 
+def serving(out: dict, dev, synth_screencast):
+    """chip_smoke.py's serving session, a warm-up and three timed ones."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from screenpressor_tpu_torch.config import CodecConfig
+    from screenpressor_tpu_torch.parallel import serving as ts
+
+    n, s_h, s_w, kf, steps = 64, 360, 640, 150, 5
+    cfg = CodecConfig(width=s_w, height=s_h, kf_interval=kf, k_fixed=64, msr_x=256, msr_y=256)
+    offsets = (np.arange(n) * kf) // n
+    base = synth_screencast(s_h, s_w, steps, seed=3)
+    batches = [torch.as_tensor(np.stack([np.roll(base[t], 3 * i, axis=1) for i in range(n)]),
+                               device=dev) for t in range(steps)]
+    for r in range(4):
+        enc = ts.BatchedEncoder(n, cfg, dev, kf_offsets=offsets)
+        dec = ts.BatchedDecoder(n, cfg, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = list(ts.serve_pipelined(enc, batches, dec))
+        dec.validate()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not all(torch.equal(back, f) for (_, back), f in zip(got, batches)):
+            raise AssertionError("serving session not lossless")
+        if r:
+            out[f"session {r}, stream-frames/s"] = n * steps / dt
+
+
 def forward_only_copy(parent: str) -> str:
     """A copy of the parent whose K1 returns before its pack."""
     dst = parent.rstrip("/") + "_k1_forward_only"
@@ -182,10 +253,12 @@ def forward_only_copy(parent: str) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="checkout of the commit to compare with")
+    ap.add_argument("--kernels", default="k1,k3,k4", help="groups to run, comma-separated")
     ap.add_argument("--measure", help="(internal) measure this checkout, print one JSON line")
     args = ap.parse_args()
+    kernels = args.kernels.split(",")
     if args.measure:
-        print(json.dumps(measure(args.measure)))
+        print(json.dumps(measure(args.measure, kernels)))
         return 0
     if not args.parent:
         ap.error("--parent is required")
@@ -193,22 +266,22 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     parent = os.path.abspath(args.parent)
     runs = [("parent", parent), ("change", ROOT), ("change", ROOT), ("parent", parent)]
-    fwd = forward_only_copy(parent)
+    fwd = forward_only_copy(parent) if "k1" in kernels else ""
     if fwd:
         runs.append(("parent, K1 forward phase only", fwd))
     results = []
     for tag, root in runs:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", root],
-                              capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", root,
+                               "--kernels", args.kernels], capture_output=True, text=True)
         if proc.returncode != 0:
             sys.stderr.write(proc.stdout + proc.stderr)
             return 1
         res = json.loads(proc.stdout.strip().splitlines()[-1])
         results.append((tag, res))
         print(json.dumps({"run": tag, "card": smi, **res}), flush=True)
-    print(f"\nms (us where the name says so) on {smi}; columns: "
+    print(f"\nms (us or stream-frames/s where the name says so) on {smi}; columns: "
           + " | ".join(tag for tag, _ in results))
-    for group in ("k1", "k1_probe", "k3"):
+    for group in ("k1", "k1_probe", "k3", "k4", "serving"):
         names = []
         for _, res in results:
             names += [nm for nm in res[group] if nm not in names]
