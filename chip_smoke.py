@@ -39,7 +39,20 @@ Phases, each printed with its seconds:
      and the pinned procedural_serving_kfixed golden must reproduce;
   7. damaged streams: one-byte corruptions and truncations of a 48x64
      stream decode on the card to the CPU port's verdicts, and a clean
-     stream decodes after them in the same process.
+     stream decodes after them in the same process;
+  8. the session API (Encoder / Decoder) at 1080p, counted from a reset:
+     the 64 frames as RGB32 with a seeded alpha, encoded from host frames
+     and from device frames (equal bytes; every keyframe starts with the
+     RGB32 format prefix, and without it all 64 frames equal the pinned
+     native digests), decoded by a default (RGB24) Decoder that configures
+     itself to RGB32 (lossless, alpha 255); then as RGB16 565 frames (each
+     channel cut to its mask), device and host frames again, whose bytes
+     must equal TorchEncoder's over the port's numpy rgb16_to_rgb24 (with
+     the prefix on keyframes), decoded back to the uint16 frames. Every
+     single-stream kernel must appear in the phase's launch counts; its
+     Mpix/s print beside phase 4's RGB24 session, then (not counted) the
+     host numpy and the card's torch conversions over the 64 frames and an
+     RGB24 API session with host frames in and out.
 K4 in phase 3 and 5 also reports its time a row and the whole
 reconstruct_i (expand, pad, kernel).
 The kernels' JSON summary gives each kernel's launches on its main path,
@@ -565,6 +578,132 @@ def damaged_streams(t0, dev, smi):
     phase("damaged streams", t0)
 
 
+def session_api(t0, dev, smi, frames, cfg, pinned, rgb24_rates):
+    """Phase 8: the session API on the main path's 64 1080p frames as RGB32
+    and as RGB16 565, host and device frames. rgb24_rates: phase 4's
+    (encode, decode) Mpix/s per session."""
+    import torch
+
+    from screenpressor_tpu_torch import (
+        Decoder, Encoder, FormatParams, PixelFormat, TorchEncoder, _build)
+    from screenpressor_tpu_torch import bitstream as bs
+    from screenpressor_tpu_torch import colorspace as cs
+
+    masks = (0xF800, 0x07E0, 0x001F)
+    rng = np.random.default_rng(8)
+    f32 = [np.dstack([f, rng.integers(0, 256, f.shape[:2], dtype=np.uint8)]) for f in frames]
+    f16 = [cs.rgb24_to_rgb16(f >> np.array([3, 2, 3], np.uint8), *masks) for f in frames]
+    fmt32 = FormatParams(pixel_format=PixelFormat.RGB32)
+    fmt16 = FormatParams(PixelFormat.RGB16, *masks)
+    d32 = [torch.as_tensor(f, device=dev) for f in f32]
+    d16 = [torch.as_tensor(f, device=dev) for f in f16]
+
+    def timed(fn, arg):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = fn(arg)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - ts
+
+    # ---- 8. the session API, counted from a reset ----
+    encs = [Encoder(cfg, fmt, dev) for fmt in (fmt32, fmt32, fmt16, fmt16)]
+    dec32, dec16 = Decoder(cfg, device=dev), Decoder(cfg, device=dev)
+    _build.reset_counts()
+    p32h, te32h = timed(encs[0].encode_batch, f32)
+    p32d, te32d = timed(encs[1].encode_batch, d32)
+    out32, td32 = timed(dec32.decode_batch, [p for p, _ in p32h])
+    p16d, te16d = timed(encs[2].encode_batch, d16)
+    p16h, te16h = timed(encs[3].encode_batch, f16)
+    out16, td16 = timed(dec16.decode_batch, [p for p, _ in p16d])
+    launches = dict(_build.LAUNCHES)
+    print(f"session API launches: {launches}")
+    single = ("sptc_sections_encode", "sptc_sections_encode_colw", "sptc_sections_decode",
+              "sptc_run_walk", "sptc_recon_rows")
+    missing = [k for k in single if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the session API: {missing}")
+    phase("session API", t0)
+
+    if p32d != p32h:
+        raise AssertionError("RGB32: device-frame bytes differ from host-frame bytes")
+    pre32 = bs.pack_format_prefix(32)
+    for i, ((p, ft), want) in enumerate(zip(p32h, pinned["frames"], strict=True)):
+        if ft == 0:
+            if not p.startswith(pre32):
+                raise AssertionError(f"RGB32 keyframe {i} lacks the format prefix")
+            p = p[len(pre32):]
+        got = {"size": len(p), "ftype": ft, "sha256": hashlib.sha256(p).hexdigest()}
+        if got != want:
+            raise AssertionError(f"RGB32 frame {i}: bytes without the prefix {got} != "
+                                 f"native {want}")
+    if dec32.fmt != fmt32:
+        raise AssertionError(f"the default Decoder did not configure itself: {dec32.fmt}")
+    for i, (o, f) in enumerate(zip(out32, frames, strict=True)):
+        if o.shape != (H, W, 4) or not np.array_equal(o[..., :3], f) or (o[..., 3] != 255).any():
+            raise AssertionError(f"RGB32 frame {i}: decode not lossless with alpha 255")
+    print(f"RGB32: host and device frames equal; keyframes carry the prefix; without it "
+          f"{len(p32h)} of {len(frames)} frames equal the pinned native digests; a default "
+          f"Decoder configured itself to RGB32 and decoded losslessly, alpha 255")
+
+    if p16d != p16h:
+        raise AssertionError("RGB16: device-frame bytes differ from host-frame bytes")
+    i16 = [cs.rgb16_to_rgb24(f, *masks) for f in f16]
+    plain = TorchEncoder(cfg, dev).encode_batch(i16)
+    pre16 = bs.pack_format_prefix(16, *masks)
+    if p16h != [(pre16 + p if ft == 0 else p, ft) for p, ft in plain]:
+        raise AssertionError("RGB16: bytes differ from TorchEncoder over rgb16_to_rgb24")
+    if dec16.fmt != fmt16:
+        raise AssertionError(f"the default Decoder did not configure itself: {dec16.fmt}")
+    for i, (o, f) in enumerate(zip(out16, f16, strict=True)):
+        if o.dtype != np.uint16 or not np.array_equal(o, f):
+            raise AssertionError(f"RGB16 frame {i}: decode is not the uint16 frame")
+    print("RGB16 565: device frames, host frames and TorchEncoder over rgb16_to_rgb24 "
+          "equal; decoded back to the uint16 frames")
+    phase("session API byte checks", t0)
+
+    mpix = H * W * len(frames) / 1e6
+    for tag, te_h, te_d, td_ in (("RGB32", te32h, te32d, td32), ("RGB16 565", te16h, te16d, td16)):
+        print(f"session API {tag}: encode host frames {mpix / te_h:.3f} Mpix/s ({te_h:.3f} s), "
+              f"device frames {mpix / te_d:.3f} Mpix/s ({te_d:.3f} s), decode "
+              f"{mpix / td_:.3f} Mpix/s ({td_:.3f} s) for {len(frames)} frames at {W}x{H} "
+              f"on {smi}")
+    print("beside phase 4's RGB24 session: " + "; ".join(
+        f"encode {e:.3f}, decode {d:.3f} Mpix/s" for e, d in rgb24_rates) + f" on {smi}")
+
+    # where the API's time goes beside phase 4 (after the counted run)
+    conv = []
+    for tag, fn, src in (("rgb32_to_rgb24", cs.rgb32_to_rgb24, f32),
+                         ("rgb24_to_rgb32", cs.rgb24_to_rgb32, frames),
+                         ("rgb16_to_rgb24", lambda f: cs.rgb16_to_rgb24(f, *masks), f16),
+                         ("rgb24_to_rgb16", lambda f: cs.rgb24_to_rgb16(f, *masks), i16)):
+        ts = time.perf_counter()
+        for f in src:
+            fn(f)
+        conv.append(f"{tag} {time.perf_counter() - ts:.3f} s")
+    print(f"host numpy conversions over {len(frames)} frames: {', '.join(conv)}")
+    d24 = [torch.as_tensor(f, device=dev) for f in frames]
+    di16 = [torch.as_tensor(f, device=dev) for f in i16]
+    conv = []
+    for tag, fn, src in (
+            ("rgb32_to_rgb24 (with the session's contiguous copy)",
+             lambda f: cs.rgb32_to_rgb24_device(f).contiguous(), d32),
+            ("rgb24_to_rgb32", cs.rgb24_to_rgb32_device, d24),
+            ("rgb16_to_rgb24", lambda f: cs.rgb16_to_rgb24_device(f, *masks), d16),
+            ("rgb24_to_rgb16", lambda f: cs.rgb24_to_rgb16_device(f, *masks), di16)):
+        ms, _ = cuda_ms(lambda fn=fn, src=src: [fn(f) for f in src], 3)
+        conv.append(f"{tag} {ms:.3f} ms")
+    print(f"torch conversions on the card over {len(frames)} frames (CUDA events, mean of 3): "
+          f"{', '.join(conv)} on {smi}")
+    enc24, dec24 = Encoder(cfg, device=dev), Decoder(cfg, device=dev)
+    p24, te24 = timed(enc24.encode_batch, frames)
+    _, td24 = timed(dec24.decode_batch, [p for p, _ in p24])
+    _, td24d = timed(lambda d: Decoder(cfg, device=dev).decode_batch(d, device_out=True),
+                     [p for p, _ in p24])
+    print(f"session API RGB24: encode host frames {mpix / te24:.3f} Mpix/s ({te24:.3f} s), "
+          f"decode to host frames {mpix / td24:.3f} Mpix/s ({td24:.3f} s), to device frames "
+          f"{mpix / td24d:.3f} Mpix/s ({td24d:.3f} s) on {smi}")
+
+
 def main() -> int:
     import torch
 
@@ -835,6 +974,7 @@ def main() -> int:
     phase("native comparison", t0)
 
     mpix = H * W * len(frames) / 1e6
+    rgb24_rates = [(mpix / te_, mpix / td_) for te_, td_ in ((t_enc0, t_dec0), (t_enc, t_dec))]
     for tag, te_, td_ in (("first session", t_enc0, t_dec0),
                           ("second session", t_enc, t_dec)):
         print(f"{tag}: encode {mpix / te_:.3f} Mpix/s ({te_:.3f} s), decode "
@@ -845,6 +985,7 @@ def main() -> int:
     serving_kernels_vs_plain(t0, dev, smi, record, s_cfg, s_offsets, s_host, s_batches)
     serve = serving_main_path(t0, dev, smi, s_cfg, s_offsets, s_host, s_batches)
     damaged_streams(t0, dev, smi)
+    session_api(t0, dev, smi, frames, cfg, pinned, rgb24_rates)
 
     sections = "screenpressor_tpu_torch/csrc/sections.cu"
     walk = "screenpressor_tpu_torch/csrc/run_walk.cu"

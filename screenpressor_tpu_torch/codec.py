@@ -9,7 +9,8 @@ record counts (B), the section sizes (C) and one gather of every payload
 byte of the batch (D); the host then assembles the containers (E).
 `decode_batch` copies the stream-consistency flags of a batch back once.
 
-The device is explicit: every tensor of a session lives on `device`.
+Every tensor of a session lives on `device`: "cuda" unless the caller asks
+for the CPU.
 """
 
 from __future__ import annotations
@@ -68,9 +69,11 @@ def _pull(tensors):
 def owned_frames(frames, device) -> torch.Tensor:
     """Frames (numpy or tensor) as uint8 on `device`, in storage of their
     own: a session keeps the last ones as `prev`, which must not change when
-    the caller refills its capture buffer. One copy."""
+    the caller refills its capture buffer. One copy, contiguous (the kernels
+    take raw pointers; an RGB32 frame's RGB view is strided)."""
     if isinstance(frames, torch.Tensor):
-        return frames.to(device, torch.uint8, copy=True)
+        return frames.to(device, torch.uint8, copy=True,
+                         memory_format=torch.contiguous_format)
     return torch.tensor(np.ascontiguousarray(frames, np.uint8), device=device)
 
 
@@ -96,7 +99,7 @@ def gather_segments(parts, segs):
 
 
 class TorchEncoder:
-    def __init__(self, cfg: CodecConfig, device):
+    def __init__(self, cfg: CodecConfig, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         self.tables = renew_tables_cached(self.device)
@@ -271,7 +274,7 @@ class TorchEncoder:
 
 
 class TorchDecoder:
-    def __init__(self, cfg: CodecConfig, device):
+    def __init__(self, cfg: CodecConfig, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         self.tables = renew_tables_cached(self.device)

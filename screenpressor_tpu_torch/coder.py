@@ -112,6 +112,15 @@ def _exclusive_cum(freq_rows):
     return torch.cumsum(freq_rows, dim=1, dtype=I32) - freq_rows
 
 
+def _own_tables(tables: dict, kinds) -> dict:
+    """The table set with copies of `kinds`, which a scan then updates in
+    place (the caller's tables are never written)."""
+    out = dict(tables)
+    for kd in set(kinds):
+        out[kd] = {key: v.clone() for key, v in tables[kd].items()}
+    return out
+
+
 def model_scan(recs: torch.Tensor, lens: torch.Tensor, tables: dict,
                codec_name: str):
     """Forward modeling pass: records [T, K, W] -> (cum, freq, act)
@@ -119,7 +128,7 @@ def model_scan(recs: torch.Tensor, lens: torch.Tensor, tables: dict,
     codec = CODECS[codec_name]
     t_steps, k, _ = recs.shape
     state = codec.init_state(torch.zeros(k, dtype=I32, device=recs.device))
-    tables = dict(tables)
+    tables = _own_tables(tables, codec.kinds)
     cums, freqs, acts = [], [], []
     for t in range(t_steps):
         rec_l = [recs[t, :, j] for j in range(codec.rec_width)]
@@ -137,7 +146,7 @@ def model_scan(recs: torch.Tensor, lens: torch.Tensor, tables: dict,
             freqs.append(freq_rows.gather(1, sidx)[:, 0])
             acts.append(active)
             tables[kind] = update_batch(tab, row, symc, active,
-                                        kind_step(kind), kind_gstep(kind))
+                                        kind_step(kind), kind_gstep(kind), inplace=True)
         state = codec.enc_next_state(rec_l, state, lane_active)
     s = len(codec.kinds)
 
@@ -196,7 +205,7 @@ def decode_section_scan(payload: torch.Tensor, lens: torch.Tensor,
     x = p[:, 0] | (p[:, 1] << 8) | (p[:, 2] << 16) | (p[:, 3] << 24)
     pos = torch.full((k,), 4, dtype=torch.int64, device=dev)
     state = codec.init_state(torch.zeros(k, dtype=I32, device=dev))
-    tables = dict(tables)
+    tables = _own_tables(tables, codec.kinds)
     out = []
     for t in range(t_steps):
         lane_active = t < lens
@@ -223,7 +232,7 @@ def decode_section_scan(payload: torch.Tensor, lens: torch.Tensor,
             sym = torch.where(active, sym, 0)
             partial.append(sym)
             tables[kind] = update_batch(tab, row, sym, active,
-                                        kind_step(kind), kind_gstep(kind))
+                                        kind_step(kind), kind_gstep(kind), inplace=True)
         rec_l, state = codec.dec_finish(partial, state, lane_active)
         out.append(torch.stack(rec_l, dim=1))
     return torch.stack(out).to(I32), tables

@@ -120,7 +120,8 @@ class BatchedEncoder:
     """Encode S streams in lockstep (staggered keyframes, flat / no-change /
     raw shortcuts per stream) with device-resident per-stream state."""
 
-    def __init__(self, n_streams: int, cfg: CodecConfig, device, kf_offsets=None):
+    def __init__(self, n_streams: int, cfg: CodecConfig, device="cuda",
+                 kf_offsets=None):
         """kf_offsets: optional [S] ints staggering the keyframe phase:
         stream i keyframes when (fn + kf_offsets[i]) % kf_interval == 0."""
         self.cfg = _k_fixed(cfg)
@@ -385,7 +386,7 @@ class BatchedDecoder:
     coded I streams share one K2 launch per section group and one K4
     launch, the coded P streams one K2 launch per section group."""
 
-    def __init__(self, n_streams: int, cfg: CodecConfig, device):
+    def __init__(self, n_streams: int, cfg: CodecConfig, device="cuda"):
         self.cfg = _k_fixed(cfg)
         self.s = n_streams
         self.device = torch.device(device)

@@ -97,18 +97,20 @@ def effective_rows(tab: dict, rows: torch.Tensor) -> torch.Tensor:
 
 def update_batch(tab: dict, rows: torch.Tensor, syms: torch.Tensor,
                  active: torch.Tensor, step: int = STEP,
-                 gstep: int = 0) -> dict:
+                 gstep: int = 0, inplace: bool = False) -> dict:
     """One sub-step's batched update of one table kind: every active lane
     adds `step`, then each touched row rescales once from its post-add
     counts. Inactive lanes are parked on row 0 with add 0; the rescale
     predicate is per row, so duplicate writers of a row write identical
-    values."""
+    values. inplace writes `tab`'s count tensors (a section scan's own
+    copies) instead of copying a whole table each substep."""
     alphabet = tab["cnt"].shape[1]
     rows = torch.where(active, rows, 0).long()
     syms = torch.where(active, syms, 0).long()
     add = active.to(I32) * step
-    cnt = tab["cnt"].index_put((rows, syms), add, accumulate=True)
-    cntsum = tab["cntsum"].index_put((rows,), add, accumulate=True)
+    put = torch.Tensor.index_put_ if inplace else torch.Tensor.index_put
+    cnt = put(tab["cnt"], (rows, syms), add, accumulate=True)
+    cntsum = put(tab["cntsum"], (rows,), add, accumulate=True)
 
     c = cnt[rows]
     s = cntsum[rows]
@@ -116,9 +118,8 @@ def update_batch(tab: dict, rows: torch.Tensor, syms: torch.Tensor,
     target = PROB_SCALE - step - alphabet
     sc = (target << RESCALE_SHIFT) // s.clamp_min(1)
     new_cnt = ((c * sc[:, None]) >> RESCALE_SHIFT).clamp_min(1)
-    cnt = cnt.index_put((rows,), torch.where(need[:, None], new_cnt, c))
-    cntsum = cntsum.index_put(
-        (rows,), torch.where(need, new_cnt.sum(dim=1, dtype=I32), s))
+    cnt = put(cnt, (rows,), torch.where(need[:, None], new_cnt, c))
+    cntsum = put(cntsum, (rows,), torch.where(need, new_cnt.sum(dim=1, dtype=I32), s))
     out = {"cnt": cnt, "cntsum": cntsum}
     if "gcnt" in tab:
         gadd = active.to(I32) * gstep

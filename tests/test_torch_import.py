@@ -11,9 +11,9 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-MODULES = ("_build", "bitstream", "blocks", "classify", "codec", "coder", "config",
-           "convert", "iframe", "kernels", "parallel.serving", "pframe", "recon",
-           "substeps", "synth", "tables")
+MODULES = ("_build", "api", "bitstream", "blocks", "classify", "codec", "coder",
+           "colorspace", "config", "convert", "iframe", "kernels", "parallel.serving",
+           "pframe", "recon", "substeps", "synth", "tables")
 
 # files that run on the card, where neither JAX nor the reference is imported
 PORT_FILES = sorted(

@@ -634,3 +634,78 @@ def test_k3_jump_walk_cases(cuda, case, tile):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["sptc_run_walk"] == 1
     assert torch.equal(got, tcl.run_walk_plain(bits, st, tile))
+
+
+# masks of the session API's RGB16 cases: 565, 555, 444, and two wider
+# than a byte or overlapping (the uint8 and uint16 wraps)
+COLOR_MASKS = [(0xF800, 0x07E0, 0x001F), (0x7C00, 0x03E0, 0x001F), (0x0F00, 0x00F0, 0x000F),
+               (0xFF80, 0x0070, 0x000F), (0xFFFF, 0x0FF0, 0x0001)]
+
+
+@pytest.mark.parametrize("masks", COLOR_MASKS)
+def test_rgb16_conversions_on_card_equal_numpy(cuda, masks):
+    """The torch RGB16 conversions on CUDA tensors (uint16 widened through
+    an int16 view, narrowed in range) equal the port's numpy ones."""
+    from screenpressor_tpu_torch import colorspace as cs
+
+    rng = np.random.default_rng(masks[0])
+    f16 = rng.integers(0, 1 << 16, (270, 481), dtype=np.uint16)
+    f24 = rng.integers(0, 256, (270, 481, 3), dtype=np.uint8)
+    got24 = cs.rgb16_to_rgb24_any(torch.as_tensor(f16, device=cuda), *masks)
+    got16 = cs.rgb24_to_rgb16_any(torch.as_tensor(f24, device=cuda), *masks)
+    assert got24.device.type == "cuda" and got16.device.type == "cuda"
+    assert got24.dtype == torch.uint8 and got16.dtype == torch.uint16
+    np.testing.assert_array_equal(got24.cpu().numpy(), cs.rgb16_to_rgb24(f16, *masks))
+    np.testing.assert_array_equal(got16.cpu().numpy(), cs.rgb24_to_rgb16(f24, *masks))
+
+
+def test_rgb32_conversions_on_card_equal_numpy(cuda):
+    from screenpressor_tpu_torch import colorspace as cs
+
+    rng = np.random.default_rng(32)
+    f32 = rng.integers(0, 256, (270, 481, 4), dtype=np.uint8)
+    f24 = rng.integers(0, 256, (270, 481, 3), dtype=np.uint8)
+    got24 = cs.rgb32_to_rgb24_any(torch.as_tensor(f32, device=cuda))
+    got32 = cs.rgb24_to_rgb32_any(torch.as_tensor(f24, device=cuda))
+    assert got24.device.type == "cuda" and got32.device.type == "cuda"
+    np.testing.assert_array_equal(got24.cpu().numpy(), cs.rgb32_to_rgb24(f32))
+    np.testing.assert_array_equal(got32.cpu().numpy(), cs.rgb24_to_rgb32(f24))
+
+
+@pytest.mark.parametrize("fmt", ["rgb32", "rgb16_565", "rgb16_555"])
+def test_device_frame_session_equals_host_frame_session(cuda, fmt):
+    """An Encoder session fed CUDA frames (converted on the card; RGB32's
+    strided RGB view made contiguous by the session's copy) writes the
+    bytes of one fed the same frames from the host, and a default Decoder
+    configures itself from the stream and gives the frames back."""
+    from screenpressor_tpu_torch import Decoder, Encoder, FormatParams, PixelFormat
+    from screenpressor_tpu_torch import colorspace as cs
+    from screenpressor_tpu_torch.synth import synth_screencast
+
+    h, w = 96, 160
+    frames24 = synth_screencast(h, w, 6)
+    rng = np.random.default_rng(7)
+    if fmt == "rgb32":
+        params = FormatParams(pixel_format=PixelFormat.RGB32)
+        frames = [np.dstack([f, rng.integers(0, 256, (h, w), dtype=np.uint8)])
+                  for f in frames24]
+    else:
+        masks = (0xF800, 0x07E0, 0x001F) if fmt == "rgb16_565" else (0x7C00, 0x03E0, 0x001F)
+        params = FormatParams(PixelFormat.RGB16, *masks)
+        cut = np.array([3, 2, 3] if fmt == "rgb16_565" else [3, 3, 3], np.uint8)
+        frames = [cs.rgb24_to_rgb16(f >> cut, *masks) for f in frames24]
+    cfg = CodecConfig(width=w, height=h)
+    host = Encoder(cfg, params).encode_batch(frames)
+    dev = Encoder(cfg, params).encode_batch([torch.as_tensor(f, device=cuda) for f in frames])
+    assert dev == host
+    one = Encoder(cfg, params)
+    assert [one.encode(torch.as_tensor(f, device=cuda)) for f in frames] == host
+    dec = Decoder(cfg)
+    out = dec.decode_batch([p for p, _ in host])
+    assert dec.fmt == params
+    for o, f in zip(out, frames, strict=True):
+        if fmt == "rgb32":
+            np.testing.assert_array_equal(o[..., :3], f[..., :3])
+            assert (o[..., 3] == 255).all()
+        else:
+            np.testing.assert_array_equal(o, f)
