@@ -37,9 +37,18 @@ Phases, each printed with its seconds:
      second counted: every serving kernel must appear, decode must be
      lossless, each stream's bytes must equal its own TorchEncoder session,
      and the pinned procedural_serving_kfixed golden must reproduce;
+  6b. the serving P rebuild: on the inputs BatchedDecoder hands
+     pframe.rebuild_p_streams on the scroll and the typing step (one call
+     over every coded P stream), that call against pframe.rebuild_p stream
+     by stream, both timed by CUDA events and by the synchronised host
+     clock; frames and error words must be equal;
   7. damaged streams: one-byte corruptions and truncations of a 48x64
      stream decode on the card to the CPU port's verdicts, and a clean
-     stream decodes after them in the same process;
+     stream decodes after them in the same process; then the serving
+     fixture of tests/test_torch_serving_decode.py: one damaged stream of 4
+     in a BatchedDecoder step, whose verdict (the error's message) must be
+     the CPU port's and whose clean streams' frames must equal their clean
+     decode;
   8. the session API (Encoder / Decoder) at 1080p, counted from a reset:
      the 64 frames as RGB32 with a seeded alpha, encoded from host frames
      and from device frames (equal bytes; every keyframe starts with the
@@ -540,6 +549,76 @@ def serving_main_path(t0, dev, smi, cfg, offsets, host, batches):
     return launches
 
 
+def host_ms(fn, reps):
+    """Mean milliseconds per call of fn on the host clock, synchronised
+    with the card before and after, and its result."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - start) / reps, out
+
+
+def serving_rebuild(t0, dev, smi, cfg, offsets, batches):
+    """Phase 6b: the stream-batched P rebuild (pframe.rebuild_p_streams,
+    one call a step) against pframe.rebuild_p stream by stream, on the
+    inputs BatchedDecoder hands it on the serving session's scroll and
+    typing steps; both must be equal."""
+    import torch
+
+    from screenpressor_tpu_torch import pframe as tp
+    from screenpressor_tpu_torch.parallel import serving as ts
+    sys.path.insert(0, os.path.join(ROOT, "tests"))  # a `tests` package elsewhere
+    from torch_support import rebuild_p_loop  # would shadow ROOT/tests
+
+    enc = ts.BatchedEncoder(S_STREAMS, cfg, dev, kf_offsets=offsets)
+    steps = [[p for p, _ in enc.encode(batches[t])] for t in range(3)]
+    del enc
+    captured = []
+    real = ts.rebuild_p_streams
+
+    def capture(recs, lay, prev, cfg_):
+        captured.append(({name: r.clone() for name, r in recs.items()},
+                         lay.hdr.cpu().numpy(), prev.clone()))
+        return real(recs, lay, prev, cfg_)
+
+    dec = ts.BatchedDecoder(S_STREAMS, cfg, dev)
+    ts.rebuild_p_streams = capture
+    try:
+        for step in steps:
+            dec.decode(step)
+    finally:
+        ts.rebuild_p_streams = real
+    del dec
+    if len(captured) != 2:
+        raise AssertionError(f"expected one stream-batched rebuild on each P step, got "
+                             f"{len(captured)}")
+    for (recs, rows, prev), label in zip(captured, ("scroll", "typing")):
+        def batched():
+            return tp.rebuild_p_streams(recs, tp.step_layout(rows, dev), prev, cfg)
+
+        ms, (frames, err) = cuda_ms(batched, TIMED_REPS)
+        hms, _ = host_ms(batched, TIMED_REPS)
+        loop_ms, (frames_l, err_l) = cuda_ms(lambda: rebuild_p_loop(recs, rows, prev, cfg), 2)
+        loop_hms, _ = host_ms(lambda: rebuild_p_loop(recs, rows, prev, cfg), 2)
+        if not (torch.equal(frames, frames_l) and torch.equal(err, err_l)):
+            raise AssertionError(f"P rebuild, {label} step: stream-batched and per-stream "
+                                 "results differ")
+        if bool(err.any()):
+            raise AssertionError(f"P rebuild, {label} step: error word set on a clean step")
+        n_mv = int(np.maximum(rows[:, 2], 1).sum())
+        n_blk = int(np.maximum(rows[:, 7], 1).sum())
+        print(f"P rebuild, {label} step: {len(rows)} coded P streams, {n_mv} motion and "
+              f"{n_blk} data-block slots: stream-batched {ms:.3f} ms (CUDA events), "
+              f"{hms:.3f} ms (host, synchronised); per-stream loop {loop_ms:.3f} ms, "
+              f"{loop_hms:.3f} ms; frames and error words equal, on {smi}")
+    del captured
+    phase("serving P rebuild", t0)
+
+
 def damaged_streams(t0, dev, smi):
     """Phase 7: the damaged payloads of tests/test_torch_corrupt.py decoded
     on the card and on the CPU; the verdicts must agree, nothing but
@@ -549,8 +628,9 @@ def damaged_streams(t0, dev, smi):
 
     from screenpressor_tpu_torch import TorchDecoder
     from screenpressor_tpu_torch import bitstream as bs
+    from screenpressor_tpu_torch.parallel import serving as ts
     sys.path.insert(0, os.path.join(ROOT, "tests"))  # a `tests` package elsewhere
-    from torch_support import corrupt_payloads  # would shadow ROOT/tests
+    from torch_support import corrupt_payloads, damaged_serving_steps  # would shadow ROOT/tests
 
     cfg, frames, payloads, damaged = corrupt_payloads()
 
@@ -575,6 +655,51 @@ def damaged_streams(t0, dev, smi):
     print(f"damaged streams: {len(damaged)} payloads, {n_bad} raised CorruptStreamError on the "
           f"card as on the CPU, the rest decoded equal; a clean stream then decoded losslessly "
           f"on {smi}")
+
+    # one damaged stream among clean ones in a BatchedDecoder step
+    cfg, steps, _, cases = damaged_serving_steps(dev)
+    bad = 1
+
+    def step_verdict(device, i, data):
+        """(verdict or message, the step's frames) of step i with stream
+        bad's payload replaced by data, after the clean steps before it."""
+        dec = ts.BatchedDecoder(len(steps[0]), cfg, device)
+        for step in steps[:i]:
+            dec.decode(step)
+        payloads = list(steps[i])
+        payloads[bad] = data
+        try:
+            out = dec.decode(payloads, device_out=True)
+        except bs.CorruptStreamError as e:
+            return str(e), None
+        try:
+            dec.validate()
+        except bs.CorruptStreamError as e:
+            return str(e), out.cpu().numpy()
+        return "ok", out.cpu().numpy()
+
+    clean = {}
+    n_err_word = 0
+    for c, (i, data) in enumerate(cases):
+        if i not in clean:
+            clean[i] = step_verdict(dev, i, steps[i][bad])[1]
+        (got, frames), (want, ref) = step_verdict(dev, i, data), step_verdict("cpu", i, data)
+        if got != want:
+            raise AssertionError(f"serving damaged case {c}: card {got!r}, CPU {want!r}")
+        if frames is not None:
+            others = [j for j in range(len(steps[0])) if j != bad]
+            if not np.array_equal(frames[others], clean[i][others]):
+                raise AssertionError(f"serving damaged case {c}: a clean stream's frame "
+                                     "changed beside the damaged stream")
+            if got == "ok" and not np.array_equal(frames, ref):
+                raise AssertionError(f"serving damaged case {c}: card frames differ from CPU")
+            n_err_word += got != "ok"
+    torch.cuda.synchronize()
+    if not n_err_word:
+        raise AssertionError("no serving damaged case reached the device error word")
+    print(f"damaged stream among clean streams: {len(cases)} payloads in stream {bad} of "
+          f"{len(steps[0])}, each step's verdict equal to the CPU port's ({n_err_word} through "
+          f"the device error word), the clean streams' frames equal their clean decode, on {smi}")
     phase("damaged streams", t0)
 
 
@@ -984,6 +1109,7 @@ def main() -> int:
     s_cfg, s_offsets, s_host, s_batches = serving_batches(dev, synth_screencast)
     serving_kernels_vs_plain(t0, dev, smi, record, s_cfg, s_offsets, s_host, s_batches)
     serve = serving_main_path(t0, dev, smi, s_cfg, s_offsets, s_host, s_batches)
+    serving_rebuild(t0, dev, smi, s_cfg, s_offsets, s_batches)
     damaged_streams(t0, dev, smi)
     session_api(t0, dev, smi, frames, cfg, pinned, rgb24_rates)
 

@@ -345,10 +345,10 @@ class TorchDecoder:
             if parsed is None:
                 outs[i] = prev
                 continue
-            payloads, ns, kts, (xx1, xx2, n_mv, n_data) = parsed
+            payloads, ns, kts, (xx1, xx2, _n_mv, n_data) = parsed
             frame, err, tables = decode_p_device(
                 payloads_to_device(payloads, dev), ns, kts, xx1, xx2, n_data,
-                n_mv, prev, tables, cfg)
+                prev, tables, cfg)
             checks.append((i, err))
             prev = frame
             outs[i] = frame

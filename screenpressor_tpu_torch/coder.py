@@ -88,19 +88,37 @@ def deal(records_cap: torch.Tensor, n: int, k: int, t: int) -> torch.Tensor:
     return torch.where(valid[..., None], rows, 0).to(I32)
 
 
+def lane_lens_streams(n: torch.Tensor, k: int) -> torch.Tensor:
+    """Record counts n [C] (a tensor) -> lane lengths [C, k] int32."""
+    n = n.long()[:, None]
+    return (n // k + (torch.arange(k, device=n.device) < n % k)).to(I32)
+
+
 def undeal(scan_out: torch.Tensor, n: int, k: int, cap: int) -> torch.Tensor:
     """[t, k, W] scan outputs -> [cap, W] in global record order (rows >= n
-    are zero)."""
-    t = scan_out.shape[0]
+    are zero): the one-stream case of undeal_streams."""
+    n_t = torch.full((1,), n, dtype=torch.int64, device=scan_out.device)
+    return undeal_streams(scan_out[None], n_t, k, cap)[0]
+
+
+def undeal_streams(scan_out: torch.Tensor, n: torch.Tensor, k: int,
+                   cap: int) -> torch.Tensor:
+    """Stream-batched [C, t, k, W] scan outputs and record counts n [C] (a
+    tensor) -> [C, cap, W] in global record order; the rows at or past a
+    stream's own n are zero."""
+    c, t = scan_out.shape[:2]
     dev = scan_out.device
-    base, rem = divmod(n, k)
-    g = torch.arange(cap, device=dev)
+    n = n.to(device=dev, dtype=torch.int64)[:, None]
+    base, rem = n // k, n % k
+    g = torch.arange(cap, device=dev)[None, :]
     cut = rem * (base + 1)
-    lane = torch.where(g < cut, g // max(base + 1, 1),
-                       rem + (g - cut) // max(base, 1))
-    step = torch.where(g < cut, g % max(base + 1, 1), (g - cut) % max(base, 1))
-    vals = scan_out[step.clamp(0, t - 1), lane.clamp(0, k - 1)]
-    return torch.where((g < n)[:, None], vals, 0)
+    head = g < cut
+    tail = (g - cut).clamp_min(0)
+    lane = torch.where(head, g // (base + 1), rem + tail // base.clamp_min(1))
+    step = torch.where(head, g % (base + 1), tail % base.clamp_min(1))
+    sid = torch.arange(c, device=dev)[:, None]
+    vals = scan_out[sid, step.clamp(0, t - 1), lane.clamp(0, k - 1)]
+    return torch.where((g < n)[..., None], vals, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,10 @@ device: the previous frames [S, H, W, 3] and one table set per stream
 section kernels update in place. Each section group of a step is one K1 or
 K2 launch over all the streams that code it (an index list of stream ids,
 not a skip mask); the keyframing streams share one K3 run walk and, on
-decode, one K4 launch. The per-stream analysis, classification, block
-resolution and rebuild are the single-stream plain tensor code, run in a
-loop over the streams that need them.
+decode, one K4 launch. On decode the coded P streams share one block
+resolution, motion apply and block rebuild (`pframe.rebuild_p_streams`);
+the P analysis and classification of encode are the single-stream plain
+tensor code, run in a loop over the streams that need them.
 
 Streams use a fixed lane count (`CodecConfig.k_fixed`, default
 min(k_max, 256)); the bitstreams are standard SPTC and decode with any
@@ -47,10 +48,12 @@ from screenpressor_tpu_torch.iframe import parse_i_header
 from screenpressor_tpu_torch.pframe import (
     SECTION_NAMES,
     classify_assemble,
+    header_row,
     parse_p_header,
     raise_p_error,
-    rebuild_p,
-    undeal_sections,
+    rebuild_p_streams,
+    step_layout,
+    undeal_sections_streams,
 )
 from screenpressor_tpu_torch.recon import reconstruct_i_streams
 from screenpressor_tpu_torch.tables import renew_rows, renew_tables_streams
@@ -384,7 +387,8 @@ class BatchedDecoder:
     """Decode S streams per call with device-resident per-stream state. A
     batch may mix flat, raw, no-change, coded I and coded P frames; the
     coded I streams share one K2 launch per section group and one K4
-    launch, the coded P streams one K2 launch per section group."""
+    launch, the coded P streams one K2 launch per section group and one
+    stream-batched rebuild."""
 
     def __init__(self, n_streams: int, cfg: CodecConfig, device="cuda"):
         self.cfg = _k_fixed(cfg)
@@ -461,19 +465,21 @@ class BatchedDecoder:
 
         coded_p = [i for i, x in p_parse.items() if x is not None]
         if coded_p:
+            rows = []
+            for i in coded_p:
+                _pl, ns, _kts, (xx1, xx2, _n_mv, n_data) = p_parse[i]
+                rows.append(header_row(ns, xx1, xx2, n_data))
+            lay = step_layout(rows, dev)
             pays, lens, kts = [], [], []
-            for name in SECTION_NAMES:
-                ns = [p_parse[i][1][name] for i in coded_p]
+            for j, name in enumerate(SECTION_NAMES):
                 pays.append(self._payloads([p_parse[i][0][name] for i in coded_p]))
-                lens.append(torch.stack([tc.lane_lens(n, k, dev) for n in ns]))
-                kts.append((name, k, max(tc.steps_for(n, k) for n in ns)))
+                lens.append(tc.lane_lens_streams(lay.hdr[:, j], k))
+                kts.append((name, k, tc.steps_for(lay.caps[j], k)))
             recs_l = tc.decode_sections_streams(pays, lens, self.tables_b, tuple(kts),
                                                 coded_p)
-            for j, i in enumerate(coded_p):
-                _pl, ns, _kts, (xx1, xx2, n_mv, n_data) = p_parse[i]
-                recs = undeal_sections([r[j] for r in recs_l], ns, kts)
-                frames[i], err[i] = rebuild_p(recs, ns, xx1, xx2, n_data, n_mv,
-                                              self.prev[i], cfg)
+            ids_t = torch.as_tensor(coded_p, device=dev)
+            frames[ids_t], err[ids_t] = rebuild_p_streams(
+                undeal_sections_streams(recs_l, lay, kts), lay, self.prev[ids_t], cfg)
         for i, val in override.items():
             frames[i] = torch.as_tensor(np.array(val), device=dev)
         self.prev = frames

@@ -8,10 +8,13 @@ block's sub-rect sequence is the same greedy walk as the I-frame's with one
 (`classify.run_walk`). The five sections go through the section coder
 (`coder.encode_sections` / `decode_sections`, kernels K1/K2 on the card).
 Block resolution, the motion apply (one gather) and the block rebuild are
-plain tensor ops.
+plain tensor ops over all the coded P streams of a step at once
+(`rebuild_p_streams`; one frame is its case of one stream).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -308,135 +311,245 @@ def undeal_sections(recs_l, ns: dict, kts) -> dict:
             for (name, k, _), r in zip(kts, recs_l)}
 
 
-def _to_slots(mask, idx, vals, cap):
-    """vals where mask -> [cap, ...] slots by idx. A corrupt bt section can
-    hold more blocks than the header's count (bit 4 or 8 is set): those go
-    to the sink slot."""
-    out = torch.zeros((cap + 1,) + vals.shape[1:], dtype=I32, device=vals.device)
-    out.index_put_((torch.where(mask & (idx < cap), idx, cap).long(),), vals.to(I32))
-    return out[:cap]
+# ---------------------------------------------------------------------------
+# Block resolution, motion apply and block rebuild over a step's P streams
+# ---------------------------------------------------------------------------
+#
+# The coded P streams s = 0..C-1 of a step go through one resolve, one
+# motion apply and one block rebuild; one stream is the case C = 1.
+# Per-stream arrays carry a leading stream axis. Motion and data blocks lie
+# on ragged axes (each stream's own slots, stream after stream, each slot
+# with its stream id), so one fully changed stream does not pad the others.
+# Stream s owns max(n_mv, 1) motion and max(n_data, 1) data-block slots, and
+# every index the resolve clamps is clamped to the stream's own range, so a
+# stream's pixels and error word do not depend on the other streams of its
+# step. Pixels are flattened with the offset s * h * w; whatever lies
+# outside a stream's own frame goes to the sink row C * h * w.
+
+HEADER_COLS = SECTION_NAMES + ("xx1", "xx2", "n_data")
+_ABOVE_ALL = 1 << 62  # a search key past every area prefix sum
 
 
-def decode_p_resolve(recs: dict, ns: dict, xx1: int, xx2: int, n_data: int,
-                     cfg: CodecConfig, mcap: int, bcap: int):
-    """BT-run expansion + per-block rect / record resolution of decoded
-    section records. Returns ((mo_rects, mo_mvs, d_rects, pt, rlg, lt),
-    err): stream-consistency violations set bits of `err` (device int32)
-    instead of raising."""
+class StepLayout(NamedTuple):
+    """The header values of a step's coded P streams on the device and the
+    ragged slot axes they imply."""
+
+    hdr: torch.Tensor    # [C, 8] int64, the columns HEADER_COLS
+    mcap: torch.Tensor   # [C] motion slots of each stream: max(n_mv, 1)
+    bcap: torch.Tensor   # [C] data-block slots: max(n_data, 1)
+    moff: torch.Tensor   # [C] each stream's first motion slot
+    boff: torch.Tensor   # [C] each stream's first data-block slot
+    msid: torch.Tensor   # [M] the stream of each motion slot
+    bsid: torch.Tensor   # [B] the stream of each data-block slot
+    caps: tuple          # per section: the step's largest count, at least 1
+    b_max: int           # the largest bcap
+
+
+def header_row(ns: dict, xx1: int, xx2: int, n_data: int) -> list:
+    """One stream's parsed P header as a row of HEADER_COLS."""
+    return [ns[name] for name in SECTION_NAMES] + [xx1, xx2, n_data]
+
+
+def step_layout(rows, device) -> StepLayout:
+    """rows: C header rows (header_row) -> StepLayout, in one upload."""
+    hdr = np.asarray(rows, np.int64).reshape(-1, len(HEADER_COLS))
+    c = hdr.shape[0]
+    mcap = np.maximum(hdr[:, SECTION_NAMES.index("mv")], 1)
+    bcap = np.maximum(hdr[:, HEADER_COLS.index("n_data")], 1)
+    sid = np.arange(c)
+    host = np.concatenate([hdr.reshape(-1), mcap, bcap, np.cumsum(mcap) - mcap,
+                           np.cumsum(bcap) - bcap, np.repeat(sid, mcap),
+                           np.repeat(sid, bcap)])
+    parts = torch.as_tensor(host, device=device).split(
+        [hdr.size, c, c, c, c, int(mcap.sum()), int(bcap.sum())])
+    caps = tuple(int(max(hdr[:, j].max(), 1)) for j in range(len(SECTION_NAMES)))
+    return StepLayout(parts[0].view(c, -1), *parts[1:], caps, int(bcap.max()))
+
+
+def undeal_sections_streams(recs_l, lay: StepLayout, kts) -> dict:
+    """The stream-batched K2 outputs ([C, t, k, W] a section) -> {name:
+    [C, cap, W]} in record order; the rows past a stream's count are zero."""
+    return {name: tc.undeal_streams(r, lay.hdr[:, j], k, cap)
+            for j, ((name, k, _), r, cap) in enumerate(zip(kts, recs_l, lay.caps))}
+
+
+def _to_slots(mask, idx, vals, cap, off, total):
+    """vals [C, N, ...] where mask -> slots off + idx of a [total, ...]
+    axis. A corrupt bt section can hold more blocks than the header's count
+    (bit 4 or 8 is set): those past the stream's own cap [C, 1] go to the
+    sink slot."""
+    out = torch.zeros((total + 1,) + vals.shape[2:], dtype=I32, device=vals.device)
+    out.index_put_((torch.where(mask & (idx < cap), off + idx, total),), vals.to(I32))
+    return out[:total]
+
+
+def _own_rows(rows, idx, n):
+    """rows [C, cap, W] at idx [C, N] clamped to each stream's own rows
+    (max(n, 1) of them; n [C, 1])."""
+    sid = torch.arange(rows.shape[0], device=rows.device)[:, None]
+    return rows[sid, torch.minimum(idx.long().clamp_min(0), n.clamp_min(1) - 1)]
+
+
+def decode_p_resolve_streams(recs: dict, lay: StepLayout, cfg: CodecConfig):
+    """BT-run expansion + per-block rect / record resolution of each
+    stream's decoded section records ({name: [C, cap, W]}). Returns
+    ((mo_rects [M, 4], mo_mvs [M, 2], d_rects [B, 4], pt [B, 256],
+    rlg [B, 256], lt [B, 256, 3]), err [C]): stream-consistency violations
+    set bits of a stream's error word (device int32) instead of raising."""
     h, w, nbx, nby = cfg.height, cfg.width, cfg.nbx, cfg.nby
-    dev = recs["bt"].device
+    hdr = lay.hdr
+    c = hdr.shape[0]
+    dev = hdr.device
+    hv = {name: hdr[:, j, None] for j, name in enumerate(HEADER_COLS)}  # [C, 1]
     bt, sxy, mv = recs["bt"], recs["sxy"], recs["mv"]
     pix, lit = recs["rec"], recs["col"]
     nb = nbx * nby
-    err = torch.zeros((), dtype=I32, device=dev)
+    sid = torch.arange(c, device=dev)[:, None]
+    err = torch.zeros(c, dtype=I32, device=dev)
 
     def flag(cond, bit):
         return err | torch.where(cond, bit, 0).to(I32)
 
     # --- expand BT runs over xx1..xx2 (relative scatter + cumsum) ---
-    capbt = bt.shape[0]
-    lenr = xx2 - xx1 + 1
-    nvals = bt[:, 1]
-    bstarts = torch.cumsum(nvals, dim=0) - nvals
-    marks = torch.zeros(nb + 1, dtype=I32, device=dev)
-    marks.index_put_((torch.where((nvals > 0) & (bstarts < nb), bstarts, nb).long(),),
-                     torch.ones_like(nvals), accumulate=True)
-    ridx = torch.cumsum(marks[:nb], dim=0) - 1
-    relpos = torch.arange(nb, device=dev)
+    lenr = hv["xx2"] - hv["xx1"] + 1
+    nvals = bt[..., 1].long()
+    bstarts = torch.cumsum(nvals, dim=1) - nvals
+    marks = torch.zeros((c, nb + 1), dtype=I32, device=dev)
+    marks.index_put_((sid.expand_as(nvals),
+                      torch.where((nvals > 0) & (bstarts < nb), bstarts, nb)),
+                     torch.ones_like(nvals, dtype=I32), accumulate=True)
+    ridx = torch.cumsum(marks[:, :nb], dim=1) - 1
+    relpos = torch.arange(nb, device=dev)[None, :]
     inr = (relpos < lenr) & (ridx >= 0)
-    bts_rel = torch.where(inr, bt[ridx.clamp(0, capbt - 1).long(), 0], 0)
-    err = flag(nvals.sum() != lenr, 1)
-    rel_of_abs = relpos - xx1
+    bts_rel = torch.where(inr, _own_rows(bt, ridx, hv["bt"])[..., 0], 0)
+    err = flag(nvals.sum(dim=1) != lenr[:, 0], 1)
+    rel_of_abs = relpos - hv["xx1"]
     bts = torch.where((rel_of_abs >= 0) & (rel_of_abs < lenr),
-                      bts_rel[rel_of_abs.clamp(0, nb - 1)], 0)
+                      bts_rel.gather(1, rel_of_abs.clamp(0, nb - 1)), 0)
 
     # --- per-block resolution ---
     is_partial = (bts == BT_PARTIAL_DATA) | (bts == BT_PARTIAL_MOTION)
     is_motion = (bts == BT_FULL_MOTION) | (bts == BT_PARTIAL_MOTION)
     is_data = (bts == BT_FULL_DATA) | (bts == BT_PARTIAL_DATA)
-    err = flag(is_partial.sum() != ns["sxy"], 2)
-    err = flag(is_motion.sum() != ns["mv"], 4)
-    err = flag(is_data.sum() != n_data, 8)
+    err = flag(is_partial.sum(dim=1) != hv["sxy"][:, 0], 2)
+    err = flag(is_motion.sum(dim=1) != hv["mv"][:, 0], 4)
+    err = flag(is_data.sum(dim=1) != hv["n_data"][:, 0], 8)
 
     x_lo, y_lo = (relpos % nbx) * BLOCK, (relpos // nbx) * BLOCK
     x_hi, y_hi = (x_lo + BLOCK).clamp(max=w), (y_lo + BLOCK).clamp(max=h)
-    pidx = torch.cumsum(is_partial.to(I32), dim=0) - 1
-    s = sxy[pidx.clamp(0, sxy.shape[0] - 1).long()].long()
-    x1 = torch.where(is_partial, x_lo + s[:, 0], x_lo)
-    y1 = torch.where(is_partial, y_lo + s[:, 1], y_lo)
-    x2 = torch.where(is_partial, x_lo + s[:, 2] + 1, x_hi)
-    y2 = torch.where(is_partial, y_lo + s[:, 3] + 1, y_hi)
+    pidx = torch.cumsum(is_partial.to(I32), dim=1) - 1
+    s = _own_rows(sxy, pidx, hv["sxy"]).long()
+    x1 = torch.where(is_partial, x_lo + s[..., 0], x_lo)
+    y1 = torch.where(is_partial, y_lo + s[..., 1], y_lo)
+    x2 = torch.where(is_partial, x_lo + s[..., 2] + 1, x_hi)
+    y2 = torch.where(is_partial, y_lo + s[..., 3] + 1, y_hi)
     rect_ok = (x1 < x2) & (x2 <= x_hi) & (y1 < y2) & (y2 <= y_hi)
-    err = flag((is_partial & ~rect_ok).any(), 16)
+    err = flag((is_partial & ~rect_ok).any(dim=1), 16)
 
-    midx = torch.cumsum(is_motion.to(I32), dim=0) - 1
-    m = mv[midx.clamp(0, mv.shape[0] - 1).long()].long()
-    mv_ok = ((x1 + m[:, 0] >= 0) & (y1 + m[:, 1] >= 0)
-             & (x2 + m[:, 0] <= w) & (y2 + m[:, 1] <= h))
-    err = flag((is_motion & ~mv_ok).any(), 32)
+    midx = torch.cumsum(is_motion.to(I32), dim=1) - 1
+    m = _own_rows(mv, midx, hv["mv"]).long()
+    mv_ok = ((x1 + m[..., 0] >= 0) & (y1 + m[..., 1] >= 0)
+             & (x2 + m[..., 0] <= w) & (y2 + m[..., 1] <= h))
+    err = flag((is_motion & ~mv_ok).any(dim=1), 32)
 
-    rects_all = torch.stack([x1, y1, x2, y2], dim=1).to(I32)
-
-    mo_rects = _to_slots(is_motion, midx, rects_all, mcap)
-    mo_mvs = _to_slots(is_motion, midx, m, mcap)
-    didx = torch.cumsum(is_data.to(I32), dim=0) - 1
-    d_rects = _to_slots(is_data, didx, rects_all, bcap)
+    rects_all = torch.stack([x1, y1, x2, y2], dim=-1).to(I32)
+    m_slots = (lay.mcap[:, None], lay.moff[:, None], lay.msid.shape[0])
+    mo_rects = _to_slots(is_motion, midx, rects_all, *m_slots)
+    mo_mvs = _to_slots(is_motion, midx, m, *m_slots)
+    didx = torch.cumsum(is_data.to(I32), dim=1) - 1
+    n_blk = lay.bsid.shape[0]
+    d_rects = _to_slots(is_data, didx, rects_all, lay.bcap[:, None], lay.boff[:, None], n_blk)
+    # areas on a [C, b_max] axis for the searches; a stream's slots past
+    # its own are never found
+    b_max = lay.b_max
     areas_nb = (x2 - x1).clamp_min(0) * (y2 - y1).clamp_min(0)
-    areas = _to_slots(is_data, didx, areas_nb[:, None], bcap)[:, 0].long()
-    a_start = torch.cumsum(areas, dim=0) - areas
+    areas = _to_slots(is_data, didx, areas_nb[..., None], lay.bcap[:, None], sid * b_max,
+                      c * b_max).view(c, b_max).long()
+    a_start = torch.cumsum(areas, dim=1) - areas
     a_end = a_start + areas
-    total_area = areas.sum()
+    total_area = areas.sum(dim=1, keepdim=True)
+    own_b = lay.bcap[:, None] - 1
+    a_key = torch.where(torch.arange(b_max, device=dev)[None, :] <= own_b, a_start,
+                        _ABOVE_ALL)
 
     # --- record -> block assignment (searchsorted over area prefix sums) ---
-    cappix = pix.shape[0]
-    rec_i = torch.arange(cappix, device=dev)
-    valid_rec = rec_i < ns["rec"]
-    rl = torch.where(valid_rec, pix[:, 1], 0).long()
-    rstart = torch.cumsum(rl, dim=0) - rl
-    err = flag(rl.sum() != total_area, 64)
-    j = torch.searchsorted(a_start, rstart, right=True) - 1
-    jb = j.clamp(0, bcap - 1)
-    err = flag((valid_rec & (rstart + rl > a_end[jb])).any(), 128)
-    rstart_s = torch.where(valid_rec, rstart, total_area + 1 + rec_i)
+    rec_i = torch.arange(pix.shape[1], device=dev)[None, :]
+    valid_rec = rec_i < hv["rec"]
+    rl = torch.where(valid_rec, pix[..., 1], 0).long()
+    rstart = torch.cumsum(rl, dim=1) - rl
+    rl_total = rl.sum(dim=1, keepdim=True)
+    err = flag(rl_total[:, 0] != total_area[:, 0], 64)
+    j = torch.searchsorted(a_key, rstart, right=True) - 1
+    jb = torch.minimum(j.clamp_min(0), own_b)
+    err = flag((valid_rec & (rstart + rl > a_end.gather(1, jb))).any(dim=1), 128)
+    # invalid records sort after every valid one and every own block start
+    rstart_s = torch.where(valid_rec, rstart,
+                           torch.maximum(total_area, rl_total) + 1 + rec_i)
     first_rec = torch.searchsorted(rstart_s, a_start, right=False)
-    slot = rec_i - first_rec[jb]
+    slot = rec_i - first_rec.gather(1, jb)
     slot_ok = (slot >= 0) & (slot < AREA)
-    err = flag((valid_rec & ~slot_ok).any(), 256)
+    err = flag((valid_rec & ~slot_ok).any(dim=1), 256)
     keep = valid_rec & slot_ok
-    tgt_j = torch.where(keep, jb, bcap)
+    tgt_j = torch.where(keep, lay.boff[:, None] + jb, n_blk)
     tgt_s = torch.where(keep, slot, 0)
 
     def to_grid(vals):
-        out = torch.zeros((bcap + 1, AREA) + vals.shape[1:], dtype=I32, device=dev)
+        out = torch.zeros((n_blk + 1, AREA) + vals.shape[2:], dtype=I32, device=dev)
         out.index_put_((tgt_j, tgt_s), vals.to(I32))
-        return out[:bcap]
+        return out[:n_blk]
 
-    pt = to_grid(pix[:, 0])
+    pt = to_grid(pix[..., 0])
     rlg = to_grid(rl)
-    is_lit_rec = valid_rec & (pix[:, 0] == PT_LITERAL)
-    err = flag(is_lit_rec.sum() > ns["col"], 512)
-    lit_idx = torch.cumsum(is_lit_rec.to(I32), dim=0) - 1
-    litv = lit[lit_idx.clamp(0, lit.shape[0] - 1).long()]
-    lt = to_grid(torch.where(is_lit_rec[:, None], litv, 0))
+    is_lit_rec = valid_rec & (pix[..., 0] == PT_LITERAL)
+    err = flag(is_lit_rec.sum(dim=1) > hv["col"][:, 0], 512)
+    lit_idx = torch.cumsum(is_lit_rec.to(I32), dim=1) - 1
+    litv = _own_rows(lit, lit_idx, hv["col"])
+    lt = to_grid(torch.where(is_lit_rec[..., None], litv, 0))
     return (mo_rects, mo_mvs, d_rects, pt, rlg, lt), err
 
 
-def apply_motion(base: torch.Tensor, prev: torch.Tensor, rects: torch.Tensor,
-                 mvs: torch.Tensor) -> torch.Tensor:
-    """Copy each motion block's sub-rect from prev shifted by its MV into a
-    copy of base (one gather + one scatter). Padded rows have x2 <= x1."""
-    h, w, _ = base.shape
-    ar = torch.arange(BLOCK, device=base.device)
+def _pixel_index(sid, ys, xs, inside, c, h, w):
+    """Flat pixel index of (stream, y, x), the sink C * h * w where not
+    inside the stream's own frame."""
+    inside = inside & (ys >= 0) & (ys < h) & (xs >= 0) & (xs < w)
+    return torch.where(inside, sid.long() * (h * w) + ys * w + xs, c * h * w)
+
+
+def apply_motion_streams(prev: torch.Tensor, rects: torch.Tensor, mvs: torch.Tensor,
+                         msid: torch.Tensor) -> torch.Tensor:
+    """prev [C, h, w, 3] -> [C * h * w + 1, 3] (the last row the sink): a
+    copy of prev with each motion slot's sub-rect copied from its own
+    stream's prev shifted by its MV (one gather + one scatter). Empty slots
+    have x2 <= x1."""
+    c, h, w, _ = prev.shape
+    flat = prev.reshape(c * h * w, 3)
+    out = torch.cat([flat, flat.new_zeros((1, 3))])
+    ar = torch.arange(BLOCK, device=prev.device)
     x1, y1, x2, y2 = (rects[:, i].long()[:, None, None] for i in range(4))
     ys = y1 + ar[None, :, None]
     xs = x1 + ar[None, None, :]
-    inside = (ys < y2) & (xs < x2) & (ys < h) & (xs < w)  # a corrupt rect sinks
-    src = ((ys + mvs[:, 1].long()[:, None, None]) * w
-           + xs + mvs[:, 0].long()[:, None, None]).clamp(0, h * w - 1)
-    dst = torch.where(inside, ys * w + xs, h * w)
-    out = torch.cat([base.reshape(h * w, 3), base.new_zeros((1, 3))])
-    out[dst.reshape(-1)] = prev.reshape(h * w, 3)[src.reshape(-1)]
-    return out[: h * w].reshape(h, w, 3)
+    base = msid.long()[:, None, None] * (h * w)
+    src = base + ((ys + mvs[:, 1].long()[:, None, None]) * w
+                  + xs + mvs[:, 0].long()[:, None, None]).clamp(0, h * w - 1)
+    dst = _pixel_index(msid[:, None, None], ys, xs, (ys < y2) & (xs < x2), c, h, w)
+    out[dst.reshape(-1)] = flat[src.reshape(-1)]
+    return out
+
+
+def _windows_streams(prev: torch.Tensor, rects: torch.Tensor,
+                     bsid: torch.Tensor) -> torch.Tensor:
+    """[B, 17, 17, 3] int32 windows of each block's own stream's prev with
+    origin (y1 - 1, x1 - 1), zero outside the frame: a window of the frame
+    with a 1-pixel zero apron top / left and BLOCK + 1 bottom / right. A
+    corrupt stream's rect (its error bit set) reads clamped to that apron."""
+    c, h, w, _ = prev.shape
+    ar = torch.arange(BLOCK + 1, device=rects.device)
+    ys = (rects[:, 1].long()[:, None] + ar).clamp(0, h + BLOCK + 1) - 1
+    xs = (rects[:, 0].long()[:, None] + ar).clamp(0, w + BLOCK + 1) - 1
+    idx = _pixel_index(bsid[:, None, None], ys[:, :, None], xs[:, None, :], True, c, h, w)
+    inside = idx < c * h * w
+    vals = prev.reshape(c * h * w, 3)[idx.clamp(max=c * h * w - 1)]
+    return torch.where(inside[..., None], vals.to(I32), 0)
 
 
 def _row_affine(known, reset, d):
@@ -453,19 +566,18 @@ def _row_affine(known, reset, d):
     return base + cs
 
 
-def reconstruct_blocks(base: torch.Tensor, prev: torch.Tensor, rects: torch.Tensor,
-                       ptypes: torch.Tensor, rlens: torch.Tensor,
-                       lits: torch.Tensor) -> torch.Tensor:
-    """Rebuild the data blocks into a copy of `base` (the motion-applied
-    frame). Out-of-sub-rect neighbour reads (left edge, above row at ry = 0,
-    aboveleft column, PT_PREVFRAME) come from `prev`, the true previous
-    frame. Padded rects (x2 <= x1) write nothing."""
-    h, w, _ = base.shape
+def reconstruct_blocks_streams(out: torch.Tensor, prev: torch.Tensor, rects: torch.Tensor,
+                               bsid: torch.Tensor, ptypes: torch.Tensor,
+                               rlens: torch.Tensor, lits: torch.Tensor) -> torch.Tensor:
+    """Rebuild the data-block slots (rects [B, 4] of the streams bsid [B])
+    into out [C * h * w + 1, 3], the motion-applied frames. Out-of-sub-rect
+    neighbour reads (left edge, above row at ry = 0, aboveleft column,
+    PT_PREVFRAME) come from `prev` [C, h, w, 3], the true previous frames.
+    Empty slots (x2 <= x1) write nothing."""
+    c, h, w, _ = prev.shape
     nblk = rects.shape[0]
-    dev = base.device
-    if nblk == 0:
-        return base
-    pw = _windows(_apron(prev), rects)  # [B, 17, 17, 3]
+    dev = prev.device
+    pw = _windows_streams(prev, rects, bsid)  # [B, 17, 17, 3]
     # per-sequence-position (ptype, literal) from the block's records
     starts = torch.cumsum(rlens, dim=1) - rlens
     marks = torch.zeros((nblk, AREA + 1), dtype=I32, device=dev)
@@ -519,33 +631,43 @@ def reconstruct_blocks(base: torch.Tensor, prev: torch.Tensor, rects: torch.Tens
     rx2 = torch.arange(BLOCK, device=dev)[None, None, :]
     ys = rects[:, 1].long()[:, None, None] + ry2
     xs = rects[:, 0].long()[:, None, None] + rx2
-    inside = (ry2 < bh[:, :, None]) & (rx2 < bw[:, :, None]) & (ys < h) & (xs < w)
-    flat_idx = torch.where(inside, ys * w + xs, h * w)
-    out = torch.cat([base.reshape(h * w, 3).to(I32),
-                     torch.zeros((1, 3), dtype=I32, device=dev)])
-    out[flat_idx.reshape(-1)] = grids.reshape(-1, 3)
-    return (out[: h * w] & 0xFF).to(torch.uint8).reshape(h, w, 3)
+    inside = (ry2 < bh[:, :, None]) & (rx2 < bw[:, :, None])
+    flat_idx = _pixel_index(bsid[:, None, None], ys, xs, inside, c, h, w)
+    out[flat_idx.reshape(-1)] = (grids.reshape(-1, 3) & 0xFF).to(out.dtype)
+    return out
+
+
+def rebuild_p_streams(recs: dict, lay: StepLayout, prev: torch.Tensor, cfg: CodecConfig):
+    """Block resolution, motion apply and data-block rebuild of a step's
+    coded P streams from their decoded section records ({name: [C, cap,
+    W]}) against their previous frames prev [C, h, w, 3] -> (frames
+    [C, h, w, 3] uint8, err [C] int32)."""
+    c, h, w, _ = prev.shape
+    parts, err = decode_p_resolve_streams(recs, lay, cfg)
+    mo_rects, mo_mvs, d_rects, pt, rlg, lt = parts
+    out = apply_motion_streams(prev, mo_rects, mo_mvs, lay.msid)
+    out = reconstruct_blocks_streams(out, prev, d_rects, lay.bsid, pt, rlg, lt)
+    return out[: c * h * w].view(c, h, w, 3), err
 
 
 def decode_p_device(payloads: dict, ns: dict, kts, xx1: int, xx2: int,
-                    n_data: int, n_mv: int, prev: torch.Tensor, tables: dict,
+                    n_data: int, prev: torch.Tensor, tables: dict,
                     cfg: CodecConfig):
     """Whole P-frame decode on the device: sections, block resolution,
     motion apply and data-block rebuild. Returns (frame, err, tables')."""
     recs, tables = decode_p_sections(payloads, ns, kts, tables)
-    frame, err = rebuild_p(recs, ns, xx1, xx2, n_data, n_mv, prev, cfg)
+    frame, err = rebuild_p(recs, ns, xx1, xx2, n_data, prev, cfg)
     return frame, err, tables
 
 
-def rebuild_p(recs: dict, ns: dict, xx1: int, xx2: int, n_data: int, n_mv: int,
+def rebuild_p(recs: dict, ns: dict, xx1: int, xx2: int, n_data: int,
               prev: torch.Tensor, cfg: CodecConfig):
-    """Block resolution, motion apply and data-block rebuild of one P frame
-    from its decoded section records -> (frame, err)."""
-    parts, err = decode_p_resolve(recs, ns, xx1, xx2, n_data, cfg, max(n_mv, 1),
-                                  max(n_data, 1))
-    mo_rects, mo_mvs, d_rects, pt, rlg, lt = parts
-    out = apply_motion(prev, prev, mo_rects, mo_mvs)
-    return reconstruct_blocks(out, prev, d_rects, pt, rlg, lt), err
+    """rebuild_p_streams of one P frame (records {name: [n, W]}) -> (frame,
+    err)."""
+    lay = step_layout([header_row(ns, xx1, xx2, n_data)], prev.device)
+    frames, err = rebuild_p_streams({name: r[None] for name, r in recs.items()}, lay,
+                                    prev[None], cfg)
+    return frames[0], err[0]
 
 
 _P_ERRORS = (

@@ -74,31 +74,70 @@ def corrupt_payloads(n_flips=40, n_cuts=10, seed=6, device="cpu", k_fixed=None):
     return cfg, frames, payloads, damaged
 
 
+def damaged_serving_steps(device="cpu"):
+    """Steps of 4 streams at 48x64 from the port's BatchedEncoder: stream 1
+    carries the frames of corrupt_payloads(seed=8, k_fixed=8), whose
+    payloads it equals, the others different content (shifted and flipped
+    copies), so that a write into another stream's frame shows. Returns
+    (cfg, steps [t][stream] payloads, stream 1's payloads, damaged cases
+    [(step, damaged stream-1 payload)]: the 40 flips of corrupt_payloads,
+    then the SERVING_SITE_FLIPS)."""
+    import numpy as np
+
+    from screenpressor_tpu_torch.parallel.serving import BatchedEncoder
+
+    cfg, frames, payloads, damaged = corrupt_payloads(seed=8, k_fixed=8, device=device)
+    f = np.asarray(frames)
+    streams = [np.roll(f, 3, axis=2), f, np.roll(f, 21, axis=2)[:, ::-1], f[:, :, ::-1]]
+    enc = BatchedEncoder(len(streams), cfg, device)
+    steps = [[p for p, _ in enc.encode(np.stack([s[t] for s in streams]))]
+             for t in range(len(f))]
+    assert [step[1] for step in steps] == payloads
+    cases = damaged[:40] + [(2, flip(payloads[2], pos, x)) for pos, x in SERVING_SITE_FLIPS]
+    return cfg, steps, payloads, cases
+
+
+def rebuild_p_loop(recs, rows, prev, cfg):
+    """pframe.rebuild_p stream by stream on the inputs of one
+    rebuild_p_streams call (rows: its header rows on the host) -> (frames
+    [C, H, W, 3], err [C])."""
+    from screenpressor_tpu_torch import pframe
+
+    frames, errs = [], []
+    for j, row in enumerate(rows):
+        ns = {name: int(n) for name, n in zip(pframe.SECTION_NAMES, row[:5])}
+        one = {name: recs[name][j, :max(ns[name], 1)] for name in pframe.SECTION_NAMES}
+        frame, err = pframe.rebuild_p(one, ns, *(int(v) for v in row[5:]), prev[j], cfg)
+        frames.append(frame)
+        errs.append(err)
+    return torch.stack(frames), torch.stack(errs)
+
+
 def record_index_sites(monkeypatch) -> set:
     """Watch the P decode's index sites that a corrupt stream can push out
     of range: the returned set gains "slots" when a block's slot index
-    reaches its cap (pframe._to_slots) and "grid" when a data block's
-    sub-rect would put a position past the 17 x 16 grid without the clamp
-    (pframe.reconstruct_blocks)."""
+    reaches its stream's cap (pframe._to_slots) and "grid" when a data
+    block's sub-rect would put a position past the 17 x 16 grid without the
+    clamp (pframe.reconstruct_blocks_streams)."""
     from screenpressor_tpu_torch import pframe
 
     hits = set()
-    to_slots, rebuild = pframe._to_slots, pframe.reconstruct_blocks
+    to_slots, rebuild = pframe._to_slots, pframe.reconstruct_blocks_streams
 
-    def slots(mask, idx, vals, cap):
+    def slots(mask, idx, vals, cap, *rest):
         if bool((mask & (idx > cap)).any()):
             hits.add("slots")
-        return to_slots(mask, idx, vals, cap)
+        return to_slots(mask, idx, vals, cap, *rest)
 
-    def blocks(base, prev, rects, *rest):
+    def blocks(out, prev, rects, *rest):
         bw = (rects[:, 2] - rects[:, 0]).long()[:, None]
         bh = (rects[:, 3] - rects[:, 1]).long()[:, None]
         p = torch.arange(pframe.AREA)[None, :]
         ry = torch.where(p < bw * bh, p // bw.clamp_min(1), pframe.BLOCK)
         if bool(((ry > pframe.BLOCK) | (p % bw.clamp_min(1) >= pframe.BLOCK)).any()):
             hits.add("grid")
-        return rebuild(base, prev, rects, *rest)
+        return rebuild(out, prev, rects, *rest)
 
     monkeypatch.setattr(pframe, "_to_slots", slots)
-    monkeypatch.setattr(pframe, "reconstruct_blocks", blocks)
+    monkeypatch.setattr(pframe, "reconstruct_blocks_streams", blocks)
     return hits

@@ -30,7 +30,12 @@ phases). Every run works on the same inputs, made from seeds:
   - serving: chip_smoke.py's serving session (serve_pipelined over 64
     streams of 360x640 for 5 steps, BatchedEncoder and BatchedDecoder, one
     keyframe step in each), three sessions after a warm-up one, each as
-    stream-frames/s on the host clock.
+    stream-frames/s on the host clock with its peak device memory; then a
+    session with the P decode's functions after K2 (undeal and rebuild,
+    per stream or stream-batched, whichever the checkout has) timed on the
+    synchronised host clock; a session under torch.profiler (the device's
+    busy time, its events, its idle share); and the decode of the
+    session's steps alone, timed and profiled.
 --kernels picks the groups to run (k1, k3, k4, serving; default k1,k3,k4).
 Kernel times are CUDA events, the mean of 5 launches after a warm-up. Prints one
 JSON line per run, then a table, with the card's nvidia-smi name and power
@@ -205,7 +210,9 @@ def measure(root: str, kernels) -> dict:
 
 
 def serving(out: dict, dev, synth_screencast):
-    """chip_smoke.py's serving session, a warm-up and three timed ones."""
+    """chip_smoke.py's serving session: a warm-up and three timed sessions,
+    one with the P decode's functions timed, one profiled, and the decode
+    alone."""
     import time
 
     import numpy as np
@@ -220,7 +227,8 @@ def serving(out: dict, dev, synth_screencast):
     base = synth_screencast(s_h, s_w, steps, seed=3)
     batches = [torch.as_tensor(np.stack([np.roll(base[t], 3 * i, axis=1) for i in range(n)]),
                                device=dev) for t in range(steps)]
-    for r in range(4):
+
+    def session():
         enc = ts.BatchedEncoder(n, cfg, dev, kf_offsets=offsets)
         dec = ts.BatchedDecoder(n, cfg, dev)
         torch.cuda.synchronize()
@@ -228,11 +236,97 @@ def serving(out: dict, dev, synth_screencast):
         got = list(ts.serve_pipelined(enc, batches, dec))
         dec.validate()
         torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
         if not all(torch.equal(back, f) for (_, back), f in zip(got, batches)):
             raise AssertionError("serving session not lossless")
+        return time.perf_counter() - t0, [[p for p, _ in outs] for outs, _ in got]
+
+    walls = []
+    for r in range(4):
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        dt, payloads = session()
         if r:
+            walls.append(dt)
             out[f"session {r}, stream-frames/s"] = n * steps / dt
+            out[f"session {r}, peak device memory MiB"] = (
+                torch.cuda.max_memory_allocated() - held) / 2**20
+
+    # the P decode's functions on the synchronised host clock: the
+    # stream-batched ones where this checkout has them, else the per-stream
+    names = [nm for nm in ("undeal_sections", "rebuild_p", "undeal_sections_streams",
+                           "rebuild_p_streams") if hasattr(ts, nm)]
+    spent = {nm: [0.0, 0] for nm in names}
+
+    def timed(nm, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[nm][0] += time.perf_counter() - t0
+            spent[nm][1] += 1
+            return res
+        return run
+
+    real = {nm: getattr(ts, nm) for nm in names}
+    for nm in names:
+        setattr(ts, nm, timed(nm, real[nm]))
+    try:
+        dt, _ = session()
+    finally:
+        for nm in names:
+            setattr(ts, nm, real[nm])
+    out["timed session, s"] = dt
+    for nm, (sec, calls) in spent.items():
+        out[f"timed session: {nm}, ms ({calls} calls)"] = 1e3 * sec
+    out["timed session: P decode after K2, share of the session"] = (
+        sum(sec for sec, _ in spent.values()) / dt)
+
+    # the device's busy time and launches under torch.profiler: a session,
+    # then the decode of its steps alone
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def busy(prof):
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        total, end = 0, None
+        for a, b in spans:
+            if end is None or a > end:
+                total += b - a
+                end = b
+            elif b > end:
+                total += b - end
+                end = b
+        return total / 1e3, len(spans)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        dt, _ = session()
+    ms, n_dev = busy(prof)
+    out["profiled session: device busy ms"] = ms
+    out["profiled session: device events"] = n_dev
+    out["profiled session: idle share of its wall"] = 1 - ms / (1e3 * dt)
+    out["profiled session: idle share of the timed sessions' median wall"] = (
+        1 - ms / (1e3 * float(np.median(walls))))
+
+    def decode_all():
+        dec = ts.BatchedDecoder(n, cfg, dev)
+        for step in payloads:
+            dec.decode(step, device_out=True)
+        dec.validate()
+
+    decode_all()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_all()
+    torch.cuda.synchronize()
+    out["decode of the session's 5 steps alone, ms"] = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        decode_all()
+        torch.cuda.synchronize()
+    ms, n_dev = busy(prof)
+    out["decode alone, profiled: device busy ms"] = ms
+    out["decode alone, profiled: device events"] = n_dev
 
 
 def forward_only_copy(parent: str) -> str:
