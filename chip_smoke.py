@@ -42,6 +42,17 @@ Phases, each printed with its seconds:
      over every coded P stream), that call against pframe.rebuild_p stream
      by stream, both timed by CUDA events and by the synchronised host
      clock; frames and error words must be equal;
+  6c. the serving P encode front half: on each P step of the serving
+     session, one blocks.analyze_compact_streams call over the step's P
+     streams, the pull of their counts and one
+     pframe.classify_assemble_streams call over their data blocks (as
+     BatchedEncoder runs them), against analyze_compact and
+     classify_assemble stream by stream; both timed by CUDA events and by
+     the synchronised host clock, with their host syncs counted (torch's
+     sync debug mode); counts, records and classification must be equal;
+     the motion search alone timed beside it; then the 1080p batch's 63 P
+     frames in one analyze_compact_streams call (as encode_batch makes it)
+     against analyze_compact frame by frame;
   7. damaged streams: one-byte corruptions and truncations of a 48x64
      stream decode on the card to the CPU port's verdicts, and a clean
      stream decodes after them in the same process; then the serving
@@ -619,6 +630,170 @@ def serving_rebuild(t0, dev, smi, cfg, offsets, batches):
     phase("serving P rebuild", t0)
 
 
+def count_syncs(fn):
+    """fn() with the card's synchronizing calls counted (torch's sync debug
+    mode, each warning one host sync) -> (result, syncs)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def search_cost(tb, frames, prevs, cands, cfg):
+    """(CUDA-event ms, host syncs) of motion_search_streams alone on the
+    change map of frames / prevs [C, H, W, 3]."""
+    changed, rects = tb.change_analysis_streams(frames, prevs, cfg.nby, cfg.nbx)
+    ms, _ = cuda_ms(lambda: tb.motion_search_streams(frames, prevs, rects, changed, cands),
+                    TIMED_REPS)
+    return ms, count_syncs(
+        lambda: tb.motion_search_streams(frames, prevs, rects, changed, cands))[1]
+
+
+def batch_encode_front(t0, dev, smi, frames, cfg):
+    """Phase 6c on the single stream: the analysis of the 1080p batch's 63 P
+    frames in one analyze_compact_streams call, as TorchEncoder.encode_batch
+    makes it, against its P frames one by one (analyze_compact); counts and
+    records must be equal."""
+    import torch
+
+    from screenpressor_tpu_torch import blocks as tb
+
+    cands = torch.tensor(tb.mv_candidates(cfg), dtype=torch.int32, device=dev).reshape(-1, 2)
+    dev_frames = torch.as_tensor(np.stack(frames), device=dev)
+    fr, pv = dev_frames[1:], dev_frames[:-1]
+    ms, (arrs, counts, _flat) = cuda_ms(lambda: tb.analyze_compact_streams(fr, pv, cands, cfg),
+                                        TIMED_REPS)
+    _, syncs = count_syncs(lambda: tb.analyze_compact_streams(fr, pv, cands, cfg))
+    search_ms, search_syncs = search_cost(tb, fr, pv, cands, cfg)
+    loop_ms, ana = cuda_ms(lambda: [tb.analyze_compact(fr[j], pv[j], cands, cfg)
+                                    for j in range(fr.shape[0])], 1)
+    _, loop_syncs = count_syncs(lambda: [tb.analyze_compact(fr[j], pv[j], cands, cfg)
+                                         for j in range(fr.shape[0])])
+    ch = counts.cpu().numpy()
+    for j, (one, c1, _) in enumerate(ana):
+        n = {"bt": ch[j, 3], "sxy": ch[j, 4], "mv": ch[j, 5], "data_rects": ch[j, 6]}
+        if not torch.equal(counts[j], c1) or (
+                ch[j, 0] and any(not torch.equal(arrs[nm][j, :n[nm]], one[nm][:n[nm]])
+                                 for nm in n)):
+            raise AssertionError(f"1080p batch analysis, P frame {j + 1}: differs from "
+                                 "its analysis alone")
+    print(f"1080p batch analysis: {fr.shape[0]} P frames, {int(ch[:, 6].sum())} data and "
+          f"{int(ch[:, 5].sum())} motion blocks: one call {ms:.3f} ms (CUDA events), "
+          f"{syncs} host syncs, of which the motion search {search_ms:.3f} ms, "
+          f"{search_syncs} host syncs; frame by frame {loop_ms:.3f} ms, {loop_syncs} host "
+          f"syncs; counts and records equal, on {smi}")
+    phase("1080p batch analysis", t0)
+
+
+def serving_encode_front(t0, dev, smi, record, cfg, offsets, batches):
+    """Phase 6c: the stream-batched P encode front half on the serving
+    session's steps, as BatchedEncoder runs it (one analyze_compact_streams
+    call over the step's P streams, the pull of their counts, one
+    classify_assemble_streams call over their data blocks), against the
+    per-stream loop (analyze_compact, then classify_assemble and the
+    touched-row bitmap, stream by stream); both timed by CUDA events and by
+    the synchronised host clock, their host syncs counted; the results must
+    be equal. K3 on the data-block walk of each step's classification (one
+    launch over every P stream's data blocks) against its plain version."""
+    import torch
+
+    from screenpressor_tpu_torch import _build
+    from screenpressor_tpu_torch import blocks as tb
+    from screenpressor_tpu_torch import classify as tcl
+    from screenpressor_tpu_torch import coder as tc
+    from screenpressor_tpu_torch import pframe as tp
+    from screenpressor_tpu_torch.config import NUM_PTYPES
+
+    cands = torch.tensor(tb.mv_candidates(cfg), dtype=torch.int32, device=dev).reshape(-1, 2)
+    for t in range(1, len(batches)):
+        own = np.nonzero((t + offsets) % S_KF != 0)[0]
+        own_t = torch.as_tensor(own, device=dev)
+        fr, pv = batches[t][own_t], batches[t - 1][own_t]
+
+        def batched():
+            arrs, counts, flat = tb.analyze_compact_streams(fr, pv, cands, cfg)
+            ch = torch.cat([counts, flat], dim=1).cpu().numpy()
+            n_data = np.where((ch[:, 0] != 0) & (ch[:, 7] == 0), ch[:, 6], 0)
+            cls = (tp.classify_assemble_streams(fr, pv, arrs["data_rects"], n_data)
+                   if n_data.any() else None)
+            return arrs, ch, n_data, cls
+
+        def loop():
+            ana = [tb.analyze_compact(fr[j], pv[j], cands, cfg) for j in range(len(own))]
+            ch = torch.stack([torch.cat([c, f]) for _, c, f in ana]).cpu().numpy()
+            n_data = np.where((ch[:, 0] != 0) & (ch[:, 7] == 0), ch[:, 6], 0)
+            cls = {}
+            for j in np.nonzero(n_data)[0]:
+                pix, lit, pl = tp.classify_assemble(fr[j], pv[j], ana[j][0]["data_rects"],
+                                                    int(n_data[j]))
+                cls[j] = (pix, lit, pl, tc.color_touched_bitmap(lit, pl[1]))
+            return ana, ch, cls
+
+        ms, (arrs, ch, n_data, cls) = cuda_ms(batched, TIMED_REPS)
+        hms, _ = host_ms(batched, TIMED_REPS)
+        _, syncs = count_syncs(batched)
+        search_ms, search_syncs = search_cost(tb, fr, pv, cands, cfg)
+        _build.reset_counts()
+        batched()
+        walks = _build.LAUNCHES["sptc_run_walk"]
+        loop_ms, (ana, ch_l, cls_l) = cuda_ms(loop, 1)
+        loop_hms, _ = host_ms(loop, 1)
+        _, loop_syncs = count_syncs(loop)
+        if not np.array_equal(ch, ch_l):
+            raise AssertionError(f"P encode front, step {t}: counts differ from the loop")
+        for j in range(len(own)):
+            n = {"bt": ch[j, 3], "sxy": ch[j, 4], "mv": ch[j, 5], "data_rects": ch[j, 6]}
+            if ch[j, 0] and any(not torch.equal(arrs[nm][j, :n[nm]], ana[j][0][nm][:n[nm]])
+                                for nm in n):
+                raise AssertionError(f"P encode front, step {t} stream {own[j]}: records "
+                                     "differ from the loop")
+        if cls is not None:
+            pix, lit, counts, bm, off = cls
+            for j, (p1, l1, c1, bm1) in cls_l.items():
+                n_pix, n_lit = (int(v) for v in c1.cpu())
+                if not (torch.equal(counts[j, :2], c1) and torch.equal(bm[j], bm1)
+                        and torch.equal(pix[off[j]:off[j] + n_pix], p1[:n_pix])
+                        and torch.equal(lit[off[j]:off[j] + n_lit], l1[:n_lit])):
+                    raise AssertionError(f"P encode front, step {t} stream {own[j]}: "
+                                         "classification differs from the loop")
+        elif cls_l:
+            raise AssertionError(f"P encode front, step {t}: the loop classified blocks")
+        walk = ""
+        if n_data.any():  # K3 on the step's data-block walk, the inputs K3 gets
+            nbp = arrs["data_rects"].shape[1]
+            boff = np.cumsum(n_data) - n_data
+            blk = torch.as_tensor(np.repeat(np.arange(len(own)) * nbp - boff, n_data)
+                                  + np.arange(int(n_data.sum())), device=dev)
+            rects, bsid = arrs["data_rects"].reshape(-1, 4)[blk], blk // nbp
+            bfits, bst, _, _ = tp._block_fits(tp._windows_streams(fr, rects, bsid),
+                                              tp._windows_streams(pv, rects, bsid), rects)
+            wbits, wst = tcl.fits_bits(bfits.reshape(-1, NUM_PTYPES)), bst.reshape(-1)
+            kms, got = cuda_ms(lambda: tcl.run_walk(wbits, wst, tp.AREA), TIMED_REPS)
+            plain_ms, ref = cuda_ms(lambda: tcl.run_walk_plain(wbits, wst, tp.AREA), 1, False)
+            record("sptc_run_walk_streams", kms, plain_ms,
+                   max_abs_err([(got.cpu().numpy(), ref.cpu().numpy())]), walk_work(wbits, got))
+            walk = (f"; K3 over its {rects.shape[0]} data blocks x tile {tp.AREA}: kernel "
+                    f"{kms:.3f} ms, plain {plain_ms:.1f} ms, equal")
+        print(f"P encode front, step {t}: {len(own)} P streams, "
+              f"{int((ch[:, 0] != 0).sum())} changed, {int(ch[:, 5].sum())} motion and "
+              f"{int(n_data.sum())} data blocks: stream-batched {ms:.3f} ms (CUDA events), "
+              f"{hms:.3f} ms (host, synchronised), {syncs} host syncs, {walks} K3 "
+              f"launches, of which the motion search {search_ms:.3f} ms, {search_syncs} "
+              f"host syncs; per-stream loop {loop_ms:.3f} ms, {loop_hms:.3f} ms, "
+              f"{loop_syncs} host syncs; counts, records and classification equal{walk}, "
+              f"on {smi}")
+    phase("serving P encode front half", t0)
+
+
 def damaged_streams(t0, dev, smi):
     """Phase 7: the damaged payloads of tests/test_torch_corrupt.py decoded
     on the card and on the CPU; the verdicts must agree, nothing but
@@ -929,8 +1104,9 @@ def main() -> int:
         n_pix, n_plit = (int(v) for v in pcounts.cpu().numpy())
         # K3 on this frame's data-block walk (pframe._segment_seq's inputs)
         rects = arrs["data_rects"][: int(counts[6])]
-        bfits, bst, _, _ = tp._block_fits(tp._windows(tp._apron(cur), rects),
-                                          tp._windows(tp._apron(prv), rects), rects)
+        bsid = torch.zeros(rects.shape[0], dtype=torch.int64, device=dev)
+        bfits, bst, _, _ = tp._block_fits(tp._windows_streams(cur[None], rects, bsid),
+                                          tp._windows_streams(prv[None], rects, bsid), rects)
         wbits, wst = tcl.fits_bits(bfits.reshape(-1, NUM_PTYPES)), bst.reshape(-1)
         ms, got = cuda_ms(lambda: tcl.run_walk(wbits, wst, tp.AREA), TIMED_REPS)
         plain_ms, ref = cuda_ms(lambda: tcl.run_walk_plain(wbits, wst, tp.AREA), 1, False)
@@ -1110,6 +1286,8 @@ def main() -> int:
     serving_kernels_vs_plain(t0, dev, smi, record, s_cfg, s_offsets, s_host, s_batches)
     serve = serving_main_path(t0, dev, smi, s_cfg, s_offsets, s_host, s_batches)
     serving_rebuild(t0, dev, smi, s_cfg, s_offsets, s_batches)
+    serving_encode_front(t0, dev, smi, record, s_cfg, s_offsets, s_batches)
+    batch_encode_front(t0, dev, smi, frames, cfg)
     damaged_streams(t0, dev, smi)
     session_api(t0, dev, smi, frames, cfg, pinned, rgb24_rates)
 

@@ -6,7 +6,11 @@ deferred validity checks), with the heavy passes on the session's device.
 `encode_batch` runs a batch phase by phase so that it pays a fixed number
 of device-to-host copies per batch: the analysis counts (A), the data-block
 record counts (B), the section sizes (C) and one gather of every payload
-byte of the batch (D); the host then assembles the containers (E).
+byte of the batch (D); the host then assembles the containers (E). Phase A
+analyses every P frame of the batch in one stream-batched call
+(`blocks.analyze_compact_streams`), phase B classifies the data blocks of
+all of them in one (`pframe.classify_assemble_streams`); phase C chains
+the tables frame by frame.
 `decode_batch` copies the stream-consistency flags of a batch back once.
 
 Every tensor of a session lives on `device`: "cuda" unless the caller asks
@@ -20,8 +24,8 @@ import torch
 
 from screenpressor_tpu_torch import bitstream as bs
 from screenpressor_tpu_torch.config import ALG_FLAT, ALG_I, ALG_P, ALG_RAW, CodecConfig
-from screenpressor_tpu_torch.blocks import analyze_compact, mv_candidates
-from screenpressor_tpu_torch.coder import col_compact_bucket, color_touched_bitmap
+from screenpressor_tpu_torch.blocks import AREA, analyze_compact_streams, mv_candidates
+from screenpressor_tpu_torch.coder import col_compact_bucket
 from screenpressor_tpu_torch.iframe import (
     decode_i_device,
     encode_i_raw,
@@ -30,7 +34,7 @@ from screenpressor_tpu_torch.iframe import (
     parse_i_header,
 )
 from screenpressor_tpu_torch.pframe import (
-    classify_assemble,
+    classify_assemble_streams,
     decode_p_device,
     encode_p_sections,
     p_header,
@@ -126,7 +130,10 @@ class TorchEncoder:
         prev_chain = [self.prev] + devs[:-1]
 
         # ---- phase A: analysis of every frame, one pull of the counts ----
-        plans, counts = [], []
+        # every P frame of the batch goes through one stream-batched
+        # analysis against its own previous frame (a keyframe mid-batch
+        # breaks the chain: the pairs need not be contiguous)
+        kinds = []
         for i in range(n):
             fn = self.fn + i
             keyframe = (
@@ -135,34 +142,48 @@ class TorchEncoder:
                 or fn == 0
                 or (cfg.kf_interval > 0 and fn % cfg.kf_interval == 0)
             )
-            if keyframe:
+            kinds.append("I" if keyframe else "P")
+        p_idx = [i for i in range(n) if kinds[i] == "P"]
+        row_of = {i: j for j, i in enumerate(p_idx)}
+        counts, plans = [], []
+        if p_idx:
+            p_frames = torch.stack([devs[i] for i in p_idx])
+            p_prevs = torch.stack([prev_chain[i] for i in p_idx])
+            p_arrs, p_counts, p_flat = analyze_compact_streams(p_frames, p_prevs,
+                                                               self.cands, cfg)
+            counts.append(torch.cat([p_counts, p_flat], dim=1))
+        for i in range(n):
+            if kinds[i] == "I":
                 records, lits, c, bm = i_phase(devs[i])
                 plans.append(("I", (records, lits, bm)))
                 counts.append(c)
             else:
-                arrs, c, flat = analyze_compact(devs[i], prev_chain[i],
-                                                self.cands, cfg)
-                plans.append(("P", arrs))
-                counts.append(torch.cat([c, flat]))
-        counts_host = _pull(counts)
+                plans.append(("P", {name: a[row_of[i]] for name, a in p_arrs.items()}))
+        pulled = _pull(counts)
+        p_rows = pulled.pop(0).reshape(len(p_idx), -1) if p_idx else np.zeros((0, 11))
+        counts_host = [p_rows[row_of[i]] if kinds[i] == "P" else pulled.pop(0)
+                       for i in range(n)]
 
         def flat_of(kind, ch):
             if kind == "I":
                 return bool(ch[2]), (int(ch[3]), int(ch[4]), int(ch[5]))
             return bool(ch[7]), (int(ch[8]), int(ch[9]), int(ch[10]))
 
-        # ---- phase B: classify the data blocks of changed P frames ----
+        # ---- phase B: one classification of the data blocks of every
+        # changed P frame ----
         phase_b: list = [None] * n
-        for i, (kind, arrs) in enumerate(plans):
-            ch = counts_host[i]
-            if kind == "P" and ch[0] and not flat_of(kind, ch)[0] and ch[6]:
-                pix, lit, pl = classify_assemble(devs[i], prev_chain[i],
-                                                 arrs["data_rects"], int(ch[6]))
-                bm = color_touched_bitmap(lit, pl[1])
-                phase_b[i] = (pix, lit, torch.cat([pl, bm.sum(dtype=pl.dtype).reshape(1)]),
-                              bm)
-        b_idx = [i for i in range(n) if phase_b[i] is not None]
-        pl_host = dict(zip(b_idx, _pull([phase_b[i][2] for i in b_idx])))
+        pl_host = {}
+        n_data = np.where((p_rows[:, 0] != 0) & (p_rows[:, 7] == 0), p_rows[:, 6], 0)
+        if n_data.any():
+            pix, lit, pl, bms, roff = classify_assemble_streams(
+                p_frames, p_prevs, p_arrs["data_rects"], n_data)
+            (pl_rows,) = _pull([pl])
+            pl_rows = pl_rows.reshape(len(p_idx), 3)
+            for j in np.nonzero(n_data)[0]:
+                rows = slice(int(roff[j]), int(roff[j] + n_data[j] * AREA))
+                i = p_idx[j]
+                phase_b[i] = (pix[rows], lit[rows], pl[j], bms[j])
+                pl_host[i] = pl_rows[j]
 
         # ---- phase C: section encode, tables chained in frame order ----
         tables = self.tables

@@ -18,8 +18,9 @@ table.
 
 Shapes: records are dealt to [T, K, W] int32 with T = ceil(n / K) (masked
 padding steps never change a stream, so any T >= ceil(n / K) gives the same
-bytes; a batch of streams takes the largest T); payloads are [K, L] uint8
-with L >= 4.
+bytes; a batch of streams takes the largest T; `deal_streams` deals the
+ragged records of C streams to [C, T, K, W] in one gather, `undeal_streams`
+takes them back); payloads are [K, L] uint8 with L >= 4.
 """
 
 from __future__ import annotations
@@ -71,20 +72,44 @@ def gather_order(n: int, k: int):
     return lane.astype(np.int64), t.astype(np.int64)
 
 
+def upload(host: np.ndarray, device) -> torch.Tensor:
+    """A host array on `device`, without waiting for the device's queue: on
+    a CUDA device through pinned memory and a non-blocking copy (a plain
+    pageable copy waits for the queue to drain)."""
+    t = torch.as_tensor(np.ascontiguousarray(host))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def deal(records_cap: torch.Tensor, n: int, k: int, t: int) -> torch.Tensor:
-    """[N, W] records (first n valid) -> [t, k, W]; padding slots are 0."""
-    cap, width = records_cap.shape
+    """[N, W] records (first n valid) -> [t, k, W]; padding slots are 0: the
+    one-stream case of deal_streams."""
     dev = records_cap.device
-    if cap == 0:
-        return torch.zeros((t, k, width), dtype=I32, device=dev)
-    base, rem = divmod(n, k)
-    lane = torch.arange(k, device=dev)
-    start = lane * base + torch.clamp(lane, max=rem)
-    lens = base + (lane < rem)
-    step = torch.arange(t, device=dev)
-    src = start[None, :] + step[:, None]
-    valid = step[:, None] < lens[None, :]
-    rows = records_cap[src.clamp(0, cap - 1)]
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    return deal_streams(records_cap, zero, torch.full((1,), n, device=dev), k, t)[0]
+
+
+def deal_streams(records: torch.Tensor, off: torch.Tensor, n: torch.Tensor, k: int,
+                 t: int) -> torch.Tensor:
+    """Ragged records [N, W] of C streams (stream c's n[c] records from row
+    off[c]; off, n [C] tensors) -> [C, t, k, W] in one gather, each stream
+    dealt over k lanes by contiguous chunking; padding slots are 0 (the
+    counterpart of undeal_streams)."""
+    total, width = records.shape
+    c = off.shape[0]
+    dev = records.device
+    if total == 0:
+        return torch.zeros((c, t, k, width), dtype=I32, device=dev)
+    n = n.to(device=dev, dtype=torch.int64)[:, None]
+    base, rem = n // k, n % k
+    lane = torch.arange(k, device=dev)[None, :]
+    start = off.to(device=dev, dtype=torch.int64)[:, None] + lane * base + torch.minimum(lane, rem)
+    lens = base + (lane < rem)  # [C, k]
+    step = torch.arange(t, device=dev)[None, :, None]
+    src = start[:, None, :] + step  # [C, t, k]
+    valid = step < lens[:, None, :]
+    rows = records[src.clamp(0, total - 1)]
     return torch.where(valid[..., None], rows, 0).to(I32)
 
 
@@ -418,21 +443,41 @@ def color_touched_bitmap(lits: torch.Tensor, n_lit) -> torch.Tensor:
     color_touched_bitmap): the global previous-literal chain covers every
     lane-interior step; a lane's first step sees state (0, 0), so row 0 and
     plane 1's color_ctx(0, R) are included; row 0 is also where padding
-    steps park. lits: [cap, 3] in record order, the first n_lit valid."""
-    cap = lits.shape[0]
+    steps park. lits: [cap, 3] in record order, the first n_lit valid. The
+    one-stream case of color_touched_bitmap_streams."""
+    dev = lits.device
+    sid = torch.zeros(lits.shape[0], dtype=torch.int64, device=dev)
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    n = (n_lit.reshape(1) if isinstance(n_lit, torch.Tensor)
+         else torch.full((1,), n_lit, device=dev))
+    return color_touched_bitmap_streams(lits, sid, zero, n)[0]
+
+
+def color_touched_bitmap_streams(lits: torch.Tensor, sid: torch.Tensor, off: torch.Tensor,
+                                 n: torch.Tensor) -> torch.Tensor:
+    """color_touched_bitmap of C streams' ragged literals: lits [N, 3], the
+    stream sid [N] of each row, stream c's n[c] literals in record order
+    from row off[c] (off, n [C] tensors) -> [C, 3 * COLOR_CTX_ROWS] bool.
+    A stream's previous-literal chain starts at (0, 0) on its first row."""
+    c = off.shape[0]
     dev = lits.device
     lits = lits.to(I32)
     r, g, b = lits[:, 0], lits[:, 1], lits[:, 2]
+    pos = torch.arange(lits.shape[0], device=dev) - off.to(dev)[sid]
     z = torch.zeros(1, dtype=I32, device=dev)
-    pg = torch.cat([z, g[:-1]])
-    pb = torch.cat([z, b[:-1]])
-    valid = torch.arange(cap, device=dev) < n_lit
-    bm = torch.zeros(3 * COLOR_CTX_ROWS, dtype=torch.bool, device=dev)
+    first = pos == 0
+    pg = torch.where(first, 0, torch.cat([z, g[:-1]]))
+    pb = torch.where(first, 0, torch.cat([z, b[:-1]]))
+    valid = pos < n.to(dev)[sid]
+    nrows = 3 * COLOR_CTX_ROWS
+    bm = torch.zeros((c, nrows), dtype=torch.bool, device=dev)
+    flat = bm.view(-1)
     for rows in (color_ctx(pg, pb), COLOR_CTX_ROWS + color_ctx(pb, r),
                  COLOR_CTX_ROWS + color_ctx(torch.zeros_like(r), r),
                  2 * COLOR_CTX_ROWS + color_ctx(r, g)):
-        bm[torch.where(valid, rows, 0).long()] = True
-    bm[0] = True
+        # index_fill_: an indexed store of a Python scalar synchronises with the card
+        flat.index_fill_(0, sid * nrows + torch.where(valid, rows, 0).long(), True)
+    bm[:, 0] = True
     return bm
 
 

@@ -7,10 +7,13 @@ device: the previous frames [S, H, W, 3] and one table set per stream
 section kernels update in place. Each section group of a step is one K1 or
 K2 launch over all the streams that code it (an index list of stream ids,
 not a skip mask); the keyframing streams share one K3 run walk and, on
-decode, one K4 launch. On decode the coded P streams share one block
-resolution, motion apply and block rebuild (`pframe.rebuild_p_streams`);
-the P analysis and classification of encode are the single-stream plain
-tensor code, run in a loop over the streams that need them.
+decode, one K4 launch. On encode the P streams share one change analysis,
+motion search and record compaction (`blocks.analyze_compact_streams`)
+and one classification of all their data blocks
+(`pframe.classify_assemble_streams`, one K3 launch); each section is dealt
+for all of them in one gather (`coder.deal_streams`). On decode the coded
+P streams share one block resolution, motion apply and block rebuild
+(`pframe.rebuild_p_streams`).
 
 Streams use a fixed lane count (`CodecConfig.k_fixed`, default
 min(k_max, 256)); the bitstreams are standard SPTC and decode with any
@@ -35,7 +38,7 @@ import torch
 from screenpressor_tpu_torch import bitstream as bs
 from screenpressor_tpu_torch.config import ALG_FLAT, ALG_I, ALG_P, ALG_RAW, CodecConfig
 from screenpressor_tpu_torch import coder as tc
-from screenpressor_tpu_torch.blocks import analyze_compact, mv_candidates
+from screenpressor_tpu_torch.blocks import analyze_compact_streams, mv_candidates
 from screenpressor_tpu_torch.classify import classify_i_streams
 from screenpressor_tpu_torch.codec import (
     FTYPE_I,
@@ -47,7 +50,7 @@ from screenpressor_tpu_torch.codec import (
 from screenpressor_tpu_torch.iframe import parse_i_header
 from screenpressor_tpu_torch.pframe import (
     SECTION_NAMES,
-    classify_assemble,
+    classify_assemble_streams,
     header_row,
     parse_p_header,
     raise_p_error,
@@ -99,13 +102,28 @@ def _section(k: int, sizes: np.ndarray, payload: np.ndarray) -> bytes:
             + sizes.astype(f"<u{width}").tobytes() + payload.tobytes())
 
 
-def _deal_streams(srcs, ns, k: int):
-    """Per-stream capacity records -> (dealt [C, T, K, W], lens [C, K], T)
-    with T the largest step count of the streams."""
-    t = max(tc.steps_for(n, k) for n in ns)
-    dealt = torch.stack([tc.deal(src, n, k, t) for src, n in zip(srcs, ns)])
-    lens = torch.stack([tc.lane_lens(n, k, dealt.device) for n in ns])
-    return dealt, lens, t
+def _deal_ragged(srcs, ns, k: int):
+    """Deal the sections of C streams in one gather per section.
+
+    srcs: per section a ragged record array [N, W] and the row offset of
+    each stream's records in it; ns: per section the C record counts (host
+    ints). Returns per section (dealt [C, T, K, W], lens [C, K] on the
+    device, lens on the host, T) with T the largest step count of the
+    streams; the offsets, counts and lane lengths go up in one upload."""
+    ns = [np.asarray(n, np.int64) for n in ns]
+    c = len(ns[0])
+    lens_h = [n[:, None] // k + (np.arange(k) < n[:, None] % k) for n in ns]
+    meta = tc.upload(np.concatenate(
+        [np.concatenate([np.asarray(off, np.int64), n, ln.reshape(-1)])
+         for (_, off), n, ln in zip(srcs, ns, lens_h)]), srcs[0][0].device)
+    out = []
+    for ((src, _), n, ln, part) in zip(srcs, ns, lens_h,
+                                       meta.split([2 * c + c * k] * len(ns))):
+        off_d, n_d, lens_d = part.split([c, c, c * k])
+        t = max(tc.steps_for(int(v), k) for v in n)
+        out.append((tc.deal_streams(src, off_d, n_d, k, t), lens_d.view(c, k).to(I32),
+                    ln, t))
+    return out
 
 
 def _lane_segments(parts, segs, buf, starts_h, sizes):
@@ -246,8 +264,11 @@ class BatchedEncoder:
         ids = [int(own[j]) for j in coded]
         n_rec = [int(ch[j, 0]) for j in coded]
         n_lit = [int(ch[j, 1]) for j in coded]
-        rec, lens_rec, t_rec = _deal_streams([cls[j][0] for j in coded], n_rec, k)
-        col, lens_col, t_col = _deal_streams([cls[j][2] for j in coded], n_lit, k)
+        npx = cfg.height * cfg.width
+        offs = np.arange(len(coded)) * npx
+        (rec, lens_rec, lr_h, t_rec), (col, lens_col, lc_h, t_col) = _deal_ragged(
+            [(torch.cat([cls[j][0] for j in coded]), offs),
+             (torch.cat([cls[j][2] for j in coded]), offs)], [n_rec, n_lit], k)
         col_w = tc.col_compact_bucket(max(int(ch[j, 6]) for j in coded))
         bufs, starts = tc.encode_sections_streams(
             [rec, col], [lens_rec, lens_col], self.tables_b,
@@ -255,7 +276,7 @@ class BatchedEncoder:
             torch.stack([bms[j] for j in coded]))
         starts_h = yield starts
 
-        lens_h = [lens_rec.cpu().numpy(), lens_col.cpu().numpy()]
+        lens_h = [lr_h, lc_h]
         sizes = [_sizes(st, ln, b.shape[2]) for st, ln, b in zip(starts_h, lens_h, bufs)]
         parts, segs = [], []
         for j in range(len(ids)):
@@ -280,8 +301,14 @@ class BatchedEncoder:
         and their state is untouched."""
         cfg, k = self.cfg, self.cfg.k_fixed
         h, w = cfg.height, cfg.width
-        ana = [analyze_compact(frames[i], prevs[i], self.cands, cfg) for i in own]
-        (ch,) = yield [torch.stack([torch.cat([c, f]) for _, c, f in ana])]
+        dev = self.device
+        if len(own) < self.s:
+            own_t = tc.upload(np.asarray(own, np.int64), dev)
+            frames_o, prevs_o = frames[own_t], prevs[own_t]
+        else:
+            frames_o, prevs_o = frames, prevs
+        arrs, counts, flat = analyze_compact_streams(frames_o, prevs_o, self.cands, cfg)
+        (ch,) = yield [torch.cat([counts, flat], dim=1)]
 
         out = [None] * self.s
         renew = np.zeros(self.s, bool)
@@ -299,49 +326,41 @@ class BatchedEncoder:
         if not active:
             return out
 
-        # data blocks of the active streams: classification + touched rows
-        dev = self.device
-        cls = {}
-        for j in active:
-            if ch[j, 6]:
-                pix, lit, pl = classify_assemble(frames[own[j]], prevs[own[j]],
-                                                 ana[j][0]["data_rects"], int(ch[j, 6]))
-                bm = tc.color_touched_bitmap(lit, pl[1])
-                cls[j] = (pix, lit, bm, torch.cat([pl, bm.sum(dtype=pl.dtype).reshape(1)]))
-        plc = {}
-        if cls:
-            (got,) = yield [torch.stack([cls[j][3] for j in cls])]
-            plc = {j: got[r] for r, j in enumerate(cls)}
+        # data blocks of the active streams: one classification + touched rows
+        n_data = np.zeros(len(own), np.int64)
+        n_data[active] = ch[active, 6]
+        if n_data.any():
+            pix, lit, plc_d, bms, roff = classify_assemble_streams(
+                frames_o, prevs_o, arrs["data_rects"], n_data)
+            (plc,) = yield [plc_d]
+        else:  # no literals: each stream's touched rows are row 0 alone
+            pix = torch.zeros((0, 2), dtype=I32, device=dev)
+            lit = torch.zeros((0, 3), dtype=I32, device=dev)
+            bms = tc.color_touched_bitmap(lit, 0)[None].expand(len(own), -1)
+            roff = np.zeros(len(own), np.int64)
+            plc = np.zeros((len(own), 3), np.int64)
+            plc[:, 2] = 1
 
         ids = [int(own[j]) for j in active]
-        empty = {"rec": torch.zeros((1, 2), dtype=I32, device=dev),
-                 "col": torch.zeros((1, 3), dtype=I32, device=dev)}
-        bm0 = tc.color_touched_bitmap(empty["col"], 0)  # row 0 only
-        srcs = {name: [] for name in SECTION_NAMES}
-        nums = {name: [] for name in SECTION_NAMES}
-        for j in active:
-            arrs = ana[j][0]
-            pl = plc.get(j, (0, 0, 1))
-            for name, src, n in (("bt", arrs["bt"], ch[j, 3]), ("sxy", arrs["sxy"], ch[j, 4]),
-                                 ("mv", arrs["mv"], ch[j, 5]),
-                                 ("rec", cls[j][0] if j in cls else empty["rec"], pl[0]),
-                                 ("col", cls[j][1] if j in cls else empty["col"], pl[1])):
-                srcs[name].append(src)
-                nums[name].append(int(n))
-        dealt, lens, kts = [], [], []
-        for name in SECTION_NAMES:
-            d, ln, t = _deal_streams(srcs[name], nums[name], k)
-            dealt.append(d)
-            lens.append(ln)
-            kts.append((name, k, t))
-        col_w = tc.col_compact_bucket(max(int(plc.get(j, (0, 0, 1))[2]) for j in active))
-        bms = torch.stack([cls[j][2] if j in cls else bm0 for j in active])
-        bufs, starts = tc.encode_sections_streams(dealt, lens, self.tables_b, tuple(kts),
-                                                  ids, col_w, bms)
+        nbp = arrs["bt"].shape[1]
+        a_off = np.asarray(active, np.int64) * nbp
+        srcs = [(arrs[name].reshape(-1, arrs[name].shape[2]), a_off)
+                for name in ("bt", "sxy", "mv")]
+        srcs += [(pix, roff[active]), (lit, roff[active])]
+        nums = {name: [int(v) for v in col] for name, col in zip(
+            SECTION_NAMES, (ch[active, 3], ch[active, 4], ch[active, 5], plc[active, 0],
+                            plc[active, 1]))}
+        dealt = _deal_ragged(srcs, [nums[name] for name in SECTION_NAMES], k)
+        kts = tuple((name, k, t) for name, (_, _, _, t) in zip(SECTION_NAMES, dealt))
+        col_w = tc.col_compact_bucket(int(plc[active, 2].max()))
+        a_t = tc.upload(np.asarray(active, np.int64), dev)
+        bufs, starts = tc.encode_sections_streams([d for d, _, _, _ in dealt],
+                                                  [ln for _, ln, _, _ in dealt], self.tables_b,
+                                                  kts, ids, col_w, bms[a_t])
         starts_h = yield starts
 
         # container sizes on the host; raw escape per stream
-        lens_h = [ln.cpu().numpy() for ln in lens]
+        lens_h = [ln for _, _, ln, _ in dealt]
         sizes = [_sizes(st, ln, b.shape[2]) for st, ln, b in zip(starts_h, lens_h, bufs)]
         hdrs = []
         for r, j in enumerate(active):

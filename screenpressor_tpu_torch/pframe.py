@@ -2,10 +2,13 @@
 
 Per-block work (classification, segmentation, reconstruction) runs batched
 over a list of data blocks; blocks are independent by format design
-(out-of-sub-rect neighbours read the previous frame). The segmentation of a
-block's sub-rect sequence is the same greedy walk as the I-frame's with one
-256-position tile per block, so it runs through kernel K3
-(`classify.run_walk`). The five sections go through the section coder
+(out-of-sub-rect neighbours read the previous frame). On encode the data
+blocks of every P stream of a serving step, or every P frame of a batch,
+form one ragged list with stream ids (`classify_assemble_streams`; one
+frame is its case of one stream). The segmentation of a block's sub-rect
+sequence is the same greedy walk as the I-frame's with one 256-position
+tile per block, so it runs through kernel K3 (`classify.run_walk`), one
+launch over all the blocks. The five sections go through the section coder
 (`coder.encode_sections` / `decode_sections`, kernels K1/K2 on the card).
 Block resolution, the motion apply (one gather) and the block rebuild are
 plain tensor ops over all the coded P streams of a step at once
@@ -44,25 +47,6 @@ from screenpressor_tpu_torch.tables import renew_tables_cached, select_tables
 AREA = BLOCK * BLOCK
 I32 = torch.int32
 SECTION_NAMES = ("bt", "sxy", "mv", "rec", "col")
-
-
-def _apron(img: torch.Tensor) -> torch.Tensor:
-    """[H, W, 3] -> int32 with a 1-pixel zero apron top/left and BLOCK + 1
-    bottom/right, so a 17x17 window at any sub-rect origin stays inside."""
-    h, w, _ = img.shape
-    out = torch.zeros((h + BLOCK + 2, w + BLOCK + 2, 3), dtype=I32,
-                      device=img.device)
-    out[1:h + 1, 1:w + 1] = img
-    return out
-
-
-def _windows(padded: torch.Tensor, rects: torch.Tensor) -> torch.Tensor:
-    """[B, 17, 17, 3] windows with origin (y1 - 1, x1 - 1) per rect. A
-    corrupt stream's rect (its error bit set) reads clamped to the apron."""
-    ar = torch.arange(BLOCK + 1, device=rects.device)
-    ys = (rects[:, 1].long()[:, None] + ar).clamp(0, padded.shape[0] - 1)
-    xs = (rects[:, 0].long()[:, None] + ar).clamp(0, padded.shape[1] - 1)
-    return padded[ys[:, :, None], xs[:, None, :]]
 
 
 # ---------------------------------------------------------------------------
@@ -149,11 +133,19 @@ def _segment_seq(fits, st, n_valid):
     return path, ptypes, rlens, n_records
 
 
-def classify_blocks(frame: torch.Tensor, prev: torch.Tensor, rects: torch.Tensor):
-    """rects: [B, 4] absolute sub-rects. Returns per-block record arrays
-    (ptypes [B, 256], rlens, n_records [B], lits [B, 256, 3], is_lit)."""
-    cw = _windows(_apron(frame), rects)
-    pw = _windows(_apron(prev), rects)
+# data blocks classified a launch group: bounds the peak memory of the
+# windows, fit planes and records (about 40 KB a block); one K3 launch a group
+CLASSIFY_CAP = 32768
+
+
+def classify_blocks_streams(frames: torch.Tensor, prevs: torch.Tensor, rects: torch.Tensor,
+                            bsid: torch.Tensor):
+    """Blocks of C streams: rects [B, 4] absolute sub-rects of the streams
+    bsid [B] of frames / prevs [C, H, W, 3]. Returns per-block record
+    arrays (ptypes [B, 256], rlens, n_records [B], lits [B, 256, 3],
+    is_lit), with one K3 launch over the B blocks' 256-position tiles."""
+    cw = _windows_streams(frames, rects, bsid)
+    pw = _windows_streams(prevs, rects, bsid)
     fits, st, cur, _valid = _block_fits(cw, pw, rects)
     n_valid = (rects[:, 2] - rects[:, 0]) * (rects[:, 3] - rects[:, 1])
     path, ptypes, rlens, n_records = _segment_seq(fits, st, n_valid)
@@ -163,30 +155,77 @@ def classify_blocks(frame: torch.Tensor, prev: torch.Tensor, rects: torch.Tensor
     return ptypes, rlens, n_records, lits, is_lit
 
 
+def classify_assemble_streams(frames: torch.Tensor, prevs: torch.Tensor,
+                              data_rects: torch.Tensor, n_data):
+    """Classify the data blocks of C streams and assemble each stream's
+    PIX / COL record arrays: the counterpart of the reference's
+    `_batched_classify_eager` (without its grow-only bucket) and of a
+    session batch's classification.
+
+    frames, prevs [C, H, W, 3]; data_rects [C, nbp, 4] (the analysis'
+    output); n_data [C] host ints, stream c's first n_data[c] rects (0 skips
+    the stream). The blocks of all streams form one ragged list with stream
+    ids, classified in groups of at most CLASSIFY_CAP blocks (one K3 launch
+    each). Returns (pix [B * 256, 2], lit [B * 256, 3], counts [C, 3] =
+    (n_pix, n_lit, touched color rows), bm [C, 3 * COLOR_CTX_ROWS] the
+    touched-row bitmaps, off [C] host ints): stream c's records and
+    literals, in record order, start at row off[c] of pix and lit."""
+    c = frames.shape[0]
+    dev = frames.device
+    nbp = data_rects.shape[1]
+    nd = np.asarray(n_data, np.int64).reshape(c)
+    boff = np.cumsum(nd) - nd
+    n_blk = int(nd.sum())
+    blk = np.repeat(np.arange(c) * nbp - boff, nd) + np.arange(n_blk)
+    meta = tc.upload(np.concatenate([blk, boff]), dev)
+    blk_d, boff_d = meta.split([n_blk, c])
+    bsid = blk_d // nbp
+    rects = data_rects.reshape(-1, 4)[blk_d]
+    pcap = n_blk * AREA
+    pix = torch.zeros((pcap + 1, 2), dtype=I32, device=dev)
+    lit = torch.zeros((pcap + 1, 3), dtype=I32, device=dev)
+    nrec = torch.zeros(n_blk, dtype=torch.int64, device=dev)
+    nlit = torch.zeros(n_blk, dtype=torch.int64, device=dev)
+    slot = torch.arange(AREA, device=dev)[None, :]
+    for lo in range(0, n_blk, CLASSIFY_CAP):
+        hi = min(n_blk, lo + CLASSIFY_CAP)
+        sid = bsid[lo:hi]
+        ptypes, rlens, n_recs, lits, is_lit = classify_blocks_streams(
+            frames, prevs, rects[lo:hi], sid)
+        valid_slot = slot < n_recs[:, None]
+        is_lit = is_lit & valid_slot
+        nrec[lo:hi] = n_recs
+        nlit[lo:hi] = is_lit.sum(dim=1)
+        first = boff_d[sid]  # the first block of each block's stream
+
+        def offsets(cnt):
+            """Each block's first row: its stream's first row plus the
+            counts of the stream's blocks before it."""
+            ex = torch.cumsum(cnt[:hi], dim=0) - cnt[:hi]
+            return first * AREA + ex[lo:hi] - ex[first]
+
+        tgt = torch.where(valid_slot, offsets(nrec)[:, None] + slot, pcap)
+        pix.index_put_((tgt,), torch.stack([ptypes, rlens], dim=-1).to(I32))
+        lit_rank = torch.cumsum(is_lit.to(I32), dim=1) - 1
+        tgt_l = torch.where(is_lit, offsets(nlit)[:, None] + lit_rank, pcap)
+        lit.index_put_((tgt_l,), lits.to(I32))
+    n_pix = torch.zeros(c, dtype=torch.int64, device=dev).index_add_(0, bsid, nrec)
+    n_lit = torch.zeros(c, dtype=torch.int64, device=dev).index_add_(0, bsid, nlit)
+    row_sid = bsid[:, None].expand(n_blk, AREA).reshape(-1)
+    bm = tc.color_touched_bitmap_streams(lit[:pcap], row_sid, boff_d * AREA, n_lit)
+    counts = torch.stack([n_pix, n_lit, bm.sum(dim=1)], dim=1).to(I32)
+    return pix[:pcap], lit[:pcap], counts, bm, boff * AREA
+
+
 def classify_assemble(frame: torch.Tensor, prev: torch.Tensor,
                       rects: torch.Tensor, n_data: int):
-    """Classify the n_data data blocks and assemble the global PIX/COL
-    record arrays. Returns (pix_cap [n_data*256, 2], lit_cap
-    [n_data*256, 3], counts [2] = n_pix, n_lit)."""
-    ptypes, rlens, n_recs, lits, is_lit = classify_blocks(
-        frame, prev, rects[:n_data])
-    dev = frame.device
-    rec_off = torch.cumsum(n_recs, dim=0) - n_recs
-    slot = torch.arange(AREA, device=dev)[None, :]
-    valid_slot = slot < n_recs[:, None]
-    pcap = n_data * AREA
-    tgt = torch.where(valid_slot, rec_off[:, None] + slot, pcap).long()
-    pix_cap = torch.zeros((pcap + 1, 2), dtype=I32, device=dev)
-    pix_cap.index_put_((tgt,), torch.stack([ptypes, rlens], dim=-1).to(I32))
-    is_lit = is_lit & valid_slot
-    nlit_b = is_lit.sum(dim=1)
-    lit_off = torch.cumsum(nlit_b, dim=0) - nlit_b
-    lit_rank = torch.cumsum(is_lit.to(I32), dim=1) - 1
-    tgt_l = torch.where(is_lit, lit_off[:, None] + lit_rank, pcap).long()
-    lit_cap = torch.zeros((pcap + 1, 3), dtype=I32, device=dev)
-    lit_cap.index_put_((tgt_l,), lits.to(I32))
-    counts = torch.stack([n_recs.sum(), nlit_b.sum()]).to(I32)
-    return pix_cap[:pcap], lit_cap[:pcap], counts
+    """Classify the n_data data blocks of one frame and assemble the global
+    PIX/COL record arrays (classify_assemble_streams of one stream).
+    Returns (pix_cap [n_data*256, 2], lit_cap [n_data*256, 3], counts [2]
+    = n_pix, n_lit)."""
+    pix, lit, counts, _bm, _off = classify_assemble_streams(
+        frame[None], prev[None], rects[None], [n_data])
+    return pix, lit, counts[0, :2]
 
 
 # ---------------------------------------------------------------------------
@@ -538,10 +577,12 @@ def apply_motion_streams(prev: torch.Tensor, rects: torch.Tensor, mvs: torch.Ten
 
 def _windows_streams(prev: torch.Tensor, rects: torch.Tensor,
                      bsid: torch.Tensor) -> torch.Tensor:
-    """[B, 17, 17, 3] int32 windows of each block's own stream's prev with
-    origin (y1 - 1, x1 - 1), zero outside the frame: a window of the frame
-    with a 1-pixel zero apron top / left and BLOCK + 1 bottom / right. A
-    corrupt stream's rect (its error bit set) reads clamped to that apron."""
+    """[B, 17, 17, 3] int32 windows of each block's own stream's frame of
+    prev [C, h, w, 3] (the previous frames on decode; the current or the
+    previous frames on encode) with origin (y1 - 1, x1 - 1), zero outside
+    the frame: a window of the frame with a 1-pixel zero apron top / left
+    and BLOCK + 1 bottom / right. A corrupt stream's rect (its error bit
+    set) reads clamped to that apron."""
     c, h, w, _ = prev.shape
     ar = torch.arange(BLOCK + 1, device=rects.device)
     ys = (rects[:, 1].long()[:, None] + ar).clamp(0, h + BLOCK + 1) - 1

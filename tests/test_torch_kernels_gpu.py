@@ -709,3 +709,76 @@ def test_device_frame_session_equals_host_frame_session(cuda, fmt):
             assert (o[..., 3] == 255).all()
         else:
             np.testing.assert_array_equal(o, f)
+
+
+def _encode_front_batches(s=6, h=40, w=56, steps=4):
+    """Serving steps for the stream-batched P encode: scrolling and typing
+    synth_screencast streams (each rolled its own way), a noise stream and
+    a flat one. [steps] arrays [s, h, w, 3]."""
+    from screenpressor_tpu_torch.synth import synth_screencast
+
+    rng = np.random.default_rng(12)
+    base = synth_screencast(h, w, steps + 1, seed=5)
+    out = []
+    for t in range(steps):
+        f = [np.roll(base[t + 1 if i % 2 else t], 5 * i, axis=1) for i in range(s - 2)]
+        f.append(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        f.append(np.full((h, w, 3), 17 * t, np.uint8))
+        out.append(np.stack(f))
+    return out
+
+
+@pytest.mark.parametrize("chunk", [None, 7])
+def test_stream_encode_front_matches_cpu(cuda, monkeypatch, chunk):
+    """analyze_compact_streams, classify_assemble_streams and deal_streams
+    on the card equal the CPU port on the serving steps (chunk: a small
+    SEARCH_CHUNK, many candidate chunks)."""
+    from screenpressor_tpu_torch import blocks as tb
+    from screenpressor_tpu_torch import pframe as tp
+
+    if chunk:
+        monkeypatch.setattr(tb, "SEARCH_CHUNK", chunk)
+    batches = _encode_front_batches()
+    cfg = CodecConfig(width=56, height=40, k_fixed=8, msr_x=24, msr_y=24)
+    cands = torch.tensor(tb.mv_candidates(cfg), dtype=torch.int32).reshape(-1, 2)
+    for t in range(1, len(batches)):
+        res = {}
+        for dev in ("cpu", cuda):
+            fr = torch.as_tensor(batches[t], device=dev)
+            pv = torch.as_tensor(batches[t - 1], device=dev)
+            arrs, counts, flat = tb.analyze_compact_streams(fr, pv, cands.to(dev), cfg)
+            ch = torch.cat([counts, flat], dim=1).cpu().numpy()
+            n_data = np.where((ch[:, 0] != 0) & (ch[:, 7] == 0), ch[:, 6], 0)
+            cls = tp.classify_assemble_streams(fr, pv, arrs["data_rects"], n_data)
+            dealt = tc.deal_streams(cls[0], torch.as_tensor(cls[4], device=dev),
+                                    cls[2][:, 0], 8, 40)
+            res[str(dev)] = ({k: v.cpu() for k, v in arrs.items()}, ch,
+                             [c.cpu() if isinstance(c, torch.Tensor) else c for c in cls],
+                             dealt.cpu())
+        (a0, ch0, c0, d0), (a1, ch1, c1, d1) = res["cpu"], res[str(cuda)]
+        np.testing.assert_array_equal(ch1, ch0)
+        for j in range(ch0.shape[0]):
+            for nm, col in (("bt", 3), ("sxy", 4), ("mv", 5), ("data_rects", 6)):
+                n = ch0[j, col] if ch0[j, 0] else 0
+                assert torch.equal(a1[nm][j, :n], a0[nm][j, :n]), (t, j, nm)
+        for x0, x1 in zip(c0, c1):
+            np.testing.assert_array_equal(np.asarray(x1), np.asarray(x0))
+        assert torch.equal(d1, d0)
+        assert ch0[:, 6].sum() > 0
+
+
+def test_batched_encoder_stream_front_on_card(cuda):
+    """BatchedEncoder (one stream-batched analysis and classification a
+    step) and TorchEncoder.encode_batch (one a batch) write on the card the
+    bytes they write on the CPU."""
+    from screenpressor_tpu_torch.parallel.serving import BatchedEncoder
+
+    batches = _encode_front_batches()
+    cfg = CodecConfig(width=56, height=40, k_fixed=8, kf_interval=3, msr_x=24, msr_y=24)
+    got = {}
+    for dev in ("cpu", cuda):
+        enc = BatchedEncoder(6, cfg, dev, kf_offsets=[0, 1, 2, 0, 1, 2])
+        one = TorchEncoder(cfg, dev)
+        got[str(dev)] = ([enc.encode(f) for f in batches],
+                         one.encode_batch([f[1] for f in batches]))
+    assert got[str(cuda)] == got["cpu"]

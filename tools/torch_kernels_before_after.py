@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""K1 (section encode), K3 (run walk), K4 (row reconstruction) and the
-serving session of two checkouts of the PyTorch / CUDA port on one card, in
-one process tree: before / after numbers that may stand side by side.
+"""K1 (section encode), K3 (run walk), K4 (row reconstruction), the
+serving session and the 1080p session of two checkouts of the PyTorch /
+CUDA port on one card, in one process tree: before / after numbers that
+may stand side by side.
 
-    python3 tools/torch_kernels_before_after.py --parent DIR [--kernels k4,serving]
+    python3 tools/torch_kernels_before_after.py --parent DIR [--kernels serving,session]
 
 DIR is a checkout of the commit to compare with (for example `git archive
 <commit> | tar -x -C DIR`); the change is the checkout this script lies in.
@@ -31,12 +32,16 @@ phases). Every run works on the same inputs, made from seeds:
     streams of 360x640 for 5 steps, BatchedEncoder and BatchedDecoder, one
     keyframe step in each), three sessions after a warm-up one, each as
     stream-frames/s on the host clock with its peak device memory; then a
-    session with the P decode's functions after K2 (undeal and rebuild,
-    per stream or stream-batched, whichever the checkout has) timed on the
-    synchronised host clock; a session under torch.profiler (the device's
-    busy time, its events, its idle share); and the decode of the
-    session's steps alone, timed and profiled.
---kernels picks the groups to run (k1, k3, k4, serving; default k1,k3,k4).
+    session with the P decode's functions after K2 (undeal and rebuild)
+    and the P encode's analysis and classification (per stream or
+    stream-batched, whichever the checkout has) timed on the synchronised
+    host clock; a session under torch.profiler (the device's busy time, its
+    events, its idle share); and the decode and the encode of the
+    session's steps alone, each timed and profiled.
+  - session: chip_smoke.py's 1080p single-stream session (64 frames), three
+    timed encodes and decodes after a warm-up, and a profiled encode.
+--kernels picks the groups to run (k1, k3, k4, serving, session; default
+k1,k3,k4).
 Kernel times are CUDA events, the mean of 5 launches after a warm-up. Prints one
 JSON line per run, then a table, with the card's nvidia-smi name and power
 limit. Needs a CUDA device and nvcc; imports nothing of JAX.
@@ -101,9 +106,11 @@ def measure(root: str, kernels) -> dict:
             whole = ms_of(lambda: tr.reconstruct_i(*recs[0], hh, ww))
         out["k4"][f"{label}: reconstruct_i with expand and pad"] = whole
 
-    out = {"k1": {}, "k1_probe": {}, "k3": {}, "k4": {}, "serving": {}}
+    out = {"k1": {}, "k1_probe": {}, "k3": {}, "k4": {}, "serving": {}, "session": {}}
     if "serving" in kernels:
         serving(out["serving"], dev, synth_screencast)
+    if "session" in kernels:
+        session(out["session"], dev, synth_screencast)
     frames = synth_screencast(h, w, 3)
     cfg = CodecConfig(width=w, height=h)
     kf = torch.as_tensor(frames[0], device=dev)
@@ -137,8 +144,13 @@ def measure(root: str, kernels) -> dict:
         arrs, counts, _flat = tb.analyze_compact(cur, prv, cands, cfg)
         counts = counts.cpu().numpy()
         rects = arrs["data_rects"][: int(counts[6])]
-        bfits, bst, _, _ = tp._block_fits(tp._windows(tp._apron(cur), rects),
-                                          tp._windows(tp._apron(prv), rects), rects)
+        if hasattr(tp, "_apron"):  # a checkout before the stream-batched classification
+            cw, pw = tp._windows(tp._apron(cur), rects), tp._windows(tp._apron(prv), rects)
+        else:
+            bsid = torch.zeros(rects.shape[0], dtype=torch.int64, device=dev)
+            cw = tp._windows_streams(cur[None], rects, bsid)
+            pw = tp._windows_streams(prv[None], rects, bsid)
+        bfits, bst, _, _ = tp._block_fits(cw, pw, rects)
         wbits, wst = tcl.fits_bits(bfits.reshape(-1, NUM_PTYPES)), bst.reshape(-1)
         out["k3"][f"{label} data blocks ({rects.shape[0]})"] = ms_of(
             lambda: tcl.run_walk(wbits, wst, tp.AREA))
@@ -211,8 +223,8 @@ def measure(root: str, kernels) -> dict:
 
 def serving(out: dict, dev, synth_screencast):
     """chip_smoke.py's serving session: a warm-up and three timed sessions,
-    one with the P decode's functions timed, one profiled, and the decode
-    alone."""
+    one with the P decode's and the P encode's functions timed, one
+    profiled, and the decode and the encode alone."""
     import time
 
     import numpy as np
@@ -251,10 +263,15 @@ def serving(out: dict, dev, synth_screencast):
             out[f"session {r}, peak device memory MiB"] = (
                 torch.cuda.max_memory_allocated() - held) / 2**20
 
-    # the P decode's functions on the synchronised host clock: the
-    # stream-batched ones where this checkout has them, else the per-stream
-    names = [nm for nm in ("undeal_sections", "rebuild_p", "undeal_sections_streams",
-                           "rebuild_p_streams") if hasattr(ts, nm)]
+    # the P decode's functions after K2 and the P encode's analysis and
+    # classification on the synchronised host clock: the stream-batched
+    # ones where this checkout has them, else the per-stream
+    dec_names = [nm for nm in ("undeal_sections", "rebuild_p", "undeal_sections_streams",
+                               "rebuild_p_streams") if hasattr(ts, nm)]
+    enc_names = [nm for nm in ("analyze_compact", "classify_assemble",
+                               "analyze_compact_streams", "classify_assemble_streams")
+                 if hasattr(ts, nm)]
+    names = dec_names + enc_names
     spent = {nm: [0.0, 0] for nm in names}
 
     def timed(nm, fn):
@@ -279,8 +296,10 @@ def serving(out: dict, dev, synth_screencast):
     out["timed session, s"] = dt
     for nm, (sec, calls) in spent.items():
         out[f"timed session: {nm}, ms ({calls} calls)"] = 1e3 * sec
-    out["timed session: P decode after K2, share of the session"] = (
-        sum(sec for sec, _ in spent.values()) / dt)
+    for tag, group in (("P decode after K2", dec_names),
+                       ("P encode analysis and classification", enc_names)):
+        out[f"timed session: {tag}, share of the session"] = (
+            sum(spent[nm][0] for nm in group) / dt)
 
     # the device's busy time and launches under torch.profiler: a session,
     # then the decode of its steps alone
@@ -315,18 +334,75 @@ def serving(out: dict, dev, synth_screencast):
             dec.decode(step, device_out=True)
         dec.validate()
 
-    decode_all()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    decode_all()
-    torch.cuda.synchronize()
-    out["decode of the session's 5 steps alone, ms"] = 1e3 * (time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        decode_all()
+    def encode_all():
+        enc = ts.BatchedEncoder(n, cfg, dev, kf_offsets=offsets)
+        for frames in batches:
+            enc.encode(frames)
+
+    for tag, fn in (("decode", decode_all), ("encode", encode_all)):
+        fn()
         torch.cuda.synchronize()
-    ms, n_dev = busy(prof)
-    out["decode alone, profiled: device busy ms"] = ms
-    out["decode alone, profiled: device events"] = n_dev
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out[f"{tag} of the session's 5 steps alone, ms"] = 1e3 * (time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ms, n_dev = busy(prof)
+        out[f"{tag} alone, profiled: device busy ms"] = ms
+        out[f"{tag} alone, profiled: device events"] = n_dev
+
+
+def session(out: dict, dev, synth_screencast):
+    """chip_smoke.py's 1080p single-stream session (64 synth_screencast
+    frames, host frames in): a warm-up, three timed encodes and decodes
+    (new sessions each, synchronised host clock), then an encode under
+    torch.profiler (the device's busy time and idle share)."""
+    import time
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from screenpressor_tpu_torch import TorchDecoder, TorchEncoder
+    from screenpressor_tpu_torch.config import CodecConfig
+
+    h, w, n = 1080, 1920, 64
+    frames = synth_screencast(h, w, n)
+    cfg = CodecConfig(width=w, height=h)
+    mpix = h * w * n / 1e6
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, res
+
+    def encode():
+        return TorchEncoder(cfg, dev).encode_batch(frames)
+
+    _, payloads = timed(encode)
+    payloads = [p for p, _ in payloads]
+    timed(lambda: TorchDecoder(cfg, dev).decode_batch(payloads))
+    for r in range(1, 4):
+        out[f"session {r}, encode Mpix/s"] = mpix / timed(encode)[0]
+        out[f"session {r}, decode Mpix/s"] = mpix / timed(
+            lambda: TorchDecoder(cfg, dev).decode_batch(payloads))[0]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        dt, _ = timed(encode)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    out["profiled encode: device busy ms"] = busy / 1e3
+    out["profiled encode: device events"] = len(spans)
+    out["profiled encode: idle share of its wall"] = 1 - busy / 1e6 / dt
 
 
 def forward_only_copy(parent: str) -> str:
@@ -375,7 +451,7 @@ def main() -> int:
         print(json.dumps({"run": tag, "card": smi, **res}), flush=True)
     print(f"\nms (us or stream-frames/s where the name says so) on {smi}; columns: "
           + " | ".join(tag for tag, _ in results))
-    for group in ("k1", "k1_probe", "k3", "k4", "serving"):
+    for group in ("k1", "k1_probe", "k3", "k4", "serving", "session"):
         names = []
         for _, res in results:
             names += [nm for nm in res[group] if nm not in names]
