@@ -72,7 +72,21 @@ Phases, each printed with its seconds:
      single-stream kernel must appear in the phase's launch counts; its
      Mpix/s print beside phase 4's RGB24 session, then (not counted) the
      host numpy and the card's torch conversions over the 64 frames and an
-     RGB24 API session with host frames in and out.
+     RGB24 API session with host frames in and out;
+  9. the sp mesh (screenpressor_tpu_torch.parallel.mesh) with its shards
+     on the one card (devices=[cuda] * sp, printed as such): the 8-frame
+     4K synth_screencast session through encode_i_sp / encode_p_sp at sp
+     1, 2 and 4 and back through decode_i_sp / decode_p_sp, counted from a
+     reset (K1-K4 must all appear), each equal to the unsharded
+     TorchEncoder session on the card and to the native digests pinned in
+     tests/data/torch_native_4k_8.json, every decode lossless, the Mpix/s
+     beside the unsharded session's; then, not counted, the device time
+     of each stage (the mesh's "sp ..." ranges under torch.profiler); K3 on a 4K shard's walk, K1 / K2 on the 4K keyframe's rec
+     and col sections (as the sp path deals them) and K4 on the 4K
+     keyframe against their plain versions; the 64-frame 1080p session at
+     sp 2 (uneven I seams) against the pinned 1080p digests; dryrun_step
+     on 64 streams of 360x640 at dp 2 x sp 2, each stream's lanes,
+     n_records and tables equal to device_encode_step alone.
 K4 in phase 3 and 5 also reports its time a row and the whole
 reconstruct_i (expand, pad, kernel).
 The kernels' JSON summary gives each kernel's launches on its main path,
@@ -99,6 +113,9 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H, W, N_FRAMES = 1080, 1920, 64
 NATIVE_DIGESTS = os.path.join(ROOT, "tests", "data", "torch_native_1080p_64.json")
+# the sp mesh's session: one 4K stream, its native digests
+SP_H, SP_W, SP_N = 2160, 3840, 8
+NATIVE_DIGESTS_4K = os.path.join(ROOT, "tests", "data", "torch_native_4k_8.json")
 TIMED_REPS = 5
 # the serving profile of bench.serving_diag: 64 concurrent 360p streams,
 # staggered keyframes, +-256 motion, 64 lanes per section
@@ -1004,6 +1021,211 @@ def session_api(t0, dev, smi, frames, cfg, pinned, rgb24_rates):
           f"{mpix / td24d:.3f} Mpix/s ({td24d:.3f} s) on {smi}")
 
 
+def check_digests(payloads, pinned, label):
+    for i, ((p, ft), want) in enumerate(zip(payloads, pinned["frames"], strict=True)):
+        got = {"size": len(p), "ftype": ft, "sha256": hashlib.sha256(p).hexdigest()}
+        if got != want:
+            raise AssertionError(f"{label} frame {i}: port bytes {got} != native {want}")
+
+
+def sp_mesh(t0, dev, smi, record, frames_1080, cfg_1080, pinned_1080):
+    """Phase 9: one large stream row-sharded over a mesh whose shards share
+    the one card. Returns the launch counts of its counted run."""
+    import torch
+
+    from screenpressor_tpu_torch import TorchDecoder, TorchEncoder, _build
+    from screenpressor_tpu_torch import classify as tcl
+    from screenpressor_tpu_torch import coder as tc
+    from screenpressor_tpu_torch import recon as tr
+    from screenpressor_tpu_torch.config import NUM_PTYPES, CodecConfig, seg_tile
+    from screenpressor_tpu_torch.parallel import mesh as tm
+    from screenpressor_tpu_torch.synth import synth_screencast
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))  # a `tests` package elsewhere
+    from torch_support import sp_decode, sp_encode, sp_stage_ms  # would shadow ROOT/tests
+
+    # ---- 9. the sp mesh ----
+    with open(NATIVE_DIGESTS_4K) as fh:
+        pinned = json.load(fh)
+    if (pinned["height"], pinned["width"], pinned["n_frames"]) != (SP_H, SP_W, SP_N):
+        raise AssertionError("pinned 4K digests are for another workload")
+    frames = synth_screencast(SP_H, SP_W, SP_N)
+    cfg = CodecConfig(width=SP_W, height=SP_H)
+    card = torch.device("cuda", torch.cuda.current_device())
+    meshes = {sp: tm.make_mesh(sp, sp=sp, devices=[card] * sp) for sp in (1, 2, 4)}
+    for sp, mesh in meshes.items():
+        print(f"sp mesh {sp}: devices=[{card}] * {sp} (the shards share the one card)")
+    mpix = SP_H * SP_W * SP_N / 1e6
+
+    def session(fn, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    # the unsharded session on the card: the bytes every sp session must give
+    session(TorchEncoder(cfg, dev).encode_batch, frames)
+    ref, t_ref = session(TorchEncoder(cfg, dev).encode_batch, frames)
+    check_digests(ref, pinned, "4K unsharded")
+    session(TorchDecoder(cfg, dev).decode_batch, [p for p, _ in ref], True)
+    dref, t_dref = session(TorchDecoder(cfg, dev).decode_batch, [p for p, _ in ref], True)
+    print(f"4K unsharded session: bytes {[len(p) for p, _ in ref]} equal the pinned native "
+          f"digests; encode {mpix / t_ref:.3f} Mpix/s ({t_ref:.3f} s), decode "
+          f"{mpix / t_dref:.3f} Mpix/s ({t_dref:.3f} s) on {smi}")
+
+    # a first sp session (not counted), its keyframe's sections captured
+    captured = []
+    real = tc.encode_sections
+
+    def capture(dealt_list, lens_list, tables, kts, col_w=None, col_bm=None):
+        captured.append((list(dealt_list), list(lens_list), tables, kts))
+        return real(dealt_list, lens_list, tables, kts, col_w, col_bm)
+
+    tc.encode_sections = capture
+    try:
+        sp_encode(frames[:1], meshes[4], cfg)
+    finally:
+        tc.encode_sections = real
+    sp_encode(frames, meshes[4], cfg)
+
+    # the counted run: the 8 frames at sp 1, 2 and 4, encode and decode
+    _build.reset_counts()
+    timed = {}
+    for sp, mesh in meshes.items():
+        got, t_enc = session(sp_encode, frames, mesh, cfg)
+        dec, t_dec = session(sp_decode, got, mesh, cfg)
+        timed[sp] = (got, t_enc, dec, t_dec)
+    launches = dict(_build.LAUNCHES)
+    print(f"sp path launches (8 4K frames at sp 1, 2 and 4, encode and decode): {launches}")
+    missing = [k for k in ("sptc_sections_encode", "sptc_sections_decode", "sptc_run_walk",
+                           "sptc_recon_rows") if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the sp path: {missing}")
+    for sp, (got, t_enc, dec, t_dec) in timed.items():
+        if got != ref:
+            raise AssertionError(f"sp {sp}: bytes differ from the unsharded session")
+        check_digests(got, pinned, f"4K sp {sp}")
+        for i, (f, o) in enumerate(zip(frames, dec)):
+            if not torch.equal(o, torch.as_tensor(f, device=dev)):
+                raise AssertionError(f"sp {sp} frame {i}: decode is not lossless")
+        print(f"4K sp {sp}: 8 frames equal the unsharded session and the pinned native "
+              f"digests, decode lossless; encode {mpix / t_enc:.3f} Mpix/s ({t_enc:.3f} s; "
+              f"unsharded {mpix / t_ref:.3f}), decode {mpix / t_dec:.3f} Mpix/s "
+              f"({t_dec:.3f} s; unsharded {mpix / t_dref:.3f}) on {smi}")
+    # the time per stage: a session and its decode under torch.profiler
+    # (not counted), each labelled range's device time
+    for sp, mesh in meshes.items():
+        _, st = sp_stage_ms(lambda: sp_decode(sp_encode(frames, mesh, cfg), mesh, cfg))
+        stages = ", ".join(f"{k} {v:.3f} ms ({mpix / v * 1e3:.1f} Mpix/s)" if v > 0
+                           else f"{k} not measured" for k, v in st.items())
+        print(f"4K sp {sp} stages (device time under torch.profiler, 8 frames; Mpix/s: the "
+              f"session's pixels over the stage's time): {stages}")
+    phase("sp mesh 4K sessions", t0)
+
+    # the sp path's kernels against their plain versions at its 4K shapes:
+    # K3 on a middle shard's walk (sp 4), K1 / K2 on the keyframe's rec and
+    # col sections as the sp path deals them, K4 on the keyframe
+    kf = torch.as_tensor(frames[0], device=dev)
+    r0, r1 = tm.i_seams(SP_H, SP_W, 4)[1]
+    fits = tm._halo_fits(kf[r0:r1].int(), kf[r0 - 1].int()).reshape(-1, NUM_PTYPES)
+    st, bits = tcl.start_types_i(fits), tcl.fits_bits(fits)
+    tile = seg_tile(SP_H * SP_W, SP_W)
+    ms, got = cuda_ms(lambda: tcl.run_walk(bits, st, tile), TIMED_REPS)
+    plain_ms, want = cuda_ms(lambda: tcl.run_walk_plain(bits, st, tile), 1, False)
+    record("sptc_run_walk_sp", ms, plain_ms, max_abs_err([(got.cpu(), want.cpu())]),
+           walk_work(bits, got))
+    print(f"K3 sp shard 1 of 4 (rows {r0}-{r1}, n={bits.numel()}, tile {tile}): kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.1f} ms, equal, on {smi}")
+    dealt_l, lens_l, tabs, kts = captured[0]
+    for dealt, lens, kt in zip(dealt_l, lens_l, kts):
+        nm, k, t = kt
+        ms, (bufs, starts, tab_k) = cuda_ms(
+            lambda: tc.encode_sections([dealt], [lens], tabs, (kt,)), TIMED_REPS)
+
+        def plain_encode():
+            cum, freq, act, tab = tc.model_scan(dealt, lens, tabs, nm)
+            return tc.rans_pack(cum, freq, act, tc.pack_cap(nm, t)), tab
+
+        plain_ms, ((buf_p, start_p), tab_p) = cuda_ms(plain_encode, 1, False)
+        lens_np = lens.cpu().numpy()
+        blobs = tc.blobs_from_buf(bufs[0].cpu().numpy(), starts[0].cpu().numpy(), lens_np)
+        blobs_p = tc.blobs_from_buf(buf_p.cpu().numpy(), start_p.cpu().numpy(), lens_np)
+        if blobs != blobs_p:
+            raise AssertionError(f"K1 4K keyframe {nm} (K {k}): bytes differ from plain")
+        err = max_abs_err([(starts[0].cpu().numpy(), start_p.cpu().numpy())]
+                          + tables_pairs(tab_k, tab_p))
+        record("sptc_sections_encode_sp", ms, plain_ms, err,
+               sections_work((kt,), [dealt], [lens], sum(map(len, blobs))))
+        pay = torch.as_tensor(tc.pad_payload(blobs, k), device=dev)
+        dms, (recs, dtab_k) = cuda_ms(lambda: tc.decode_sections([pay], [lens], tabs, (kt,)),
+                                      TIMED_REPS)
+        dplain_ms, (rec_p, dtab_p) = cuda_ms(
+            lambda: tc.decode_section_scan(pay, lens, tabs, nm, t), 1, False)
+        valid = (torch.arange(t, device=dev)[:, None] < lens[None, :])[..., None]
+        derr = max_abs_err([(recs[0].cpu().numpy(), rec_p.cpu().numpy()),
+                            (torch.where(valid, recs[0], 0).cpu().numpy(),
+                             torch.where(valid, dealt, 0).cpu().numpy())]
+                           + tables_pairs(dtab_k, dtab_p) + tables_pairs(dtab_k, tab_k))
+        record("sptc_sections_decode_sp", dms, dplain_ms, derr,
+               sections_work((kt,), [recs[0]], [lens], pay.numel()))
+        print(f"K1/K2 4K keyframe {nm}: K {k}, T {t}, {sum(map(len, blobs))} bytes: encode "
+              f"{ms:.3f} ms (plain {plain_ms:.1f} ms), decode {dms:.3f} ms (plain "
+              f"{dplain_ms:.1f} ms), bytes, records and tables equal, on {smi}")
+    records, n_rec, lits, n_lit = tcl.classify_i(kf)
+    ms, whole_ms, k4_rows, got = recon_timings(tr, records[:int(n_rec)],
+                                               lits[:max(int(n_lit), 1)], SP_H, SP_W,
+                                               TIMED_REPS)
+    plain_ms, want = cuda_ms(lambda: tr.recon_rows_plain(k4_rows, SP_W), 1, False)
+    record("sptc_recon_rows_sp", ms, plain_ms,
+           max_abs_err([(got.cpu().numpy(), want.cpu().numpy()),
+                        (got.cpu().numpy(), frames[0])]), recon_work(k4_rows, got))
+    print(f"K4 4K keyframe: kernel {ms:.3f} ms, reconstruct_i {whole_ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms, equal, equals the keyframe, on {smi}")
+    phase("sp mesh kernels vs plain", t0)
+
+    # the 1080p session at sp 2 (uneven I seams: rows 0-544 and 544-1080)
+    got, t_1080 = session(sp_encode, frames_1080, meshes[2], cfg_1080)
+    check_digests(got, pinned_1080, "1080p sp 2")
+    print(f"1080p sp 2 (I seams {tm.i_seams(cfg_1080.height, cfg_1080.width, 2)}): all "
+          f"{len(got)} frames equal the pinned native digests; encode "
+          f"{cfg_1080.width * cfg_1080.height * len(got) / 1e6 / t_1080:.3f} Mpix/s "
+          f"({t_1080:.3f} s) on {smi}")
+    phase("sp mesh 1080p", t0)
+
+    # the dryrun step: 64 streams of 360x640 at dp 2 x sp 2, each stream's
+    # lanes against device_encode_step alone
+    from screenpressor_tpu_torch.tables import renew_tables_cached, renew_tables_streams
+
+    base = synth_screencast(S_H, S_W, 2, seed=3)
+    host = [np.stack([np.roll(base[t], 3 * i, axis=1) for i in range(S_STREAMS)])
+            for t in range(2)]
+    mesh = tm.make_mesh(4, sp=2, devices=[card] * 4)
+    print(f"dryrun mesh dp 2 x sp 2: devices=[{card}] * 4 (the shards share the one card)")
+    tabs_b = renew_tables_streams(S_STREAMS, dev)
+    (res, t_dry) = session(tm.dryrun_step, host[1], host[0], tabs_b, mesh)
+    (fits, changed, flat), (buf, start, n_rec), tabs_out = res
+    if fits.shape != (S_STREAMS, S_H, S_W, NUM_PTYPES) or not bool(changed.all()):
+        raise AssertionError("dryrun analysis: unexpected fits shape or unchanged streams")
+    for i in range(S_STREAMS):
+        b1, s1, n1, t1 = tm.device_encode_step(host[1][i], renew_tables_cached(dev), S_H, S_W,
+                                               8)
+        if (int(n1) != int(n_rec[i])
+                or tc.blobs_from_buf(b1.cpu().numpy(), s1.cpu().numpy(), np.ones(8))
+                != tc.blobs_from_buf(buf[i].cpu().numpy(), start[i].cpu().numpy(),
+                                     np.ones(8))):
+            raise AssertionError(f"dryrun stream {i}: lanes differ from device_encode_step")
+        for kd in ("ptype", "nrun"):
+            for key in t1[kd]:
+                if not torch.equal(t1[kd][key], tabs_out[kd][key][i]):
+                    raise AssertionError(f"dryrun stream {i}: table {kd}.{key} differs")
+    print(f"dryrun step, {S_STREAMS} streams of {S_H}x{S_W} at dp 2 x sp 2: {t_dry:.3f} s; "
+          f"every stream's lanes, n_records and tables equal device_encode_step alone, on "
+          f"{smi}")
+    phase("sp mesh dryrun step", t0)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1290,6 +1512,7 @@ def main() -> int:
     batch_encode_front(t0, dev, smi, frames, cfg)
     damaged_streams(t0, dev, smi)
     session_api(t0, dev, smi, frames, cfg, pinned, rgb24_rates)
+    sp_counts = sp_mesh(t0, dev, smi, record, frames, cfg, pinned)
 
     sections = "screenpressor_tpu_torch/csrc/sections.cu"
     walk = "screenpressor_tpu_torch/csrc/run_walk.cu"
@@ -1308,6 +1531,10 @@ def main() -> int:
         ("sptc_sections_decode_streams", "sptc_sections_decode", serve, sections, k2_grid),
         ("sptc_run_walk_streams", "sptc_run_walk", serve, walk, k3),
         ("sptc_recon_rows_streams", "sptc_recon_rows", serve, recon, k4),
+        ("sptc_sections_encode_sp", "sptc_sections_encode", sp_counts, sections, k1),
+        ("sptc_sections_decode_sp", "sptc_sections_decode", sp_counts, sections, k2),
+        ("sptc_run_walk_sp", "sptc_run_walk", sp_counts, walk, k3),
+        ("sptc_recon_rows_sp", "sptc_recon_rows", sp_counts, recon, k4),
     )
     kernels = [
         {"name": entry, "route": "cuda", "source": src, "replaces": rep,

@@ -178,11 +178,13 @@ def motion_search(frame: torch.Tensor, prev: torch.Tensor, rects: torch.Tensor,
 
 
 def block_types_from(valid: torch.Tensor, found: torch.Tensor,
-                     rects: torch.Tensor, nbx: int, h: int, w: int) -> torch.Tensor:
+                     rects: torch.Tensor, nbx: int, h: int, w: int,
+                     lin0: int = 0) -> torch.Tensor:
     """Block types [..., nb] (one frame, or [C, nb] for C streams) from the
-    change map, motion verdicts and sub-rects [..., nb, 4]."""
+    change map, motion verdicts and sub-rects [..., nb, 4]. lin0: the
+    raster index of the first block (a row shard's blocks)."""
     nb = valid.shape[-1]
-    lin = torch.arange(nb, device=valid.device)
+    lin = lin0 + torch.arange(nb, device=valid.device)
     x_lo, y_lo = (lin % nbx) * BLOCK, (lin // nbx) * BLOCK
     full = ((rects[..., 0] == x_lo) & (rects[..., 1] == y_lo)
             & (rects[..., 2] == (x_lo + BLOCK).clamp(max=w))

@@ -1,6 +1,7 @@
-"""Synthetic screencast frames (numpy only): the workload of the port's
-smoke run and of the JAX package's benchmark (`bench.synth_screencast`),
-whose pixels this reproduces exactly."""
+"""Synthetic screen frames (numpy only): the screencast of the port's smoke
+run and of the JAX package's benchmark (`bench.synth_screencast`), and the
+keyframe of its multi-device dryrun (`synth_frame`), whose pixels these
+reproduce exactly."""
 
 from __future__ import annotations
 
@@ -31,3 +32,17 @@ def synth_screencast(h, w, n_frames, seed=0):
         else:  # idle
             frames.append(frames[-1].copy())
     return frames
+
+
+def synth_frame(h, w, seed=0):
+    """One desktop-like keyframe (a window with text strokes): the frame of
+    the JAX package's multi-device dryrun (`__graft_entry__._synth_frame`),
+    whose pixels this reproduces exactly."""
+    rng = np.random.default_rng(seed)
+    f = np.full((h, w, 3), (40, 44, 52), np.uint8)
+    f[h // 4: 3 * h // 4, w // 4: 3 * w // 4] = (250, 250, 250)
+    for i in range(h // 8):
+        y = h // 4 + 3 * i
+        if y + 1 < 3 * h // 4:
+            f[y, w // 4 + 2: w // 4 + 2 + int(rng.integers(4, w // 2))] = (20, 20, 20)
+    return f

@@ -782,3 +782,60 @@ def test_batched_encoder_stream_front_on_card(cuda):
         got[str(dev)] = ([enc.encode(f) for f in batches],
                          one.encode_batch([f[1] for f in batches]))
     assert got[str(cuda)] == got["cpu"]
+
+
+@pytest.mark.parametrize("k", [128, 256])
+@pytest.mark.parametrize("name", ["rec", "col"])
+def test_section_kernels_wide_lanes(cuda, name, k):
+    """K1 and K2 at the lane counts of a 4K keyframe's sections (K > 64)
+    against their plain versions: bytes, records and tables."""
+    rng = np.random.default_rng(k + len(name))
+    n = 37 * k + 5
+    records = section_records(name, n, rng)
+    dealt, t = _dealt(records, n, k, cuda)
+    lens = tc.lane_lens(n, k, cuda)
+    tabs = renew_tables(cuda)
+    cum, freq, act, tab_p = tc.model_scan(dealt, lens, tabs, name)
+    buf_p, start_p = tc.rans_pack(cum, freq, act, tc.pack_cap(name, t))
+    bufs, starts, tab_k = tc.encode_sections([dealt], [lens], tabs, ((name, k, t),))
+    lens_np = lens.cpu().numpy()
+    blobs = tc.blobs_from_buf(bufs[0].cpu().numpy(), starts[0].cpu().numpy(), lens_np)
+    assert blobs == tc.blobs_from_buf(buf_p.cpu().numpy(), start_p.cpu().numpy(), lens_np)
+    _assert_tables_equal(tab_k, tab_p)
+    pay = torch.as_tensor(tc.pad_payload(blobs, k), device=cuda)
+    rec_p, dtab_p = tc.decode_section_scan(pay, lens, tabs, name, t)
+    recs, dtab_k = tc.decode_sections([pay], [lens], tabs, ((name, k, t),))
+    assert torch.equal(recs[0], rec_p)
+    _assert_tables_equal(dtab_k, dtab_p)
+    np.testing.assert_array_equal(tc.undeal(recs[0], n, k, n).cpu().numpy(), records)
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_sp_session_on_card_equals_cpu(cuda, sp):
+    """The row-sharded session (parallel/mesh.py) with sp shards on the one
+    card: the bytes of the CPU port's sp session, and its decode."""
+    from screenpressor_tpu_torch.parallel import mesh as tm
+
+    cfg = CodecConfig(width=64, height=64, k_fixed=8, msr_x=16, msr_y=16)
+    f0 = _frame(64, 64, 3)
+    f1 = np.roll(f0, 8, axis=0)
+    f2 = f1.copy()
+    f2[20:27, 30:39] = np.random.default_rng(5).integers(0, 256, (7, 9, 3))
+    frames = [f0, f1, f2, f2.copy()]
+
+    def session(mesh):
+        data, _, tabs = tm.encode_i_sp(f0, mesh, cfg)
+        out = [data]
+        for prev, f in zip(frames, frames[1:]):
+            data, _, tabs = tm.encode_p_sp(f, prev, mesh, cfg, tabs)
+            out.append(data)
+        return out
+
+    got = session(tm.make_mesh(sp, sp=sp, devices=[cuda] * sp))
+    assert got == session(tm.make_mesh(sp, sp=sp, devices=["cpu"] * sp))
+    assert got == [p for p, _ in TorchEncoder(cfg, "cpu").encode_batch(frames)]
+    mesh = tm.make_mesh(sp, sp=sp, devices=[cuda] * sp)
+    frame, tabs = tm.decode_i_sp(got[0], mesh, cfg)
+    for data, f in zip(got[1:], frames[1:]):
+        frame, tabs = tm.decode_p_sp(data, frame, mesh, cfg, tabs)
+        np.testing.assert_array_equal(frame.cpu().numpy(), f)

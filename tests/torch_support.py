@@ -141,3 +141,67 @@ def record_index_sites(monkeypatch) -> set:
     monkeypatch.setattr(pframe, "_to_slots", slots)
     monkeypatch.setattr(pframe, "reconstruct_blocks_streams", blocks)
     return hits
+
+
+def sp_encode(frames, mesh, cfg):
+    """A lossless session through the port's encode_i_sp / encode_p_sp with
+    chained tables: frame 0 a keyframe, then P frames against the frame
+    before. Returns [(bytes, ftype)]."""
+    from screenpressor_tpu_torch.parallel import mesh as tm
+
+    out, tabs = [], None
+    for i, f in enumerate(frames):
+        if i == 0:
+            data, ftype, tabs = tm.encode_i_sp(f, mesh, cfg)
+        else:
+            data, ftype, tabs = tm.encode_p_sp(f, frames[i - 1], mesh, cfg, tabs)
+        out.append((data, ftype))
+    return out
+
+
+def sp_decode(payloads, mesh, cfg):
+    """The frames of an sp_encode session through decode_i_sp /
+    decode_p_sp, tables chained."""
+    from screenpressor_tpu_torch.parallel import mesh as tm
+
+    frame, tabs = tm.decode_i_sp(payloads[0][0], mesh, cfg)
+    out = [frame]
+    for data, _ in payloads[1:]:
+        frame, tabs = tm.decode_p_sp(data, frame, mesh, cfg, tabs)
+        out.append(frame)
+    return out
+
+
+def sp_stage_ms(fn):
+    """(fn(), {stage: ms}): fn run under torch.profiler; for each stage that
+    screenpressor_tpu_torch.parallel.mesh labels (a record_function range
+    "sp <stage>"), the device time of the kernels and copies launched while
+    its range was open on the host, summed over its calls. A device event
+    belongs to the host launch call (cudaLaunchKernel, cudaMemcpyAsync, ...)
+    with its correlation id; the launch's host time places it in a range.
+    The kernels of ctypes launches are joined to no PyTorch op, so the
+    ranges' own device totals miss them. Without a CUDA device the times
+    are 0."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        out = fn()
+        for i in range(torch.cuda.device_count() if cuda else 0):
+            torch.cuda.synchronize(i)
+    events = prof.events()
+    ranges = [(e.time_range.start, e.time_range.end, e.name[3:]) for e in events
+              if e.device_type == DeviceType.CPU and e.name.startswith("sp ")]
+    launched = {e.id: e.time_range.start for e in events
+                if e.device_type == DeviceType.CPU and e.name.startswith("cu")}
+    ms = {name: 0.0 for _, _, name in ranges}
+    for e in events:
+        at = launched.get(e.id)
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation or at is None:
+            continue
+        for lo, hi, name in ranges:
+            if lo <= at <= hi:
+                ms[name] += (e.time_range.end - e.time_range.start) / 1e3
+    return out, ms
