@@ -86,7 +86,26 @@ Phases, each printed with its seconds:
      keyframe against their plain versions; the 64-frame 1080p session at
      sp 2 (uneven I seams) against the pinned 1080p digests; dryrun_step
      on 64 streams of 360x640 at dp 2 x sp 2, each stream's lanes,
-     n_records and tables equal to device_encode_step alone.
+     n_records and tables equal to device_encode_step alone;
+ 10. window serving (screenpressor_tpu_torch.parallel.serve_scan): the
+     serving profile over 1 + 16 steps (synth_screencast(360, 640, 17,
+     seed=3), stream i rolled 3i columns: a per-step keyframe step, then
+     two windows of F 8) through serve_windowed at the WindowConfig
+     defaults and through serve_pipelined, 3 runs each in turns (times,
+     peak memory); every stream-step of the window RAW by a cause of the
+     capacity rule (counted by cause) or equal to serve_pipelined's bytes,
+     decode lossless; the window path counted from a reset (K1-K4 must all
+     appear), its first K1 and K2 launch over the streams, its walks and
+     its K4 launch against their plain versions; the window at capacities
+     that hold every stream-step equal to serve_pipelined everywhere; then
+     the single-stream window (bench.py:167-222, k_fixed 32) on 17 1080p
+     frames against the sequential session (bytes, decode_window, Mpix/s);
+ 11. the dp split: the serving session (phase 6's 5 steps) through
+     serve_pipelined with its streams split over 2 and 4 groups on the one
+     card (devices=[cuda] * n, printed as such) and unsplit, 3 runs each in
+     turns; bytes equal the unsplit session's, decode lossless; the 2-group
+     path counted from a reset and its launches held against plain as in
+     phase 10.
 K4 in phase 3 and 5 also reports its time a row and the whole
 reconstruct_i (expand, pad, kernel).
 The kernels' JSON summary gives each kernel's launches on its main path,
@@ -100,6 +119,7 @@ no result line). Needs a CUDA device; imports nothing of JAX, of the JAX
 package or of its benchmark.
 """
 
+import contextlib
 import hashlib
 import json
 import os
@@ -1226,6 +1246,451 @@ def sp_mesh(t0, dev, smi, record, frames_1080, cfg_1080, pinned_1080):
     return launches
 
 
+# ---- phases 10 and 11: window serving and the dp split ----
+
+WIN_STEPS = 17  # one per-step keyframe step, then two windows of F 8 (bench.py:339-361)
+
+
+@contextlib.contextmanager
+def capture(module, name, store, key, pick=lambda *a: True, tables_at=None):
+    """Wrap module.name while the block runs: store[key] = (args, a copy of
+    the tables argument tables_at as the call found them) of the first call
+    that pick(*args) accepts."""
+    real = getattr(module, name)
+
+    def wrapped(*args, **kw):
+        if key not in store and pick(*args):
+            store[key] = (args, None if tables_at is None else clone_tables(args[tables_at]))
+        return real(*args, **kw)
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def window_captures(store, tag):
+    """The captures of K1-K4 launches on a window or split path: the first
+    K1 and K2 launch over at least two streams, the first keyframe walk,
+    data-block walk and K4 launch."""
+    from screenpressor_tpu_torch import classify as tcl
+    from screenpressor_tpu_torch import coder as tc
+    from screenpressor_tpu_torch import pframe as tp
+    from screenpressor_tpu_torch import recon as tr
+
+    stack = contextlib.ExitStack()
+    two = lambda *a: len(a[4]) >= 2  # noqa: E731 (sidx)
+    stack.enter_context(capture(tc, "encode_sections_streams", store, f"K1 {tag}", two, 2))
+    stack.enter_context(capture(tc, "decode_sections_streams", store, f"K2 {tag}", two, 2))
+    stack.enter_context(capture(tcl, "run_walk", store, f"K3 keyframes {tag}"))
+    stack.enter_context(capture(tp, "run_walk", store, f"K3 data blocks {tag}"))
+    stack.enter_context(capture(tr, "recon_rows", store, f"K4 {tag}"))
+    return stack
+
+
+def hold_captured(record, store, tag, entries, smi, subset=2):
+    """The captured K1-K4 launches of `tag` against their plain versions on
+    the card: K1 / K2 over all their streams (full-table col), timed, and
+    the plain version on their first `subset` streams (a stream's bytes,
+    starts, records and tables do not depend on the others); K3 whole; K4
+    timed whole, plain on its first `subset` frames. entries: the row
+    names for K1, K2, K3, K4."""
+    import torch
+
+    from screenpressor_tpu_torch import classify as tcl
+    from screenpressor_tpu_torch import coder as tc
+    from screenpressor_tpu_torch import recon as tr
+
+    def rows_err(a, b, ids):
+        ids = torch.as_tensor([int(i) for i in ids], device=next(iter(b["color"].values())).device)
+        return max(int((a[kd][key][ids].long() - b[kd][key][ids].long()).abs().max())
+                   for kd in b for key in b[kd])
+
+    k1, k2, k3, k4 = entries
+    (dealt, lens, _, kts, sidx, *_), tabs0 = store[f"K1 {tag}"]
+    m = min(subset, len(sidx))
+    sidx = [int(i) for i in sidx]
+    scratch = clone_tables(tabs0)
+    ms, _ = cuda_ms(lambda: tc.encode_sections_streams(dealt, lens, scratch, kts, sidx),
+                    TIMED_REPS)
+    tab_k, tab_p = clone_tables(tabs0), clone_tables(tabs0)
+    bufs, starts = tc.encode_sections_streams(dealt, lens, tab_k, kts, sidx)
+    plain_ms, (bufs_p, starts_p) = cuda_ms(lambda: tc.encode_sections_streams_plain(
+        [d[:m] for d in dealt], [ln[:m] for ln in lens], tab_p, kts, sidx[:m]), 1, False)
+    err, n_bytes = rows_err(tab_k, tab_p, sidx[:m]), 0
+    for i in range(len(kts)):
+        for j in range(len(sidx)):
+            ln = lens[i][j].cpu().numpy()
+            got = tc.blobs_from_buf(bufs[i][j].cpu().numpy(), starts[i][j].cpu().numpy(), ln)
+            n_bytes += sum(map(len, got))
+            if j < m and got != tc.blobs_from_buf(bufs_p[i][j].cpu().numpy(),
+                                                  starts_p[i][j].cpu().numpy(), ln):
+                raise AssertionError(f"{k1} {kts[i][0]} stream {sidx[j]}: bytes differ")
+        err = max(err, max_abs_err([(starts[i][:m].cpu().numpy(), starts_p[i].cpu().numpy())]))
+    record(k1, ms, plain_ms, err, sections_work(kts, dealt, lens, n_bytes))
+    print(f"{k1}: {len(sidx)} streams x {[(n, t) for n, _, t in kts]} (name, T): kernel "
+          f"{ms:.3f} ms; plain on {m} of the streams {plain_ms:.1f} ms; bytes, starts, tables "
+          "equal")
+    del scratch, tab_k, tab_p, tabs0
+
+    (pays, lens, _, kts, sidx), tabs0 = store[f"K2 {tag}"]
+    sidx = [int(i) for i in sidx]
+    m = min(subset, len(sidx))
+    scratch = clone_tables(tabs0)
+    ms, _ = cuda_ms(lambda: tc.decode_sections_streams(pays, lens, scratch, kts, sidx),
+                    TIMED_REPS)
+    tab_k, tab_p = clone_tables(tabs0), clone_tables(tabs0)
+    recs = tc.decode_sections_streams(pays, lens, tab_k, kts, sidx)
+    plain_ms, recs_p = cuda_ms(lambda: tc.decode_sections_streams_plain(
+        [p[:m] for p in pays], [ln[:m] for ln in lens], tab_p, kts, sidx[:m]), 1, False)
+    err = max(rows_err(tab_k, tab_p, sidx[:m]),
+              max_abs_err([(r[:m].cpu().numpy(), rp.cpu().numpy())
+                           for r, rp in zip(recs, recs_p)]))
+    record(k2, ms, plain_ms, err, sections_work(kts, recs, lens, sum(p.numel() for p in pays)))
+    print(f"{k2}: {len(sidx)} streams x {[(n, t) for n, _, t in kts]}: kernel {ms:.3f} ms; "
+          f"plain on {m} of the streams {plain_ms:.1f} ms; records and tables equal")
+    del scratch, tab_k, tab_p, tabs0
+
+    for key in (f"K3 keyframes {tag}", f"K3 data blocks {tag}"):
+        if key not in store:
+            continue
+        (bits, st, tile), _ = store[key]
+        ms, got = cuda_ms(lambda: tcl.run_walk(bits, st, tile), TIMED_REPS)
+        plain_ms, ref = cuda_ms(lambda: tcl.run_walk_plain(bits, st, tile), 1, False)
+        record(k3, ms, plain_ms, max_abs_err([(got.cpu().numpy(), ref.cpu().numpy())]),
+               walk_work(bits, got))
+        print(f"{k3} ({key}): n={bits.numel()} tile={tile}: kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.1f} ms, equal")
+
+    (rows, w), _ = store[f"K4 {tag}"]
+    m = min(subset, rows.shape[0])
+    ms, got = cuda_ms(lambda: tr.recon_rows(rows, w), TIMED_REPS)
+    plain_ms, ref = cuda_ms(lambda: torch.stack([tr.recon_rows_plain(r, w) for r in rows[:m]]),
+                            1, False)
+    record(k4, ms, plain_ms, max_abs_err([(got[:m].cpu().numpy(), ref.cpu().numpy())]),
+           recon_work(rows, got))
+    print(f"{k4}: {rows.shape[0]} frames: kernel {ms:.3f} ms, plain on {m} of them "
+          f"{plain_ms:.1f} ms, equal, on {smi}")
+
+
+def payload_counts(p):
+    """(alg, {count: value}) of a frame's container header: an I frame's
+    n_rec and n_lit, a coded P frame's n_pix, n_lit and n_data."""
+    from screenpressor_tpu_torch import bitstream as bs
+    from screenpressor_tpu_torch.config import ALG_I, ALG_P
+
+    alg = p[0] & 0x0F
+    if alg == ALG_I:
+        (n_rec, n_lit), _ = bs.read_varint(p, 1, 2)
+        return alg, {"n_rec": n_rec, "n_lit": n_lit}
+    if alg == ALG_P and p[1] & 1:
+        vals, _ = bs.read_varint(p, 2, 8)
+        return alg, {"n_pix": vals[5], "n_lit": vals[6], "n_data": vals[7]}
+    return alg, {}
+
+
+def escape_causes(p, wcfg, thr):
+    """The window's RAW rule (serve_scan.py's module note) applied to the
+    counts and size of the sequential path's payload p of a stream-step."""
+    from screenpressor_tpu_torch.config import ALG_I, ALG_P, ALG_RAW
+
+    alg, n = payload_counts(p)
+    if alg == ALG_RAW:
+        return ["size (also sequential)"]
+    causes = []
+    if alg == ALG_I:
+        causes += [c for c, hit in (("irec_cap", n["n_rec"] > wcfg.irec_cap),
+                                    ("icol_cap", n["n_lit"] > wcfg.icol_cap)) if hit]
+    elif alg == ALG_P and n:
+        causes += [c for c, hit in (("bcap", n["n_data"] > wcfg.bcap),
+                                    ("rec_cap", n["n_pix"] > wcfg.rec_cap),
+                                    ("col_cap", n["n_lit"] > wcfg.col_cap)) if hit]
+    else:
+        return []
+    if len(p) >= thr:
+        causes.append("size")
+    if len(p) > wcfg.pack_cap:
+        causes.append("pack_cap")
+    return causes
+
+
+def no_escape_caps(ss, cfg, n_streams, steps, f, c):
+    """A WindowConfig whose capacities hold every stream-step of `steps`
+    (the sequential path's payloads): no stream-step escapes."""
+    from screenpressor_tpu_torch.config import ALG_I
+
+    need = {"n_pix": 1, "n_lit_p": 1, "n_data": 1, "n_rec": 1, "n_lit_i": 1}
+    longest = 1
+    for outs in steps:
+        for p, _ in outs:
+            alg, n = payload_counts(p)
+            longest = max(longest, len(p))
+            for key, v in n.items():
+                key = key + ("_i" if alg == ALG_I else "_p") if key == "n_lit" else key
+                need[key] = max(need[key], v)
+    return ss.WindowConfig(cfg, n_streams, f=f, c=c, rec_cap=next_pow2_(need["n_pix"]),
+                           col_cap=next_pow2_(need["n_lit_p"]), bcap=next_pow2_(need["n_data"]),
+                           irec_cap=next_pow2_(need["n_rec"]), icol_cap=next_pow2_(need["n_lit_i"]),
+                           pack_cap=next_pow2_(longest + 1))
+
+
+def next_pow2_(n):
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def timed_runs(runs, reps):
+    """Each of runs {label: fn} reps times in turns after a warm-up; fn()
+    returns what it served. -> ({label: [seconds]}, {label: peak device MiB
+    of its last run}, {label: first timed run's result})."""
+    import torch
+
+    walls, peaks, first = {k: [] for k in runs}, {}, {}
+    for fn in runs.values():
+        fn()
+    for _ in range(reps):
+        for label, fn in runs.items():
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            got = fn()
+            torch.cuda.synchronize()
+            walls[label].append(time.perf_counter() - t)
+            peaks[label] = (torch.cuda.max_memory_allocated() - held) / 2**20
+            first.setdefault(label, got)
+    return walls, peaks, first
+
+
+def spread(xs):
+    return f"{min(xs):.6f}-{max(xs):.6f}"
+
+
+def window_serving(t0, dev, smi, record, frames_1080, synth_screencast):
+    """Phase 10: window serving (parallel/serve_scan.py) on the serving
+    workload over 1 + 16 steps, against serve_pipelined; the single-stream
+    window at 1080p against the sequential session. Returns the counted
+    window run's launch counts."""
+    import torch
+
+    from screenpressor_tpu_torch import _build
+    from screenpressor_tpu_torch.config import ALG_RAW, CodecConfig
+    from screenpressor_tpu_torch.parallel import serve_scan as ss
+    from screenpressor_tpu_torch.parallel import serving as ts
+
+    cfg = CodecConfig(width=S_W, height=S_H, kf_interval=S_KF, k_fixed=64, msr_x=256,
+                      msr_y=256)
+    offsets = (np.arange(S_STREAMS) * S_KF) // S_STREAMS
+    base = synth_screencast(S_H, S_W, WIN_STEPS, seed=3)
+    batches = [torch.as_tensor(np.stack([np.roll(base[t], 3 * i, axis=1)
+                                         for i in range(S_STREAMS)]), device=dev)
+               for t in range(WIN_STEPS)]
+    defaults = ss.WindowConfig(cfg, S_STREAMS)
+    thr = 1 + S_H * S_W * 3
+
+    def serve(window, wcfg=None):
+        enc = ts.BatchedEncoder(S_STREAMS, cfg, dev, kf_offsets=offsets)
+        dec = ts.BatchedDecoder(S_STREAMS, cfg, dev)
+        got = list(ss.serve_windowed(enc, batches, dec, wcfg) if window
+                   else ts.serve_pipelined(enc, batches, dec))
+        dec.validate()
+        return got
+
+    walls, peaks, first = timed_runs(
+        {"serve_pipelined": lambda: serve(False),
+         "serve_windowed (defaults)": lambda: serve(True, defaults)}, 3)
+    pipe, win = first["serve_pipelined"], first["serve_windowed (defaults)"]
+    phase("window serving: timed runs", t0)
+
+    # every stream-step of the default window: RAW by a cause of the rule,
+    # else the pipelined bytes (up to the stream's first RAW: an escape
+    # renews its tables), and every decode lossless
+    causes, first_raw, after = {}, {}, 0
+    for t in range(WIN_STEPS):
+        for i in range(S_STREAMS):
+            (pw, fw), (pp, fp) = win[t][0][i], pipe[t][0][i]
+            why = escape_causes(pp, defaults, thr) if t else []
+            if pw[0] & 0x0F == ALG_RAW and pp[0] & 0x0F != ALG_RAW:
+                if not why and i not in first_raw:
+                    raise AssertionError(f"window step {t} stream {i}: RAW without a cause")
+                for c in why or ["size after an earlier escape"]:
+                    causes[c] = causes.get(c, 0) + 1
+                first_raw.setdefault(i, t)
+            elif i in first_raw:
+                after += 1
+            elif (pw, fw) != (pp, fp):
+                raise AssertionError(f"window step {t} stream {i}: bytes differ from "
+                                     "serve_pipelined's within the capacities")
+            elif any(c for c in why if "sequential" not in c):
+                raise AssertionError(f"window step {t} stream {i}: over a capacity, not RAW")
+    for (_, back), (_, ref), frames in zip(win, pipe, batches):
+        if not (torch.equal(back, frames) and torch.equal(ref, frames)):
+            raise AssertionError("window serving: decode not lossless")
+    n_raw = sum(1 for t in range(WIN_STEPS) for p, _ in win[t][0] if p[0] & 0x0F == ALG_RAW)
+    print(f"window serving, WindowConfig defaults: {n_raw} RAW stream-steps of "
+          f"{S_STREAMS * WIN_STEPS}, by cause {causes} (first RAW step by stream "
+          f"{first_raw}); {after} later stream-steps of escaped streams (tables renewed: "
+          "decoded only); the rest equal serve_pipelined's bytes; decode lossless")
+
+    # the window path counted, its K1-K4 launches captured: steps 1-16 at
+    # the defaults after the per-step keyframe step; its bytes are those of
+    # the timed runs
+    enc = ts.BatchedEncoder(S_STREAMS, cfg, dev, kf_offsets=offsets)
+    dec = ts.BatchedDecoder(S_STREAMS, cfg, dev)
+    dec.decode([p for p, _ in enc.encode(batches[0])])
+    store = {}
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    with window_captures(store, "window"):
+        got = list(ss.serve_windowed(enc, batches[1:], dec, defaults))
+        dec.validate()
+    counts = dict(_build.LAUNCHES)
+    print(f"window path launches (16 steps in two windows of 8, WindowConfig defaults): "
+          f"{counts}")
+    missing = [k for k in ("sptc_sections_encode", "sptc_sections_decode", "sptc_run_walk",
+                           "sptc_recon_rows") if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the window path: {missing}")
+    if [outs for outs, _ in got] != [outs for outs, _ in win[1:]]:
+        raise AssertionError("window serving: the counted run's bytes differ from the timed "
+                             "runs'")
+
+    # capacities that hold every stream-step: the window equals
+    # serve_pipelined everywhere
+    big = no_escape_caps(ss, cfg, S_STREAMS, [outs for outs, _ in pipe[1:]], 8, 2)
+    for t, ((outs, back), (ref, _), frames) in enumerate(zip(serve(True, big), pipe, batches)):
+        if outs != ref:
+            bad = [i for i in range(S_STREAMS) if outs[i] != ref[i]]
+            raise AssertionError(f"window step {t}: streams {bad[:8]} differ from "
+                                 "serve_pipelined's bytes")
+        if not torch.equal(back, frames):
+            raise AssertionError(f"window step {t}: decode not lossless")
+    print(f"window serving, no-escape capacities {vars(big)}: every stream-step's bytes "
+          "equal serve_pipelined's, decode lossless")
+    phase("window serving: bytes", t0)
+    hold_captured(record, store, "window", ("sptc_sections_encode_window",
+                                            "sptc_sections_decode_window",
+                                            "sptc_run_walk_window", "sptc_recon_rows_window"),
+                  smi)
+    del store
+    phase("window serving: kernels vs plain", t0)
+
+    n_sf = S_STREAMS * WIN_STEPS
+    for label, xs in walls.items():
+        print(f"{label}: {S_STREAMS} streams x {WIN_STEPS} steps at {S_W}x{S_H}, encode + "
+              f"decode {spread(xs)} s over 3 runs in turns: "
+              f"{spread([n_sf / x for x in xs])} stream-frames/s; peak device memory "
+              f"{peaks[label]:.1f} MiB, on {smi}")
+
+    # the single-stream window (bench.py:167-222): 17 1080p frames, k_fixed 32
+    h, w = frames_1080[0].shape[:2]
+    cfg1 = CodecConfig(width=w, height=h, k_fixed=32)
+    one = [torch.as_tensor(f[None], device=dev) for f in frames_1080[:WIN_STEPS]]
+
+    def sequential():
+        enc = ts.BatchedEncoder(1, cfg1, dev)
+        return [enc.encode(b) for b in one]
+
+    want = sequential()
+    wcfg1 = no_escape_caps(ss, cfg1, 1, want[1:], WIN_STEPS - 1, 1)
+
+    def windowed():
+        enc = ts.BatchedEncoder(1, cfg1, dev)
+        return [enc.encode(one[0])] + ss.encode_window(enc, one[1:], wcfg1)
+
+    walls1, _, first1 = timed_runs({"sequential": sequential, "window": windowed}, 3)
+    if first1["window"] != want or first1["sequential"] != want:
+        raise AssertionError("1080p single-stream window: bytes differ from the sequential "
+                             "session")
+    dec = ts.BatchedDecoder(1, cfg1, dev)
+    dec.decode([want[0][0][0]])
+    back = ss.decode_window(dec, [[o[0][0]] for o in want[1:]])
+    dec.validate()
+    if not all(torch.equal(back[t, 0], one[t + 1][0]) for t in range(WIN_STEPS - 1)):
+        raise AssertionError("1080p single-stream window: decode_window not lossless")
+    mpix = h * w * WIN_STEPS / 1e6
+    print(f"1080p single-stream window ({WIN_STEPS} frames, one F {WIN_STEPS - 1} window, "
+          f"capacities {vars(wcfg1)}): bytes equal the sequential BatchedEncoder's, "
+          f"decode_window lossless; encode Mpix/s over 3 runs: window "
+          f"{spread([mpix / x for x in walls1['window']])}, sequential "
+          f"{spread([mpix / x for x in walls1['sequential']])}, on {smi}")
+    phase("window serving: 1080p single stream", t0)
+    return counts
+
+
+def dp_split(t0, dev, smi, record, synth_screencast):
+    """Phase 11: the serving session split over 2 and 4 stream groups on
+    the one card (devices=[cuda] * n) against the unsplit session. Returns
+    the counted 2-group run's launch counts."""
+    import torch
+
+    from screenpressor_tpu_torch import _build
+    from screenpressor_tpu_torch.parallel import serving as ts
+
+    cfg, offsets, _, batches = serving_batches(dev, synth_screencast)
+
+    def serve(n):
+        kw = {"device": dev} if n == 1 else {"devices": [dev] * n}
+        enc = ts.BatchedEncoder(S_STREAMS, cfg, kf_offsets=offsets, **kw)
+        dec = ts.BatchedDecoder(S_STREAMS, cfg, **kw)
+        got = list(ts.serve_pipelined(enc, batches, dec))
+        dec.validate()
+        return got
+
+    walls, peaks, first = timed_runs({n: (lambda n=n: serve(n)) for n in (1, 2, 4)}, 3)
+    for n in (2, 4):
+        for t, ((outs, back), (ref, _), frames) in enumerate(zip(first[n], first[1], batches)):
+            if outs != ref:
+                raise AssertionError(f"dp {n} groups, step {t}: bytes differ from unsplit")
+            if not torch.equal(back, frames):
+                raise AssertionError(f"dp {n} groups, step {t}: decode not lossless")
+    n_sf = S_STREAMS * S_STEPS
+    for n, xs in walls.items():
+        label = "unsplit" if n == 1 else f"{n} groups (devices=[{dev}] * {n}, one card)"
+        print(f"dp split, {label}: {S_STREAMS} streams x {S_STEPS} steps, serve_pipelined "
+              f"{spread(xs)} s over 3 runs in turns: {spread([n_sf / x for x in xs])} "
+              f"stream-frames/s; peak device memory {peaks[n]:.1f} MiB, on {smi}")
+    print("dp split: the 2- and 4-group sessions' bytes equal the unsplit session's, "
+          "decode lossless")
+    phase("dp split: timed runs", t0)
+
+    store = {}
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    with window_captures(store, "dp"):
+        got = serve(2)
+    counts = dict(_build.LAUNCHES)
+    print(f"dp split path launches (2 groups, 5 steps): {counts}")
+    missing = [k for k in ("sptc_sections_encode", "sptc_sections_decode", "sptc_run_walk",
+                           "sptc_recon_rows") if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the dp split path: {missing}")
+    if [outs for outs, _ in got] != [outs for outs, _ in first[1]]:
+        raise AssertionError("dp split counted run: bytes differ from unsplit")
+    hold_captured(record, store, "dp", ("sptc_sections_encode_dp", "sptc_sections_decode_dp",
+                                        "sptc_run_walk_dp", "sptc_recon_rows_dp"), smi)
+    phase("dp split: kernels vs plain", t0)
+    return counts
+
+
+def recorder(rows):
+    """record(kernel, ms, plain_ms, err, work): add one compared call to
+    rows[kernel] (times, largest error, bound of its (bytes, operations));
+    raises if the kernel differs from its plain version."""
+    def record(kernel, ms, plain_ms, err, work):
+        r = rows.setdefault(kernel, {"ms": 0.0, "plain_ms": 0.0, "err": 0, "bound_ms": 0.0,
+                                     "bytes_ms": 0.0, "ops_ms": 0.0})
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["err"] = max(r["err"], err)
+        r["bound_ms"] += bound(*work)[0]
+        r["bytes_ms"] += bound(work[0], 0)[0]
+        r["ops_ms"] += bound(0, work[1])[0]
+        if err:
+            raise AssertionError(f"{kernel}: kernel differs from plain (max |err| {err})")
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -1269,19 +1734,7 @@ def main() -> int:
     cfg = CodecConfig(width=W, height=H)
     kf = torch.as_tensor(frames[0], device=dev)
     rows = {}  # kernel -> {"ms": , "plain_ms": , "err": }
-
-    def record(kernel, ms, plain_ms, err, work):
-        """Add one compared call: times, error and its (bytes, operations)."""
-        r = rows.setdefault(kernel, {"ms": 0.0, "plain_ms": 0.0, "err": 0, "bound_ms": 0.0,
-                                     "bytes_ms": 0.0, "ops_ms": 0.0})
-        r["ms"] += ms
-        r["plain_ms"] += plain_ms
-        r["err"] = max(r["err"], err)
-        r["bound_ms"] += bound(*work)[0]
-        r["bytes_ms"] += bound(work[0], 0)[0]
-        r["ops_ms"] += bound(0, work[1])[0]
-        if err:
-            raise AssertionError(f"{kernel}: kernel differs from plain (max |err| {err})")
+    record = recorder(rows)
 
     # K3 on the keyframe's fits
     fits = tcl.fits_planes_i(kf)
@@ -1513,6 +1966,8 @@ def main() -> int:
     damaged_streams(t0, dev, smi)
     session_api(t0, dev, smi, frames, cfg, pinned, rgb24_rates)
     sp_counts = sp_mesh(t0, dev, smi, record, frames, cfg, pinned)
+    win_counts = window_serving(t0, dev, smi, record, frames, synth_screencast)
+    dp_counts = dp_split(t0, dev, smi, record, synth_screencast)
 
     sections = "screenpressor_tpu_torch/csrc/sections.cu"
     walk = "screenpressor_tpu_torch/csrc/run_walk.cu"
@@ -1535,6 +1990,14 @@ def main() -> int:
         ("sptc_sections_decode_sp", "sptc_sections_decode", sp_counts, sections, k2),
         ("sptc_run_walk_sp", "sptc_run_walk", sp_counts, walk, k3),
         ("sptc_recon_rows_sp", "sptc_recon_rows", sp_counts, recon, k4),
+        ("sptc_sections_encode_window", "sptc_sections_encode", win_counts, sections, k1),
+        ("sptc_sections_decode_window", "sptc_sections_decode", win_counts, sections, k2_grid),
+        ("sptc_run_walk_window", "sptc_run_walk", win_counts, walk, k3),
+        ("sptc_recon_rows_window", "sptc_recon_rows", win_counts, recon, k4),
+        ("sptc_sections_encode_dp", "sptc_sections_encode", dp_counts, sections, k1),
+        ("sptc_sections_decode_dp", "sptc_sections_decode", dp_counts, sections, k2_grid),
+        ("sptc_run_walk_dp", "sptc_run_walk", dp_counts, walk, k3),
+        ("sptc_recon_rows_dp", "sptc_recon_rows", dp_counts, recon, k4),
     )
     kernels = [
         {"name": entry, "route": "cuda", "source": src, "replaces": rep,

@@ -48,8 +48,7 @@ def fits_planes_i(frame: torch.Tensor) -> torch.Tensor:
     def eq(a, b):
         return (a == b).all(dim=1)
 
-    f_left = eq(pix, left)
-    f_left[0] = False
+    f_left = eq(pix, left) & (idx > 0)  # a mask, not an indexed store: no host sync
     fits = torch.zeros((n, NUM_PTYPES), dtype=torch.bool, device=dev)
     fits[:, PT_LITERAL] = f_left
     fits[:, PT_LEFT] = f_left

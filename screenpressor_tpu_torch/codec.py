@@ -25,7 +25,7 @@ import torch
 from screenpressor_tpu_torch import bitstream as bs
 from screenpressor_tpu_torch.config import ALG_FLAT, ALG_I, ALG_P, ALG_RAW, CodecConfig
 from screenpressor_tpu_torch.blocks import AREA, analyze_compact_streams, mv_candidates
-from screenpressor_tpu_torch.coder import col_compact_bucket
+from screenpressor_tpu_torch.coder import col_compact_bucket, upload
 from screenpressor_tpu_torch.iframe import (
     decode_i_device,
     encode_i_raw,
@@ -84,16 +84,23 @@ def owned_frames(frames, device) -> torch.Tensor:
 def gather_segments_device(parts, segs, device) -> torch.Tensor:
     """One torch.cat + index on the device: parts are flat uint8 tensors,
     segs (part, offset, length) byte ranges. Returns the concatenated bytes
-    as a uint8 tensor."""
+    as a uint8 tensor. The ranges go up in one non-blocking upload and are
+    expanded into byte indices on the device."""
     if not segs:
         return torch.zeros(0, dtype=torch.uint8, device=device)
     bases = np.cumsum([0] + [p.numel() for p in parts])
-    src = np.asarray([bases[p] + o for p, o, _ in segs], np.int64)
-    lens = np.asarray([ln for _, _, ln in segs], np.int64)
-    dst = np.cumsum(lens) - lens
-    idx = np.repeat(src - dst, lens) + np.arange(int(lens.sum()), dtype=np.int64)
+    seg = np.asarray(segs, np.int64).reshape(-1, 3)
+    lens = seg[:, 2]
+    total = int(lens.sum())
     flat = torch.cat(parts)
-    return flat[torch.as_tensor(idx, device=flat.device)]
+    if not total:
+        return flat[:0]
+    # each byte's source is its range's start minus the range's output
+    # offset, plus its own output position
+    shift = bases[seg[:, 0]] + seg[:, 1] - (np.cumsum(lens) - lens)
+    meta = upload(np.concatenate([shift, lens]), flat.device)
+    idx = torch.repeat_interleave(meta[:len(seg)], meta[len(seg):], output_size=total)
+    return flat[idx + torch.arange(total, device=flat.device)]
 
 
 def gather_segments(parts, segs):

@@ -1318,22 +1318,30 @@ static int unpack(const long long* d, int n_sec, bool decode, Params* p,
   return 0;
 }
 
+constexpr int MAX_DEVICES = 64;
+
 // The most dynamic shared memory a block of `kernel` can take beside the
-// kernel's static shared memory; the opt-in above 48 KB is set once per
-// kernel (limit < 0: not asked yet).
+// kernel's static shared memory on the current device; the opt-in above
+// 48 KB is a per-device attribute, set once per kernel and device
+// (limits[dev] 0: not asked yet).
 template <typename Kernel>
-static int dyn_limit(Kernel kernel, int* limit) {
-  if (*limit >= 0) return 0;
-  cudaFuncAttributes fa;
-  int err = (int)cudaFuncGetAttributes(&fa, kernel);
+static int dyn_limit(Kernel kernel, int* limits, int* limit) {
+  int dev;
+  int err = (int)cudaGetDevice(&dev);
   if (err) return err;
-  int dev, optin;
-  err = (int)cudaGetDevice(&dev);
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (limits[dev] > 0) {
+    *limit = limits[dev];
+    return 0;
+  }
+  cudaFuncAttributes fa;
+  int optin;
+  err = (int)cudaFuncGetAttributes(&fa, kernel);
   if (!err) err = (int)cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (!err) err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                             optin - (int)fa.sharedSizeBytes);
   if (err) return err;
-  *limit = optin - (int)fa.sharedSizeBytes;
+  *limit = limits[dev] = optin - (int)fa.sharedSizeBytes;
   return 0;
 }
 
@@ -1342,9 +1350,10 @@ static int dyn_limit(Kernel kernel, int* limit) {
 template <int CH, bool ENCODE>
 static int launch_sections(const Params& p, int n_sec, dim3 grid, int threads,
                            cudaStream_t stream) {
-  static int max_dyn = -1;
-  const int err = ENCODE ? dyn_limit(encode_kernel<CH>, &max_dyn)
-                         : dyn_limit(decode_kernel<CH>, &max_dyn);
+  static int limits[MAX_DEVICES] = {};
+  int max_dyn;
+  const int err = ENCODE ? dyn_limit(encode_kernel<CH>, limits, &max_dyn)
+                         : dyn_limit(decode_kernel<CH>, limits, &max_dyn);
   if (err) return err;
   int smem = 0;
   for (int i = 0; i < n_sec; ++i) {

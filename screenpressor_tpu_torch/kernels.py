@@ -34,7 +34,7 @@ from screenpressor_tpu_torch.config import (
     kind_step,
 )
 from screenpressor_tpu_torch import _build
-from screenpressor_tpu_torch.coder import pack_cap
+from screenpressor_tpu_torch.coder import pack_cap, upload
 from screenpressor_tpu_torch.substeps import SUBSTEP_CODECS as CODECS
 
 KIND_ORDER = ("ptype", "nrun", "color", "bt", "btn", "sxy", "mvflag", "mv")
@@ -97,7 +97,7 @@ def _check_section(name, k, t, c, arr, lens):
 def _slots(sidx, dev):
     if len(set(sidx)) != len(sidx) or min(sidx) < 0:
         raise ValueError(f"stream ids must be distinct and >= 0: {sidx}")
-    return torch.as_tensor(np.asarray(sidx, np.int32), device=dev)
+    return upload(np.asarray(sidx, np.int32), dev)  # non-blocking: no wait on the queue
 
 
 def encode_sections_streams_kernel(dealt_list, lens_list, tables_b: dict, kts, sidx,

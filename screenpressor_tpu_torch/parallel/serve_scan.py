@@ -1,0 +1,522 @@
+"""Window serving — PyTorch port of `screenpressor_tpu/parallel/serve_scan.py`.
+
+A window advances F serving steps of a `BatchedEncoder` (all S streams) on
+the device with no host read between its steps: analysis, data-block
+classification at a fixed capacity, the section encode (K1) with the raw
+escape, the keyframe slots, the flat / no-change bookkeeping and the
+container bytes all stay on the device, with fixed capacities throughout
+(`WindowConfig`). The steps are a Python loop (torch has no scan); every K1
+launch takes its step count from a capacity, not from pulled counts. The
+only host syncs inside a window are the motion search's, one a candidate
+chunk (`blocks.motion_search_streams`). `encode_window_finish` then makes
+two pulls: the [F, S] lengths and kinds, then one gather of exactly the
+used bytes (RAW bodies included).
+
+Capacities are part of the bytes. Within them a window emits exactly the
+sequential `BatchedEncoder.encode()` bytes; a stream-step beyond them is
+emitted as a RAW frame of its lossy input, and its tables are renewed (the
+reference's rule, serve_scan.py:250-252, 283, 302, 328):
+  P: n_data > bcap, n_pix > rec_cap or n_lit > col_cap;
+  I: n_rec > irec_cap or n_lit > icol_cap;
+  either: total >= 1 + W * H * 3 or total > pack_cap.
+The keyframe slots code from renewed tables over the full color table (no
+colw), which changes no byte.
+
+`decode_window` decodes F steps through a `BatchedDecoder`: every payload
+is parsed first (a CorruptStreamError names "step t stream i"), the
+window's host arrays go up in one upload, each payload tensor sized exactly
+to its step, and the stream check is deferred to the next decode() /
+validate().
+
+A `devices=` session (serving.py) runs a window per stream group: every
+group's begin, then every group's finish; the bytes equal the unsplit
+window's.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from screenpressor_tpu_torch import bitstream as bs
+from screenpressor_tpu_torch import coder as tc
+from screenpressor_tpu_torch.blocks import analyze_compact_streams
+from screenpressor_tpu_torch.classify import classify_i_streams
+from screenpressor_tpu_torch.codec import FTYPE_I, FTYPE_P, apply_loss, gather_segments
+from screenpressor_tpu_torch.config import ALG_FLAT, ALG_I, ALG_P, ALG_RAW, next_pow2
+from screenpressor_tpu_torch.parallel.serving import on_device, pull, upload_all
+from screenpressor_tpu_torch.pframe import SECTION_NAMES, classify_assemble_fixed
+from screenpressor_tpu_torch.tables import renew_rows_at, renew_where
+
+# kind codes of the pulled [F, S] matrix
+K_FLAT, K_I, K_NOCHANGE, K_P, K_RAW = 0, 1, 2, 3, 4
+
+U8 = torch.uint8
+I64 = torch.int64
+
+
+# ---------------------------------------------------------------------------
+# Container bytes on the device
+# ---------------------------------------------------------------------------
+
+
+def _varint_emit(vals: torch.Tensor):
+    """vals [C, n] (each < 2^28) -> (bytes [C, 4n] uint8: the n fields'
+    LEB128 concatenated, lens [C]). Mirrors bs.pack_varint."""
+    c, n = vals.shape
+    v = vals.to(I64)
+    ln = 1 + (v >= 1 << 7).long() + (v >= 1 << 14).long() + (v >= 1 << 21).long()
+    offs = ln.cumsum(dim=1) - ln
+    j = torch.arange(4, device=v.device)
+    byts = ((v[..., None] >> (7 * j)) & 0x7F) | torch.where(ln[..., None] > j + 1, 0x80, 0)
+    cap = 4 * n
+    pos = torch.where(j < ln[..., None], offs[..., None] + j, cap)  # column cap: a sink
+    buf = torch.zeros((c, cap + 1), dtype=I64, device=v.device)
+    buf.scatter_(1, pos.reshape(c, -1), byts.reshape(c, -1))
+    return buf[:, :cap].to(U8), ln.sum(dim=1)
+
+
+def _sec_meta_bytes(sizes: torch.Tensor, k: int):
+    """Section status byte + minimal-width size table of C streams' lane
+    sizes [C, k] -> (meta [C, 1 + 4k] uint8, meta lens [C]). Mirrors
+    bs.pack_section's header."""
+    klog = max(0, (k - 1).bit_length())
+    assert (1 << klog) == k
+    c = sizes.shape[0]
+    dev = sizes.device
+    m = sizes.max(dim=1).values
+    wcode = torch.where(m < 1 << 8, 0, torch.where(m < 1 << 16, 1, 2))
+    wid = torch.where(m < 1 << 8, 1, torch.where(m < 1 << 16, 2, 4))[:, None, None]
+    j = torch.arange(4, device=dev)
+    sb = (sizes[..., None] >> (8 * j)) & 0xFF  # [C, k, 4] little endian
+    cap = 1 + 4 * k
+    pos = torch.where(j < wid, 1 + torch.arange(k, device=dev)[None, :, None] * wid + j, cap)
+    meta = torch.zeros((c, cap + 1), dtype=I64, device=dev)
+    meta[:, 0] = klog | (wcode << 4)
+    meta.scatter_(1, pos.reshape(c, -1), sb.reshape(c, -1))
+    return meta[:, :cap].to(U8), 1 + k * wid[:, 0, 0]
+
+
+def _seg_gather(flat: torch.Tensor, src: torch.Tensor, lens: torch.Tensor, cap: int):
+    """Per stream c, the segments flat[src[c, g]: src[c, g] + lens[c, g]]
+    concatenated in order into [C, cap] uint8 (cut at cap) -> (out, total
+    lens [C])."""
+    c, g = src.shape
+    ends = lens.cumsum(dim=1)
+    p = torch.arange(cap, device=flat.device).expand(c, cap).contiguous()
+    seg = torch.searchsorted(ends, p, right=True).clamp(max=g - 1)
+    idx = src.gather(1, seg) + p - (ends.gather(1, seg) - lens.gather(1, seg))
+    out = torch.where(p < ends[:, -1:], flat[idx.clamp(0, flat.numel() - 1)], 0)
+    return out.to(U8), ends[:, -1]
+
+
+def _container_emit(head: torch.Tensor, head_len: torch.Tensor, secs, pack_cap: int):
+    """C streams' whole containers on the device: head [C, hc] uint8
+    (head_len [C] bytes valid), then per section (bufs [C, K, cap], starts
+    [C, K], lens [C, K]) its status byte, size table and lane payloads.
+    Returns (out [C, pack_cap] uint8, total lens [C])."""
+    c, hc = head.shape
+    dev = head.device
+    cid = torch.arange(c, device=dev)[:, None]
+    parts, srcs, lens = [head.reshape(-1)], [cid * hc], [head_len.to(I64)[:, None]]
+    base = c * hc
+    for buf, start, ln in secs:
+        _, k, cap = buf.shape
+        sizes = torch.where(ln > 0, cap - start.to(I64), 0)
+        meta, meta_len = _sec_meta_bytes(sizes, k)
+        parts.append(meta.reshape(-1))
+        srcs.append(base + cid * meta.shape[1])
+        lens.append(meta_len[:, None])
+        base += meta.numel()
+        parts.append(buf.reshape(-1))
+        srcs.append(base + (cid * k + torch.arange(k, device=dev)) * cap + start.to(I64))
+        lens.append(sizes)
+        base += buf.numel()
+    return _seg_gather(torch.cat(parts), torch.cat(srcs, dim=1), torch.cat(lens, dim=1),
+                       pack_cap)
+
+
+def _p_head(hdr_vals: torch.Tensor):
+    """P-frame heads: [hdr(ALG_P), 1] + varint(8 fields) -> ([C, 34], lens)."""
+    vb, vl = _varint_emit(hdr_vals)
+    c = vb.shape[0]
+    pre = [torch.full((c, 1), v, dtype=U8, device=vb.device) for v in (bs.header_byte(ALG_P), 1)]
+    return torch.cat([*pre, vb], dim=1), 2 + vl
+
+
+def _i_head(n_rec: torch.Tensor, n_lit: torch.Tensor):
+    """I-frame heads: [hdr(ALG_I)] + varint(n_rec, n_lit) -> ([C, 9], lens)."""
+    vb, vl = _varint_emit(torch.stack([n_rec, n_lit], dim=1))
+    pre = torch.full((vb.shape[0], 1), bs.header_byte(ALG_I), dtype=U8, device=vb.device)
+    return torch.cat([pre, vb], dim=1), 1 + vl
+
+
+# ---------------------------------------------------------------------------
+# The window's steps
+# ---------------------------------------------------------------------------
+
+
+class WindowConfig:
+    """Static capacities of a window (shapes only: overflow takes the raw
+    escape, never corrupts)."""
+
+    def __init__(self, cfg, n_streams: int, f: int = 8, c: int = 2,
+                 rec_cap: int = 8192, col_cap: int = 8192,
+                 irec_cap: int = 32768, icol_cap: int = 16384,
+                 bcap: int = 512, pack_cap: int = 65536):
+        self.f, self.c = f, c
+        self.rec_cap, self.col_cap = rec_cap, col_cap
+        self.irec_cap = min(irec_cap, next_pow2(cfg.width * cfg.height))
+        self.icol_cap = min(icol_cap, next_pow2(cfg.width * cfg.height))
+        self.bcap = min(bcap, next_pow2(cfg.nbx * cfg.nby))
+        self.pack_cap = pack_cap
+        # the device varint emitter writes at most 4 LEB128 bytes a field;
+        # every header field is bounded by the pixel count
+        assert cfg.width * cfg.height < 1 << 28, (
+            "window programs require frame fields < 2^28 (device varint "
+            "emitter is 4-byte LEB128)"
+        )
+
+
+def _p_slots(enc, wcfg, frames, prevs, ids):
+    """The P streams `ids` (host ints; frames, prevs theirs) of one window
+    step. Returns (out [C, pack_cap], lens [C], raw [C], flat [C], color
+    [C, 3], nochange [C])."""
+    cfg, k = enc.cfg, enc.cfg.k_fixed
+    h, w = cfg.height, cfg.width
+    c = frames.shape[0]
+    dev = frames.device
+    arrs, counts, flat4 = analyze_compact_streams(frames, prevs, enc.cands, cfg)
+    counts = counts.to(I64)
+    is_flat = flat4[:, 0] != 0
+    active = (counts[:, 0] != 0) & ~is_flat
+    nochange = ~is_flat & (counts[:, 0] == 0)
+
+    # data blocks at a fixed capacity, no host read
+    n_data = torch.where(active, counts[:, 6], 0)
+    pix, lit, plc = classify_assemble_fixed(frames, prevs, arrs["data_rects"],
+                                            n_data.clamp(max=wcfg.bcap), wcfg.bcap)
+    n_pix = torch.where(active, plc[:, 0].to(I64), 0)
+    n_lit = torch.where(active, plc[:, 1].to(I64), 0)
+    overflow = active & ((counts[:, 6] > wcfg.bcap) | (n_pix > wcfg.rec_cap)
+                         | (n_lit > wcfg.col_cap))
+    keep = active & ~overflow
+    ns = [torch.where(active, counts[:, 3], 0), torch.where(active, counts[:, 4], 0),
+          torch.where(active, counts[:, 5], 0), torch.where(keep, n_pix, 0),
+          torch.where(keep, n_lit, 0)]
+    hdr_vals = torch.stack([counts[:, 1], counts[:, 2], *ns, n_data], dim=1)
+
+    # the five sections, each T from its capacity
+    caps = [arrs["bt"].shape[1]] * 3 + [min(wcfg.rec_cap, pix.shape[1]),
+                                        min(wcfg.col_cap, lit.shape[1])]
+    kts = tuple((name, k, tc.steps_for(cap, k)) for name, cap in zip(SECTION_NAMES, caps))
+    srcs = (arrs["bt"], arrs["sxy"], arrs["mv"], pix, lit)
+    dealt, lens = [], []
+    for (_, _, t), src, n in zip(kts, srcs, ns):
+        off = torch.arange(c, device=dev) * src.shape[1]
+        dealt.append(tc.deal_streams(src.reshape(-1, src.shape[2]), off, n, k, t))
+        lens.append(tc.lane_lens_streams(n, k))
+    bufs, starts = tc.encode_sections_streams(dealt, lens, enc.tables_b, kts, ids)
+    out, total = _container_emit(*_p_head(hdr_vals), list(zip(bufs, starts, lens)),
+                                 wcfg.pack_cap)
+    raw = active & (overflow | (total >= 1 + w * h * 3) | (total > wcfg.pack_cap))
+    return out, total, raw, is_flat, flat4[:, 1:4].to(U8), nochange
+
+
+def _i_slots(enc, wcfg, frames, ids, ids_t):
+    """The keyframing streams `ids` (host ints; ids_t on the device) of one
+    window step: coded from renewed tables with the full color table.
+    Returns (out [C, pack_cap], lens [C], raw [C], flat [C], color [C, 3])."""
+    cfg, k = enc.cfg, enc.cfg.k_fixed
+    h, w = cfg.height, cfg.width
+    npx = h * w
+    dev = frames.device
+    cls = classify_i_streams(frames)
+    is_flat = (frames == frames[:, :1, :1]).flatten(1).all(dim=1)
+    n_rec = torch.stack([n for _, n, _, _ in cls]).to(I64)
+    n_lit = torch.stack([n for _, _, _, n in cls]).to(I64)
+    overflow = (n_rec > wcfg.irec_cap) | (n_lit > wcfg.icol_cap)
+    use = ~is_flat & ~overflow
+    n_rec = torch.where(use, n_rec, 0)
+    n_lit = torch.where(use, n_lit, 0)
+    # a keyframe codes from renewed tables; a flat one keeps its tables
+    # for the flat bookkeeping
+    renew_rows_at(enc.tables_b, ids_t, ~is_flat)
+    off = torch.arange(len(ids), device=dev) * npx
+    kts = (("rec", k, tc.steps_for(min(wcfg.irec_cap, npx), k)),
+           ("col", k, tc.steps_for(min(wcfg.icol_cap, npx), k)))
+    dealt = [tc.deal_streams(torch.cat([r for r, _, _, _ in cls]), off, n_rec, k, kts[0][2]),
+             tc.deal_streams(torch.cat([lt for _, _, lt, _ in cls]), off, n_lit, k, kts[1][2])]
+    lens = [tc.lane_lens_streams(n_rec, k), tc.lane_lens_streams(n_lit, k)]
+    bufs, starts = tc.encode_sections_streams(dealt, lens, enc.tables_b, kts, ids)
+    out, total = _container_emit(*_i_head(n_rec, n_lit), list(zip(bufs, starts, lens)),
+                                 wcfg.pack_cap)
+    raw = ~is_flat & (overflow | (total >= 1 + w * h * 3) | (total > wcfg.pack_cap))
+    return out, total, raw, is_flat, frames[:, 0, 0]
+
+
+def encode_window_steps(enc, frames_fs, key_fs, idx, wcfg):
+    """F window steps over a one-device BatchedEncoder's state, queued with
+    no host read but the motion search's. frames_fs [F, S, H, W, 3] uint8
+    (lossy) on the device; key_fs [F, S] host bools; idx: per step the
+    device index tensors of its P streams (None when all S are) and of its
+    keyframing streams. Commits prev, the tables and the flat bookkeeping
+    (on the device, enc.flat_dev). Returns (outs [F, S, pack_cap] uint8,
+    lens [F, S], kinds [F, S])."""
+    s = enc.s
+    dev = enc.device
+    pc = wcfg.pack_cap
+    if enc.flat_dev is None:
+        enc.flat_dev = tuple(upload_all([enc.last_flat, enc.flat_color], dev))
+    last_flat, flat_color = enc.flat_dev
+    prev = enc.prev
+    outs, lens, kinds = [], [], []
+    for t in range(frames_fs.shape[0]):
+        frames = frames_fs[t]
+        own_p, own_i = np.nonzero(~key_fs[t])[0], np.nonzero(key_fs[t])[0]
+        idx_p, idx_i = idx[t]
+        out = torch.zeros((s, pc), dtype=U8, device=dev)
+        out_len = torch.zeros(s, dtype=I64, device=dev)
+        kind = torch.zeros(s, dtype=I64, device=dev)
+        raw = torch.zeros(s, dtype=torch.bool, device=dev)
+        flat = torch.zeros(s, dtype=torch.bool, device=dev)
+        nochange = torch.zeros(s, dtype=torch.bool, device=dev)
+        color = torch.zeros((s, 3), dtype=U8, device=dev)
+        if own_p.size:
+            sel = slice(None) if idx_p is None else idx_p
+            o, n, r, fl, col, nc = _p_slots(enc, wcfg, frames[sel], prev[sel], own_p)
+            out[sel], out_len[sel], raw[sel], flat[sel], color[sel], nochange[sel] = (
+                o, n, r, fl, col, nc)
+            kind[sel] = torch.where(fl, K_FLAT, torch.where(nc, K_NOCHANGE, K_P))
+        if own_i.size:
+            o, n, r, fl, col = _i_slots(enc, wcfg, frames[idx_i], own_i, idx_i)
+            out[idx_i], out_len[idx_i], raw[idx_i], flat[idx_i], color[idx_i] = (
+                o, n, r, fl, col)
+            kind[idx_i] = torch.where(fl, K_FLAT, K_I)
+
+        # flat bookkeeping; raw escapes and flat color changes renew
+        same = last_flat & (flat_color == color).all(dim=1)
+        renew_where(enc.tables_b, raw | (flat & ~same))
+        last_flat = flat
+        flat_color = torch.where(flat[:, None], color, flat_color)
+
+        # small frames: flat (4 B), no-change (2 B), raw header (1 B + body)
+        kind = torch.where(raw, K_RAW, kind)
+        head = torch.where(raw, bs.header_byte(ALG_RAW), torch.where(
+            nochange, bs.header_byte(ALG_P), bs.header_byte(ALG_FLAT)))
+        small = torch.cat([head[:, None], torch.where(flat[:, None], color, 0)], dim=1)
+        out[:, :4] = torch.where((flat | nochange | raw)[:, None], small.to(U8), out[:, :4])
+        out_len = torch.where(flat, 4, torch.where(nochange, 2, torch.where(raw, 1, out_len)))
+        outs.append(out)
+        lens.append(out_len)
+        kinds.append(kind)
+        prev = frames
+    enc.prev = frames_fs[-1].clone()
+    enc.flat_dev = (last_flat, flat_color)
+    return torch.stack(outs), torch.stack(lens), torch.stack(kinds)
+
+
+# ---------------------------------------------------------------------------
+# Host driver
+# ---------------------------------------------------------------------------
+
+
+def _window_frames(frames_list, device, loss: int) -> torch.Tensor:
+    """A window's frame batches -> [F, S, H, W, 3] uint8 on `device`, lossy,
+    in storage of their own (one upload for host frames)."""
+    if all(isinstance(f, np.ndarray) for f in frames_list):
+        frames = tc.upload(np.stack([np.asarray(f, np.uint8) for f in frames_list]), device)
+    else:
+        frames = torch.stack([torch.as_tensor(f).to(device, torch.uint8) for f in frames_list])
+    return apply_loss(frames, loss)
+
+
+def encode_window(enc, frames_list, wcfg: WindowConfig):
+    """Run one window of len(frames_list) steps through a BatchedEncoder's
+    device state. Caller must ensure: a step was encoded before, no step
+    force-keys all streams, and each step keyframes at most wcfg.c streams
+    (use plan_windows). Returns a list of per-step encode() result lists."""
+    return encode_window_finish(encode_window_begin(enc, frames_list, wcfg))
+
+
+def encode_window_begin(enc, frames_list, wcfg: WindowConfig):
+    """Queue a window's device work and commit the encoder's device state
+    (prev, tables, flat bookkeeping) with no pull; returns a handle for
+    encode_window_finish. The next window's begin may be issued before this
+    one's finish."""
+    f = len(frames_list)
+    if enc.groups is not None:
+        handles = []
+        for g, sl in enc.groups:
+            with on_device(g.device):
+                handles.append(encode_window_begin(
+                    g, [f_[sl] if isinstance(f_, np.ndarray)
+                        else f_[sl].to(g.device, non_blocking=True) for f_ in frames_list],
+                    wcfg))
+        enc.fn += f
+        return enc, handles
+    cfg = enc.cfg
+    s = enc.s
+    assert enc.prev is not None
+    key_fs = np.zeros((f, s), bool)
+    for t in range(f):
+        if cfg.kf_interval > 0:
+            key_fs[t] = ((enc.fn + t + enc.kf_offsets) % cfg.kf_interval) == 0
+        assert key_fs[t].sum() <= wcfg.c, "keyframe schedule exceeds window slots"
+    enc.fn += f
+    # the steps' stream index lists, in one upload
+    host = []
+    for t in range(f):
+        own_p = np.nonzero(~key_fs[t])[0]
+        host += [own_p if 0 < own_p.size < s else None, np.nonzero(key_fs[t])[0]]
+    got = iter(upload_all([a for a in host if a is not None], enc.device))
+    dev_idx = [None if a is None else next(got) for a in host]
+    idx = list(zip(dev_idx[0::2], dev_idx[1::2]))
+    frames_fs = _window_frames(frames_list, enc.device, cfg.loss)
+    outs, lens, kinds = encode_window_steps(enc, frames_fs, key_fs, idx, wcfg)
+    return enc, (frames_fs, outs, lens, kinds)
+
+
+def encode_window_finish(handle):
+    """Pull a begun window's results (two pulls) and assemble the
+    containers. Returns a list of per-step encode() result lists."""
+    enc, body = handle
+    if enc.groups is not None:
+        parts = []
+        for (g, _), h in zip(enc.groups, body):
+            with on_device(g.device):
+                parts.append(encode_window_finish(h))
+        return [[o for p in parts for o in p[t]] for t in range(len(parts[0]))]
+    frames_fs, outs, lens, kinds = body
+    f, s, pc = outs.shape
+    npx3 = frames_fs[0, 0].numel()
+    # pull 1: the [F, S] lengths and kinds
+    lens_h, kinds_h = pull([[lens, kinds]])[0]
+    # pull 2: exactly the used container bytes, RAW bodies after their header
+    segs = []
+    for t in range(f):
+        for i in range(s):
+            segs.append((0, (t * s + i) * pc, int(lens_h[t, i])))
+            if kinds_h[t, i] == K_RAW:
+                segs.append((1, (t * s + i) * npx3, npx3))
+    tight = gather_segments([outs.reshape(-1), frames_fs.reshape(-1)], segs)
+    results, pos = [], 0
+    for t in range(f):
+        out_t = []
+        for i in range(s):
+            kd = int(kinds_h[t, i])
+            n = int(lens_h[t, i]) + (npx3 if kd == K_RAW else 0)
+            out_t.append((tight[pos:pos + n].tobytes(),
+                          FTYPE_P if kd in (K_NOCHANGE, K_P) else FTYPE_I))
+            pos += n
+        results.append(out_t)
+    return results
+
+
+def plan_windows(enc, n_steps: int, wcfg: WindowConfig):
+    """Split the next n_steps into runs eligible for encode_window (>= 2
+    steps, every step keyframing <= c streams, prev exists) and single
+    fallback steps. Returns a list of ('window', length) / ('step', 1)."""
+    cfg = enc.cfg
+    fn0 = enc.fn
+    have_prev = enc.has_prev()
+
+    def keys_at(f):
+        if f == 0:
+            return enc.s  # session start keyframes every stream
+        if cfg.kf_interval > 0:
+            return int((((f + enc.kf_offsets) % cfg.kf_interval) == 0).sum())
+        return 0
+
+    eligible = [
+        (have_prev or i > 0) and keys_at(fn0 + i) <= wcfg.c
+        for i in range(n_steps)
+    ]
+    plan = []
+    t = 0
+    while t < n_steps:
+        run = 0
+        while t + run < n_steps and run < wcfg.f and eligible[t + run]:
+            run += 1
+        if run >= 2:
+            plan.append(("window", run))
+            t += run
+        else:
+            plan.append(("step", 1))
+            t += 1
+    return plan
+
+
+def serve_windowed(enc, batches, dec=None, wcfg: WindowConfig | None = None,
+                   device_out: bool = True):
+    """Window serving driver: like serve_pipelined, but F-step windows on
+    both sides (encode_window + decode_window). Yields (outs, decoded) per
+    step."""
+    if wcfg is None:
+        wcfg = WindowConfig(enc.cfg, enc.s)
+    batches = list(batches)
+    plan = plan_windows(enc, len(batches), wcfg)
+    t = 0
+    pend = None  # a begun, unfinished window (device work in flight)
+
+    def emit_window(handle):
+        steps = encode_window_finish(handle)
+        if dec is None:
+            return [(outs, None) for outs in steps]
+        frames_fs = decode_window(dec, [[p for p, _ in outs] for outs in steps])
+        return [(outs, frames_fs[j]) for j, outs in enumerate(steps)]
+
+    for kind, ln in plan:
+        if kind == "window":
+            # queue this window BEFORE pulling the previous one: its device
+            # work then overlaps the host's pulls and assembly
+            handle = encode_window_begin(enc, batches[t: t + ln], wcfg)
+            if pend is not None:
+                yield from emit_window(pend)
+            pend = handle
+        else:
+            if pend is not None:
+                yield from emit_window(pend)
+                pend = None
+            outs = enc.encode(batches[t])
+            decoded = (None if dec is None else
+                       dec.decode([p for p, _ in outs], device_out=device_out))
+            yield outs, decoded
+        t += ln
+    if pend is not None:
+        yield from emit_window(pend)
+
+
+# ---------------------------------------------------------------------------
+# Decode window
+# ---------------------------------------------------------------------------
+
+
+def decode_window(dec, payload_lists):
+    """Decode F steps of S payloads each through a BatchedDecoder's device
+    state, with one upload of the window's host arrays. Returns the frames
+    [F, S, H, W, 3] on the device; the stream check is deferred like
+    decode(device_out=True)'s, to the next decode() / validate()."""
+    dec.validate()
+    if dec.groups is not None:
+        outs = []
+        for g, sl in dec.groups:
+            with on_device(g.device):
+                outs.append(decode_window(g, [list(p[sl]) for p in payload_lists]))
+        return torch.cat([o.to(dec.device) for o in outs], dim=1)
+    plans, host, counts = [], [], []
+    for t, payloads in enumerate(payload_lists):
+        assert len(payloads) == dec.s
+        plan, arrays = dec._parse(payloads, lambda i, t=t: f"step {t} stream {dec.base + i}",
+                                  have_prev=t > 0 or dec.prev is not None)
+        plans.append(plan)
+        host += arrays
+        counts.append(len(arrays))
+    got = iter(upload_all(host, dec.device))
+    frames, errs = [], []
+    for plan, n in zip(plans, counts):
+        fr, err = dec._run(plan, [next(got) for _ in range(n)])
+        frames.append(fr)
+        errs.append(err)
+    dec._pending_err = (torch.stack(errs), np.any([p["p_mask"] for p in plans], axis=0))
+    return torch.stack(frames)

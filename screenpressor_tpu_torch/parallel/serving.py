@@ -26,10 +26,17 @@ the requests of all live stages to the host in ONE device-to-host copy per
 round. `encode_begin` runs the stages up to their first request (the
 analysis, which reads no table), so `serve_pipelined` can queue step t+1's
 analysis before it finishes step t.
+
+`devices=` splits a session along the stream axis (the reference's dp
+sharding): stream group g, the contiguous range [g * S / n, (g + 1) * S / n),
+is a one-device session of its own on devices[g]. Every group's front half
+is queued before any group's back half, outputs come back in global stream
+order, and a damaged stream's message carries its global index.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -55,11 +62,12 @@ from screenpressor_tpu_torch.pframe import (
     parse_p_header,
     raise_p_error,
     rebuild_p_streams,
-    step_layout,
+    step_layout_from,
+    step_layout_host,
     undeal_sections_streams,
 )
 from screenpressor_tpu_torch.recon import reconstruct_i_streams
-from screenpressor_tpu_torch.tables import renew_rows, renew_tables_streams
+from screenpressor_tpu_torch.tables import renew_rows, renew_rows_at, renew_tables_streams
 
 I32 = torch.int32
 _NP = {torch.uint8: np.uint8, torch.bool: np.bool_, torch.int32: np.int32,
@@ -83,6 +91,59 @@ def pull(groups):
             pos += n
         out.append(got)
     return out
+
+
+def upload_all(arrays, device) -> list:
+    """Host arrays -> the same arrays on `device` in ONE non-blocking upload
+    (`coder.upload`); each part starts at a multiple of 8 bytes, so that
+    every dtype can view it."""
+    if not arrays:
+        return []
+    chunks, spans, pos = [], [], 0
+    for a in arrays:
+        b = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+        chunks += [b, np.zeros(-len(b) % 8, np.uint8)]
+        spans.append((pos, len(b)))
+        pos += len(b) + len(chunks[-1])
+    dev = tc.upload(np.concatenate(chunks), device)
+    dtypes = {v: k for k, v in _NP.items()}
+    return [dev[o:o + n].view(dtypes[np.dtype(a.dtype).type]).view(a.shape) if n else
+            torch.empty(a.shape, dtype=dtypes[np.dtype(a.dtype).type], device=dev.device)
+            for (o, n), a in zip(spans, arrays)]
+
+
+class _Default(str):
+    """The default device "cuda", told apart from a caller's "cuda"."""
+
+
+_CUDA = _Default("cuda")
+
+
+def _groups_of(n_streams: int, device, devices):
+    """The stream groups of a devices= split: [(device, slice)], or None."""
+    if devices is None:
+        return None
+    if device is not _CUDA:
+        raise ValueError("give device or devices, not both")
+    devices = [torch.device(d) for d in devices]
+    n = len(devices)
+    if n == 0 or n_streams % n:
+        raise ValueError(f"{n_streams} streams do not split into {n} equal groups")
+    g = n_streams // n
+    return [(d, slice(j * g, (j + 1) * g)) for j, d in enumerate(devices)]
+
+
+def on_device(device):
+    """Make `device` current while a group's work is queued (a kernel
+    launches on the current device's stream)."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _to_group(frames, dev, sl):
+    """A group's slice of a step's frames, on its device (non-blocking)."""
+    if isinstance(frames, torch.Tensor):
+        return frames[sl].to(dev, non_blocking=True)
+    return tc.upload(np.asarray(frames)[sl], dev)
 
 
 def _k_fixed(cfg: CodecConfig) -> CodecConfig:
@@ -141,23 +202,38 @@ class BatchedEncoder:
     """Encode S streams in lockstep (staggered keyframes, flat / no-change /
     raw shortcuts per stream) with device-resident per-stream state."""
 
-    def __init__(self, n_streams: int, cfg: CodecConfig, device="cuda",
-                 kf_offsets=None):
+    def __init__(self, n_streams: int, cfg: CodecConfig, device=_CUDA,
+                 kf_offsets=None, devices=None):
         """kf_offsets: optional [S] ints staggering the keyframe phase:
-        stream i keyframes when (fn + kf_offsets[i]) % kf_interval == 0."""
+        stream i keyframes when (fn + kf_offsets[i]) % kf_interval == 0.
+        devices: n devices to split the streams over (S % n == 0), instead
+        of `device`; on one card, the same device n times."""
         self.cfg = _k_fixed(cfg)
         self.s = n_streams
-        self.device = torch.device(device)
         self.kf_offsets = (np.zeros(n_streams, np.int64) if kf_offsets is None
                            else np.asarray(kf_offsets, np.int64))
         assert self.kf_offsets.shape == (n_streams,)
-        self.tables_b = renew_tables_streams(n_streams, self.device)
-        self.prev = None  # [S, H, W, 3] uint8 on the device (lossy domain)
         self.fn = 0
+        split = _groups_of(n_streams, device, devices)
+        self.groups = None if split is None else [
+            (BatchedEncoder(sl.stop - sl.start, cfg, d, self.kf_offsets[sl]), sl)
+            for d, sl in split]
+        self.device = torch.device(device if split is None else split[0][0])
+        self.prev = None  # [S, H, W, 3] uint8 on the device (lossy domain)
         self.last_flat = np.zeros(n_streams, bool)
         self.flat_color = np.zeros((n_streams, 3), np.uint8)
+        # the flat bookkeeping a window left on the device (last_flat,
+        # flat_color tensors), taken to the host by the next step
+        self.flat_dev = None
+        if self.groups is not None:
+            return
+        self.tables_b = renew_tables_streams(n_streams, self.device)
         self.cands = torch.tensor(mv_candidates(self.cfg), dtype=I32,
                                   device=self.device).reshape(-1, 2)
+
+    def has_prev(self) -> bool:
+        """Whether a step has been encoded (P frames can follow)."""
+        return (self.prev if self.groups is None else self.groups[0][0].prev) is not None
 
     def encode(self, frames, force_key: bool = False):
         """frames: [S, H, W, 3] uint8 (numpy or tensor) -> list of S
@@ -168,6 +244,14 @@ class BatchedEncoder:
         """Queue the table-free front half of a step (the analysis of the P
         streams, the classification of the I streams) and return a pending
         handle for encode_finish. At most one encode may be pending."""
+        if self.groups is not None:
+            self.fn += 1
+            pend = []
+            for g, sl in self.groups:
+                with on_device(g.device):
+                    pend.append(g.encode_begin(_to_group(frames, g.device, sl), force_key))
+            return pend
+        self.take_flat()
         cfg = self.cfg
         s = self.s
         frames = apply_loss(owned_frames(frames, self.device), cfg.loss)
@@ -192,9 +276,23 @@ class BatchedEncoder:
     def encode_finish(self, pend):
         """Run a pending step to the end: the host copies, the section
         launches and the container assembly. Returns the encode() list."""
+        if self.groups is not None:
+            outs = []
+            for (g, _), p in zip(self.groups, pend):
+                with on_device(g.device):
+                    outs += g.encode_finish(p)
+            return outs
         outs = self._drain(*pend)
         return [next((o[i] for o in outs if o[i] is not None), None)
                 for i in range(self.s)]
+
+    def take_flat(self):
+        """Take the flat bookkeeping a window left on the device to the
+        host (one copy)."""
+        if self.flat_dev is not None:
+            last_flat, color = pull([list(self.flat_dev)])[0]
+            self.last_flat, self.flat_color = last_flat.copy(), color.copy()
+            self.flat_dev = None
 
     @staticmethod
     def _prime(stages):
@@ -407,142 +505,209 @@ class BatchedDecoder:
     batch may mix flat, raw, no-change, coded I and coded P frames; the
     coded I streams share one K2 launch per section group and one K4
     launch, the coded P streams one K2 launch per section group and one
-    stream-batched rebuild."""
+    stream-batched rebuild. A step's host inputs go to the device in one
+    upload."""
 
-    def __init__(self, n_streams: int, cfg: CodecConfig, device="cuda"):
+    def __init__(self, n_streams: int, cfg: CodecConfig, device=_CUDA, devices=None):
+        """devices: n devices to split the streams over (S % n == 0), as
+        BatchedEncoder's."""
         self.cfg = _k_fixed(cfg)
         self.s = n_streams
-        self.device = torch.device(device)
-        self.tables_b = renew_tables_streams(n_streams, self.device)
+        self.base = 0  # the global index of stream 0 (a group of a split)
+        split = _groups_of(n_streams, device, devices)
+        self.groups = None
+        if split is not None:
+            self.groups = []
+            for d, sl in split:
+                g = BatchedDecoder(sl.stop - sl.start, cfg, d)
+                g.base = sl.start
+                self.groups.append((g, sl))
+        self.device = torch.device(device if split is None else split[0][0])
         self.prev = None  # [S, H, W, 3] uint8 on the device
         self.last_flat = np.zeros(n_streams, bool)
         self.flat_color = np.zeros((n_streams, 3), np.uint8)
-        self._pending_err = None  # (device error words [S], P mask)
+        self._pending_err = None  # (device error words [S] or [F, S], P mask)
+        if split is None:
+            self.tables_b = renew_tables_streams(n_streams, self.device)
 
     def decode(self, payloads, device_out: bool = False):
         """payloads: S frame byte strings -> [S, H, W, 3] frames (numpy, or
         the device tensor with device_out, whose stream check is then
         deferred to the next decode() / validate())."""
         self.validate()
-        cfg, k, s, dev = self.cfg, self.cfg.k_fixed, self.s, self.device
-        h, w = cfg.height, cfg.width
-        assert len(payloads) == s
-        renew = np.zeros(s, bool)
-        override = {}
-        i_parse, p_parse = {}, {}
-        for i, data in enumerate(payloads):
-            if not data:
-                raise bs.CorruptStreamError(f"stream {i}: empty frame")
-            alg = bs.parse_header_byte(data[0])
-            if alg == ALG_FLAT:
-                if len(data) < 4:
-                    raise bs.CorruptStreamError(f"stream {i}: truncated flat")
-                color = np.frombuffer(data[1:4], np.uint8)
-                if not (self.last_flat[i] and (self.flat_color[i] == color).all()):
-                    renew[i] = True
-                    self.flat_color[i] = color
-                self.last_flat[i] = True
-                override[i] = np.broadcast_to(color, (h, w, 3))
-                continue
-            self.last_flat[i] = False
-            if alg == ALG_RAW:
-                if len(data) < 1 + h * w * 3:
-                    raise bs.CorruptStreamError(f"stream {i}: truncated raw")
-                override[i] = np.frombuffer(data, np.uint8, h * w * 3, 1).reshape(h, w, 3)
-                renew[i] = True
-            elif alg == ALG_I:
-                renew[i] = True
-                i_parse[i] = parse_i_header(data, 1, cfg)
-            elif alg != ALG_P:
-                raise bs.CorruptStreamError(f"stream {i}: unknown algorithm {alg}")
-            elif self.prev is None:
-                raise bs.CorruptStreamError(f"stream {i}: P-frame before keyframe")
-            else:
-                p_parse[i] = parse_p_header(data, 1, cfg)
-        renew_rows(self.tables_b, renew)
-        if self.prev is None:
-            self.prev = torch.zeros((s, h, w, 3), dtype=torch.uint8, device=dev)
-        frames = self.prev.clone()
-        err = torch.zeros(s, dtype=I32, device=dev)
-
-        if i_parse:
-            ids = list(i_parse)
-            n_rec = [i_parse[i][2] for i in ids]
-            n_lit = [i_parse[i][3] for i in ids]
-            pays, lens, kts = [], [], []
-            for name, idx, ns in (("rec", 0, n_rec), ("col", 1, n_lit)):
-                pays.append(self._payloads([i_parse[i][idx] for i in ids]))
-                lens.append(torch.stack([tc.lane_lens(n, k, dev) for n in ns]))
-                kts.append((name, k, max(tc.steps_for(n, k) for n in ns)))
-            recs, lits = tc.decode_sections_streams(pays, lens, self.tables_b, tuple(kts), ids)
-            records = [tc.undeal(recs[j], n, k, max(n, 1)) for j, n in enumerate(n_rec)]
-            literals = [tc.undeal(lits[j], n, k, max(n, 1)) for j, n in enumerate(n_lit)]
-            ids_t = torch.as_tensor(ids, device=dev)
-            frames[ids_t] = reconstruct_i_streams(records, literals, h, w)
-            totals = torch.stack([r[:, 1].sum(dtype=I32) for r in records])
-            err[ids_t] = (totals != h * w).to(I32)
-
-        coded_p = [i for i, x in p_parse.items() if x is not None]
-        if coded_p:
-            rows = []
-            for i in coded_p:
-                _pl, ns, _kts, (xx1, xx2, _n_mv, n_data) = p_parse[i]
-                rows.append(header_row(ns, xx1, xx2, n_data))
-            lay = step_layout(rows, dev)
-            pays, lens, kts = [], [], []
-            for j, name in enumerate(SECTION_NAMES):
-                pays.append(self._payloads([p_parse[i][0][name] for i in coded_p]))
-                lens.append(tc.lane_lens_streams(lay.hdr[:, j], k))
-                kts.append((name, k, tc.steps_for(lay.caps[j], k)))
-            recs_l = tc.decode_sections_streams(pays, lens, self.tables_b, tuple(kts),
-                                                coded_p)
-            ids_t = torch.as_tensor(coded_p, device=dev)
-            frames[ids_t], err[ids_t] = rebuild_p_streams(
-                undeal_sections_streams(recs_l, lay, kts), lay, self.prev[ids_t], cfg)
-        for i, val in override.items():
-            frames[i] = torch.as_tensor(np.array(val), device=dev)
-        self.prev = frames
-
-        p_mask = np.zeros(s, bool)
-        p_mask[coded_p] = True
-        if i_parse or coded_p:
+        assert len(payloads) == self.s
+        if self.groups is not None:
+            outs = []
+            for g, sl in self.groups:
+                with on_device(g.device):
+                    outs.append(g.decode(payloads[sl], device_out=True))
             if device_out:
-                self._pending_err = (err, p_mask)
+                return torch.cat([o.to(self.device) for o in outs])
+            self.validate()
+            return np.concatenate([o.cpu().numpy() for o in outs])
+        plan, host = self._parse(payloads, lambda i: f"stream {self.base + i}")
+        frames, err = self._run(plan, upload_all(host, self.device))
+        if plan["checked"]:
+            if device_out:
+                self._pending_err = (err, plan["p_mask"])
             else:
-                self._raise_errs(err.cpu().numpy(), p_mask)
+                self._raise_errs(err.cpu().numpy(), plan["p_mask"])
         # the caller may write into what it gets: never hand out prev itself
         # (.cpu() of a CUDA tensor is a copy already)
         out = frames.clone() if device_out or not frames.is_cuda else frames
         return out if device_out else out.cpu().numpy()
 
-    def _payloads(self, pays) -> torch.Tensor:
-        """[K, L_i] numpy lane payloads -> one [C, K, max L] uint8 tensor."""
-        out = np.zeros((len(pays),) + pays[0].shape[:1] + (max(p.shape[1] for p in pays),),
-                       np.uint8)
-        for j, p in enumerate(pays):
-            out[j, :, :p.shape[1]] = p
-        return torch.as_tensor(out, device=self.device)
+    def _parse(self, payloads, where, have_prev=None):
+        """The host half of a step: parse and check every payload (a
+        CorruptStreamError names stream i as where(i)), advance the flat
+        bookkeeping, and lay out what the device half needs. have_prev:
+        whether P frames may come (default: a step was decoded). Returns
+        (plan, the host arrays of its one upload, in the order _run takes
+        them)."""
+        cfg, s = self.cfg, self.s
+        if have_prev is None:
+            have_prev = self.prev is not None
+        h, w = cfg.height, cfg.width
+        renew = np.zeros(s, bool)
+        raws, flats = {}, {}
+        i_parse, p_parse = {}, {}
+        for i, data in enumerate(payloads):
+            if not data:
+                raise bs.CorruptStreamError(f"{where(i)}: empty frame")
+            alg = bs.parse_header_byte(data[0])
+            if alg == ALG_FLAT:
+                if len(data) < 4:
+                    raise bs.CorruptStreamError(f"{where(i)}: truncated flat")
+                color = np.frombuffer(data[1:4], np.uint8)
+                if not (self.last_flat[i] and (self.flat_color[i] == color).all()):
+                    renew[i] = True
+                    self.flat_color[i] = color
+                self.last_flat[i] = True
+                flats[i] = color
+                continue
+            self.last_flat[i] = False
+            if alg == ALG_RAW:
+                if len(data) < 1 + h * w * 3:
+                    raise bs.CorruptStreamError(f"{where(i)}: truncated raw")
+                raws[i] = np.frombuffer(data, np.uint8, h * w * 3, 1).reshape(h, w, 3)
+                renew[i] = True
+            elif alg == ALG_I:
+                renew[i] = True
+                i_parse[i] = parse_i_header(data, 1, cfg)
+            elif alg != ALG_P:
+                raise bs.CorruptStreamError(f"{where(i)}: unknown algorithm {alg}")
+            elif not have_prev:
+                raise bs.CorruptStreamError(f"{where(i)}: P-frame before keyframe")
+            else:
+                p_parse[i] = parse_p_header(data, 1, cfg)
+        coded_p = [i for i, x in p_parse.items() if x is not None]
+        p_mask = np.zeros(s, bool)
+        p_mask[coded_p] = True
+        plan = {"renew": bool(renew.any()), "i_ids": list(i_parse), "p_ids": coded_p,
+                "raw": bool(raws), "flat": bool(flats), "p_mask": p_mask,
+                "checked": bool(i_parse or coded_p)}
+        host = [np.nonzero(renew)[0]] if plan["renew"] else []
+        if i_parse:
+            ids = plan["i_ids"]
+            plan["i_n"] = [(i_parse[i][2], i_parse[i][3]) for i in ids]
+            host += [np.asarray(ids, np.int64), _stack_payloads([i_parse[i][0] for i in ids]),
+                     _stack_payloads([i_parse[i][1] for i in ids])]
+        if coded_p:
+            rows = []
+            for i in coded_p:
+                _pl, ns, _kts, (xx1, xx2, _n_mv, n_data) = p_parse[i]
+                rows.append(header_row(ns, xx1, xx2, n_data))
+            lay_host, plan["p_layout"] = step_layout_host(rows)
+            host += [np.asarray(coded_p, np.int64), lay_host]
+            host += [_stack_payloads([p_parse[i][0][name] for i in coded_p])
+                     for name in SECTION_NAMES]
+        if raws:
+            host += [np.asarray(list(raws), np.int64), np.stack(list(raws.values()))]
+        if flats:
+            host += [np.asarray(list(flats), np.int64), np.stack(list(flats.values()))]
+        return plan, host
 
-    @staticmethod
-    def _raise_errs(errs: np.ndarray, p_mask: np.ndarray):
-        """Raise for the first failing stream by index."""
+    def _run(self, plan, dev):
+        """The device half of a step from its uploaded arrays. Returns
+        (frames [S, H, W, 3] uint8, error words [S] int32); the frames
+        become prev."""
+        cfg, k, s, device = self.cfg, self.cfg.k_fixed, self.s, self.device
+        h, w = cfg.height, cfg.width
+        dev = iter(dev)
+        if plan["renew"]:
+            renew_rows_at(self.tables_b, next(dev))
+        if self.prev is None:
+            self.prev = torch.zeros((s, h, w, 3), dtype=torch.uint8, device=device)
+        frames = self.prev.clone()
+        err = torch.zeros(s, dtype=I32, device=device)
+
+        if plan["i_ids"]:
+            ids_t, pay_rec, pay_col = next(dev), next(dev), next(dev)
+            n_rec = [n for n, _ in plan["i_n"]]
+            n_lit = [n for _, n in plan["i_n"]]
+            lens = [torch.stack([tc.lane_lens(n, k, device) for n in ns]) for ns in (n_rec, n_lit)]
+            kts = (("rec", k, max(tc.steps_for(n, k) for n in n_rec)),
+                   ("col", k, max(tc.steps_for(n, k) for n in n_lit)))
+            recs, lits = tc.decode_sections_streams([pay_rec, pay_col], lens, self.tables_b,
+                                                    kts, plan["i_ids"])
+            records = [tc.undeal(recs[j], n, k, max(n, 1)) for j, n in enumerate(n_rec)]
+            literals = [tc.undeal(lits[j], n, k, max(n, 1)) for j, n in enumerate(n_lit)]
+            frames[ids_t] = reconstruct_i_streams(records, literals, h, w)
+            totals = torch.stack([r[:, 1].sum(dtype=I32) for r in records])
+            err[ids_t] = (totals != h * w).to(I32)
+
+        if plan["p_ids"]:
+            ids_t = next(dev)
+            lay = step_layout_from(next(dev), plan["p_layout"])
+            pays = [next(dev) for _ in SECTION_NAMES]
+            lens = [tc.lane_lens_streams(lay.hdr[:, j], k) for j in range(len(SECTION_NAMES))]
+            kts = tuple((name, k, tc.steps_for(cap, k))
+                        for name, cap in zip(SECTION_NAMES, lay.caps))
+            recs_l = tc.decode_sections_streams(pays, lens, self.tables_b, kts, plan["p_ids"])
+            frames[ids_t], err[ids_t] = rebuild_p_streams(
+                undeal_sections_streams(recs_l, lay, kts), lay, self.prev[ids_t], self.cfg)
+        if plan["raw"]:
+            ids_t = next(dev)
+            frames[ids_t] = next(dev)
+        if plan["flat"]:
+            ids_t = next(dev)
+            frames[ids_t] = next(dev)[:, None, None, :].expand(-1, h, w, 3)
+        self.prev = frames
+        return frames, err
+
+    def _raise_errs(self, errs: np.ndarray, p_mask: np.ndarray):
+        """Raise for the first failing stream by index (errs [S], or [F, S]
+        over a window's steps: a stream's largest word)."""
+        errs = errs.reshape(-1, self.s)
         if not errs.any():
             return
-        sidx = int(np.nonzero(errs)[0][0])
-        bad = int(errs[sidx])
-        if not p_mask[sidx]:
-            raise bs.CorruptStreamError(f"stream {sidx}: records do not tile frame")
+        sidx = int(np.nonzero(errs.any(axis=0))[0][0])
+        bad = int(errs[:, sidx].max())
+        label = f"stream {self.base + sidx}"
+        if bad == 1 and not p_mask[sidx]:
+            raise bs.CorruptStreamError(f"{label}: records do not tile frame")
         try:
             raise_p_error(bad)
         except bs.CorruptStreamError as e:
-            raise bs.CorruptStreamError(f"stream {sidx}: {e}") from None
+            raise bs.CorruptStreamError(f"{label}: {e}") from None
 
     def validate(self):
         """Resolve the deferred stream check of a device_out decode. Called
         by the next decode(); call it after the last step of a session."""
+        for g, _ in self.groups or ():
+            g.validate()
         pend, self._pending_err = self._pending_err, None
         if pend is not None:
             self._raise_errs(pend[0].cpu().numpy(), pend[1])
+
+
+def _stack_payloads(pays) -> np.ndarray:
+    """[K, L_i] numpy lane payloads -> one [C, K, max L] uint8 array."""
+    out = np.zeros((len(pays),) + pays[0].shape[:1] + (max(p.shape[1] for p in pays),),
+                   np.uint8)
+    for j, p in enumerate(pays):
+        out[j, :, :p.shape[1]] = p
+    return out
 
 
 def serve_pipelined(enc: BatchedEncoder, batches, dec: BatchedDecoder | None = None,

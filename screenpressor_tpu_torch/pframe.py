@@ -217,6 +217,50 @@ def classify_assemble_streams(frames: torch.Tensor, prevs: torch.Tensor,
     return pix[:pcap], lit[:pcap], counts, bm, boff * AREA
 
 
+def classify_assemble_fixed(frames: torch.Tensor, prevs: torch.Tensor,
+                            data_rects: torch.Tensor, n_data: torch.Tensor, bcap: int):
+    """classify_assemble_streams at a fixed block capacity, with no host
+    copy: stream c's first n_data[c] rects (n_data a device tensor, at most
+    bcap), each stream bcap block slots, the slots past its count empty
+    rects (no records). Returns (pix [C, bcap * 256, 2], lit [C, bcap *
+    256, 3], counts [C, 2] = (n_pix, n_lit)), each stream's records and
+    literals in record order."""
+    c = frames.shape[0]
+    dev = frames.device
+    take = torch.arange(bcap, device=dev)[None, :] < n_data[:, None]
+    rects = torch.where(take[..., None], data_rects[:, :bcap], 0).reshape(-1, 4)
+    bsid = torch.arange(c, device=dev).repeat_interleave(bcap)
+    n_blk = c * bcap
+    nrec = torch.zeros(n_blk, dtype=torch.int64, device=dev)
+    nlit = torch.zeros(n_blk, dtype=torch.int64, device=dev)
+    parts = []
+    for lo in range(0, n_blk, CLASSIFY_CAP):
+        hi = min(n_blk, lo + CLASSIFY_CAP)
+        ptypes, rlens, n_recs, lits, is_lit = classify_blocks_streams(
+            frames, prevs, rects[lo:hi], bsid[lo:hi])
+        is_lit = is_lit & (torch.arange(AREA, device=dev)[None, :] < n_recs[:, None])
+        nrec[lo:hi] = n_recs
+        nlit[lo:hi] = is_lit.sum(dim=1)
+        parts.append((lo, hi, ptypes, rlens, lits, is_lit))
+    pcap = bcap * AREA
+    pix = torch.zeros((c * pcap + 1, 2), dtype=I32, device=dev)
+    lit = torch.zeros((c * pcap + 1, 3), dtype=I32, device=dev)
+    # each block's first row: its stream's first row plus the counts of the
+    # stream's blocks before it
+    first_rec = (bsid * pcap + nrec.view(c, bcap).cumsum(dim=1).view(-1) - nrec)
+    first_lit = (bsid * pcap + nlit.view(c, bcap).cumsum(dim=1).view(-1) - nlit)
+    slot = torch.arange(AREA, device=dev)[None, :]
+    for lo, hi, ptypes, rlens, lits, is_lit in parts:
+        tgt = torch.where(slot < nrec[lo:hi, None], first_rec[lo:hi, None] + slot, c * pcap)
+        pix.index_put_((tgt,), torch.stack([ptypes, rlens], dim=-1).to(I32))
+        rank = torch.cumsum(is_lit.to(I32), dim=1) - 1
+        tgt_l = torch.where(is_lit, first_lit[lo:hi, None] + rank, c * pcap)
+        lit.index_put_((tgt_l,), lits.to(I32))
+    counts = torch.stack([nrec.view(c, bcap).sum(dim=1), nlit.view(c, bcap).sum(dim=1)],
+                         dim=1).to(I32)
+    return pix[:c * pcap].view(c, pcap, 2), lit[:c * pcap].view(c, pcap, 3), counts
+
+
 def classify_assemble(frame: torch.Tensor, prev: torch.Tensor,
                       rects: torch.Tensor, n_data: int):
     """Classify the n_data data blocks of one frame and assemble the global
@@ -389,8 +433,9 @@ def header_row(ns: dict, xx1: int, xx2: int, n_data: int) -> list:
     return [ns[name] for name in SECTION_NAMES] + [xx1, xx2, n_data]
 
 
-def step_layout(rows, device) -> StepLayout:
-    """rows: C header rows (header_row) -> StepLayout, in one upload."""
+def step_layout_host(rows):
+    """The host half of step_layout: (the int64 array its tensors come
+    from, the rest of the layout for step_layout_from)."""
     hdr = np.asarray(rows, np.int64).reshape(-1, len(HEADER_COLS))
     c = hdr.shape[0]
     mcap = np.maximum(hdr[:, SECTION_NAMES.index("mv")], 1)
@@ -399,10 +444,22 @@ def step_layout(rows, device) -> StepLayout:
     host = np.concatenate([hdr.reshape(-1), mcap, bcap, np.cumsum(mcap) - mcap,
                            np.cumsum(bcap) - bcap, np.repeat(sid, mcap),
                            np.repeat(sid, bcap)])
-    parts = torch.as_tensor(host, device=device).split(
-        [hdr.size, c, c, c, c, int(mcap.sum()), int(bcap.sum())])
+    split = [hdr.size, c, c, c, c, int(mcap.sum()), int(bcap.sum())]
     caps = tuple(int(max(hdr[:, j].max(), 1)) for j in range(len(SECTION_NAMES)))
-    return StepLayout(parts[0].view(c, -1), *parts[1:], caps, int(bcap.max()))
+    return host, (c, split, caps, int(bcap.max()))
+
+
+def step_layout_from(dev: torch.Tensor, rest) -> StepLayout:
+    """StepLayout from step_layout_host's array on the device."""
+    c, split, caps, b_max = rest
+    parts = dev.split(split)
+    return StepLayout(parts[0].view(c, -1), *parts[1:], caps, b_max)
+
+
+def step_layout(rows, device) -> StepLayout:
+    """rows: C header rows (header_row) -> StepLayout, in one upload."""
+    host, rest = step_layout_host(rows)
+    return step_layout_from(torch.as_tensor(host, device=device), rest)
 
 
 def undeal_sections_streams(recs_l, lay: StepLayout, kts) -> dict:

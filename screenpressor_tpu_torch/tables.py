@@ -165,3 +165,27 @@ def renew_rows(tables_b: dict, mask) -> None:
     for kd, tab in tables_b.items():
         for key, v in tab.items():
             v[idx] = fresh[kd][key]
+
+
+def renew_rows_at(tables_b: dict, idx: torch.Tensor, mask=None) -> None:
+    """renew_rows of the streams idx (an index tensor on the tables'
+    device), or of those of them where the device mask [len(idx)] holds:
+    no host copy."""
+    fresh = renew_tables_cached(idx.device)
+    for kd, tab in tables_b.items():
+        for key, v in tab.items():
+            if mask is None:
+                v[idx] = fresh[kd][key]
+            else:
+                m = mask.view((-1,) + (1,) * (v.dim() - 1))
+                v[idx] = torch.where(m, fresh[kd][key], v[idx])
+
+
+def renew_where(tables_b: dict, mask: torch.Tensor) -> None:
+    """Renew, in place, the tables of the streams where the device mask
+    [S] holds: no host copy."""
+    fresh = renew_tables_cached(mask.device)
+    for kd, tab in tables_b.items():
+        for key, v in tab.items():
+            m = mask.view((-1,) + (1,) * (v.dim() - 1))
+            torch.where(m, fresh[kd][key], v, out=v)

@@ -12,7 +12,8 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MODULES = ("_build", "api", "bitstream", "blocks", "classify", "codec", "coder",
-           "colorspace", "config", "convert", "iframe", "kernels", "parallel.serving",
+           "colorspace", "config", "convert", "iframe", "kernels", "parallel.mesh",
+           "parallel.serve_scan", "parallel.serving",
            "pframe", "recon", "substeps", "synth", "tables")
 
 # files that run on the card, where neither JAX nor the reference is imported

@@ -839,3 +839,64 @@ def test_sp_session_on_card_equals_cpu(cuda, sp):
     for data, f in zip(got[1:], frames[1:]):
         frame, tabs = tm.decode_p_sp(data, frame, mesh, cfg, tabs)
         np.testing.assert_array_equal(frame.cpu().numpy(), f)
+
+
+def _window_session(dev, devices=None, steps=5):
+    """_encode_front_batches' streams (keyframe offsets 0, 1, 2) through a
+    per-step keyframe step, then one window (parallel/serve_scan.py) whose
+    capacities the noise stream exceeds (RAW); returns (steps' outputs,
+    the window's decoded frames)."""
+    from screenpressor_tpu_torch.parallel import serve_scan as ss
+    from screenpressor_tpu_torch.parallel.serving import BatchedDecoder, BatchedEncoder
+
+    batches = _encode_front_batches(steps=steps)
+    cfg = CodecConfig(width=56, height=40, k_fixed=8, kf_interval=3, msr_x=24, msr_y=24)
+    kw = {"device": dev} if devices is None else {"devices": devices}
+    enc = BatchedEncoder(6, cfg, kf_offsets=[0, 1, 2, 0, 1, 2], **kw)
+    dec = BatchedDecoder(6, cfg, **kw)
+    wcfg = ss.WindowConfig(cfg, 6, f=steps - 1, c=2, rec_cap=1024, col_cap=1024,
+                           irec_cap=2048, icol_cap=2048, pack_cap=8192)
+    outs = [enc.encode(batches[0])]
+    dec.decode([p for p, _ in outs[0]])
+    outs += ss.encode_window(enc, batches[1:], wcfg)
+    back = ss.decode_window(dec, [[p for p, _ in o] for o in outs[1:]])
+    dec.validate()
+    for t in range(steps - 1):
+        np.testing.assert_array_equal(back[t].cpu().numpy(), batches[t + 1], err_msg=str(t))
+    return outs
+
+
+def test_window_on_card_equals_cpu(cuda):
+    """A window (K1-K4 on the card, the RAW escape of the noise stream)
+    writes the CPU port's bytes, and decode_window gives the frames back."""
+    got = _window_session(cuda)
+    assert got == _window_session("cpu")
+    assert any(p[0] & 0x0F == 4 for o in got[1:] for p, _ in o)  # a RAW escape
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_split_on_card_equals_unsplit(cuda, n):
+    """The serving sessions split over n stream groups on the one card
+    (devices=[cuda] * n), per step and through a window: the unsplit
+    session's bytes and frames."""
+    from screenpressor_tpu_torch.parallel.serving import (
+        BatchedDecoder,
+        BatchedEncoder,
+        serve_pipelined,
+    )
+
+    batches = _encode_front_batches()
+    cfg = CodecConfig(width=56, height=40, k_fixed=8, kf_interval=3, msr_x=24, msr_y=24)
+    got = {}
+    for label, kw in (("unsplit", {"device": cuda}), ("split", {"devices": [cuda] * n})):
+        enc = BatchedEncoder(6, cfg, kf_offsets=[0, 1, 2, 0, 1, 2], **kw)
+        dec = BatchedDecoder(6, cfg, **kw)
+        steps = []
+        for t, (outs, back) in enumerate(serve_pipelined(enc, batches, dec)):
+            assert back.device.type == "cuda"
+            np.testing.assert_array_equal(back.cpu().numpy(), batches[t], err_msg=str(t))
+            steps.append(outs)
+        dec.validate()
+        got[label] = steps
+    assert got["split"] == got["unsplit"]
+    assert _window_session(cuda, [cuda] * n) == _window_session(cuda)

@@ -2,7 +2,7 @@
 """The row-sharded mesh (screenpressor_tpu_torch/parallel/mesh.py) over
 every visible card, against the same mesh with all its shards on card 0.
 
-    python3 tools/torch_mesh_cards.py
+    python3 tools/torch_mesh_cards.py [--dp-only]
 
 With N >= 2 cards: the 8-frame 4K synth_screencast session through
 encode_i_sp / encode_p_sp and back through decode_i_sp / decode_p_sp on
@@ -14,8 +14,14 @@ dp 2 x sp 2 on the four cards against the one-card mesh (fits, flags,
 lane bytes, n_records, tables). Prints each session's Mpix/s (synchronised
 host clock, mean of 3 after a warm-up) and the device time of each stage
 (the mesh's "sp ..." ranges under torch.profiler), with the cards'
-nvidia-smi name and power limit. Imports nothing of JAX or of the JAX
-package; exits non-zero on any difference.
+nvidia-smi name and power limit. Then the serving session split along its
+stream axis (BatchedEncoder / BatchedDecoder with devices=): chip_smoke.py's
+window workload (64 streams of 360x640, 1 + 16 steps) through
+serve_pipelined and serve_windowed with one stream group a card, against
+the same split with every group on card 0 (bytes equal, decode lossless;
+stream-frames/s, mean of 3 after a warm-up); --dp-only runs this part
+alone. Imports nothing of JAX or of the JAX package; exits non-zero on
+any difference.
 """
 
 import hashlib
@@ -49,6 +55,48 @@ def timed(fn, *args):
     return out, (time.perf_counter() - t) / REPS
 
 
+def dp_split_cards(n: int, smi) -> None:
+    """The serving session split along its stream axis, one stream group a
+    card, against the same split with every group on card 0."""
+    import torch
+
+    import chip_smoke
+    from screenpressor_tpu_torch.config import CodecConfig
+    from screenpressor_tpu_torch.parallel import serve_scan as ss
+    from screenpressor_tpu_torch.parallel import serving as ts
+    from screenpressor_tpu_torch.synth import synth_screencast
+
+    card0 = torch.device("cuda", 0)
+    s, sh, sw, steps = 64, 360, 640, chip_smoke.WIN_STEPS
+    scfg = CodecConfig(width=sw, height=sh, kf_interval=150, k_fixed=64, msr_x=256, msr_y=256)
+    offsets = (np.arange(s) * 150) // s
+    base = synth_screencast(sh, sw, steps, seed=3)
+    batches = [torch.as_tensor(np.stack([np.roll(base[t], 3 * i, axis=1) for i in range(s)]),
+                               device=card0) for t in range(steps)]
+    groups = {"cards": [torch.device("cuda", i) for i in range(n)], "card 0": [card0] * n}
+    outs = {}
+    for path in ("serve_pipelined", "serve_windowed"):
+        for label, devs in groups.items():
+            def serve(devs=devs, path=path):
+                enc = ts.BatchedEncoder(s, scfg, kf_offsets=offsets, devices=devs)
+                dec = ts.BatchedDecoder(s, scfg, devices=devs)
+                got = list(ts.serve_pipelined(enc, batches, dec) if path == "serve_pipelined"
+                           else ss.serve_windowed(enc, batches, dec))
+                dec.validate()
+                return got
+
+            got, dt = timed(serve)
+            for t, ((_, back), frames) in enumerate(zip(got, batches)):
+                if not torch.equal(back.to(card0), frames):
+                    raise AssertionError(f"dp {path} on {label}, step {t}: not lossless")
+            outs[path, label] = [o for o, _ in got]
+            print(f"dp split, {n} groups on {label}, {path}: {s} streams x {steps} steps "
+                  f"{dt:.4f} s, {s * steps / dt:.2f} stream-frames/s, mean of {REPS}, on {smi}")
+        if outs[path, "cards"] != outs[path, "card 0"]:
+            raise AssertionError(f"dp {path}: the cards' bytes differ from card 0's")
+    print("dp split: bytes of the cards equal card 0's, decode lossless")
+
+
 def main() -> int:
     import torch
 
@@ -70,6 +118,10 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()
     print(f"{n} cards: {smi}")
     _build.build()
+    if "--dp-only" in sys.argv:
+        dp_split_cards(n, smi)
+        print(json.dumps({"ok": True, "cards": n, "smi": smi}))
+        return 0
     with open(os.path.join(ROOT, "tests", "data", "torch_native_4k_8.json")) as fh:
         pinned = json.load(fh)["frames"]
     frames = synth_screencast(H, W, N)
@@ -118,6 +170,7 @@ def main() -> int:
                     raise AssertionError(f"dryrun step: table {kd}.{key} differs")
         print("dryrun step: fits, flags, lane bytes, n_records and tables of the four "
               "cards equal card 0's")
+    dp_split_cards(n, smi)
     print(json.dumps({"ok": True, "cards": n, "smi": smi}))
     return 0
 
