@@ -49,10 +49,14 @@ Phases, each printed with its seconds:
      BatchedEncoder runs them), against analyze_compact and
      classify_assemble stream by stream; both timed by CUDA events and by
      the synchronised host clock, with their host syncs counted (torch's
-     sync debug mode); counts, records and classification must be equal;
-     the motion search alone timed beside it; then the 1080p batch's 63 P
+     sync debug mode; the analysis alone makes none); counts, records and
+     classification must be equal; K5, the motion search, against its
+     plain version on each step's inputs; then the 1080p batch's 63 P
      frames in one analyze_compact_streams call (as encode_batch makes it)
-     against analyze_compact frame by frame;
+     against analyze_compact frame by frame, K5 against plain on them, and
+     K5 on a noise frame against a noise prev (every candidate of every
+     block tested) at 1080p (plain on its first block row) and at 360x640
+     (plain on all of it);
   7. damaged streams: one-byte corruptions and truncations of a 48x64
      stream decode on the card to the CPU port's verdicts, and a clean
      stream decodes after them in the same process; then the serving
@@ -77,14 +81,16 @@ Phases, each printed with its seconds:
      on the one card (devices=[cuda] * sp, printed as such): the 8-frame
      4K synth_screencast session through encode_i_sp / encode_p_sp at sp
      1, 2 and 4 and back through decode_i_sp / decode_p_sp, counted from a
-     reset (K1-K4 must all appear), each equal to the unsharded
+     reset (K1-K5 must all appear), each equal to the unsharded
      TorchEncoder session on the card and to the native digests pinned in
      tests/data/torch_native_4k_8.json, every decode lossless, the Mpix/s
      beside the unsharded session's; then, not counted, the device time
-     of each stage (the mesh's "sp ..." ranges under torch.profiler); K3 on a 4K shard's walk, K1 / K2 on the 4K keyframe's rec
-     and col sections (as the sp path deals them) and K4 on the 4K
-     keyframe against their plain versions; the 64-frame 1080p session at
-     sp 2 (uneven I seams) against the pinned 1080p digests; dryrun_step
+     of each stage (the mesh's "sp ..." ranges under torch.profiler); K3
+     on a 4K shard's walk, K1 / K2 on the 4K keyframe's rec and col
+     sections (as the sp path deals them), K4 on the 4K keyframe and K5 on
+     the counted run's first motion search against their plain versions;
+     the 64-frame 1080p session at sp 2 (uneven I seams) against the
+     pinned 1080p digests; dryrun_step
      on 64 streams of 360x640 at dp 2 x sp 2, each stream's lanes,
      n_records and tables equal to device_encode_step alone;
  10. window serving (screenpressor_tpu_torch.parallel.serve_scan): the
@@ -94,10 +100,12 @@ Phases, each printed with its seconds:
      defaults and through serve_pipelined, 3 runs each in turns (times,
      peak memory); every stream-step of the window RAW by a cause of the
      capacity rule (counted by cause) or equal to serve_pipelined's bytes,
-     decode lossless; the window path counted from a reset (K1-K4 must all
-     appear), its first K1 and K2 launch over the streams, its walks and
-     its K4 launch against their plain versions; the window at capacities
-     that hold every stream-step equal to serve_pipelined everywhere; then
+     decode lossless; the window path counted from a reset (K1-K5 must all
+     appear), its first K1 and K2 launch over the streams, its walks, its
+     K4 launch and its first motion search against their plain versions;
+     the window at capacities that hold every stream-step equal to
+     serve_pipelined everywhere; a window's begin and finish with their
+     host syncs counted; then
      the single-stream window (bench.py:167-222, k_fixed 32) on 17 1080p
      frames against the sequential session (bytes, decode_window, Mpix/s);
  11. the dp split: the serving session (phase 6's 5 steps) through
@@ -107,14 +115,15 @@ Phases, each printed with its seconds:
      path counted from a reset and its launches held against plain as in
      phase 10.
 K4 in phase 3 and 5 also reports its time a row and the whole
-reconstruct_i (expand, pad, kernel).
+reconstruct_i (expand, pad, kernel). Phases 4, 6, 8-11 require K5 (the
+motion search) among their launches too.
 The kernels' JSON summary gives each kernel's launches on its main path,
 its time, its plain version's, its largest error and its roofline bound
 (the larger of the bytes it must move over 3.35 TB/s and its scalar
 operations over 67 TOP/s, the H100 SXM figures): summed over the compared
 launches, like the times, and "library_ms": null (no single PyTorch call
-computes K1-K4). Then the card's nvidia-smi name and power limit; the last
-line is {"ok": true, "device": {...}}. Any failure raises (non-zero exit,
+computes K1-K5: K5 is a first-match search). Then the card's nvidia-smi
+name and power limit; the last line is {"ok": true, "device": {...}}. Any failure raises (non-zero exit,
 no result line). Needs a CUDA device; imports nothing of JAX, of the JAX
 package or of its benchmark.
 """
@@ -171,6 +180,8 @@ SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 # per lane, substep and alphabet entry: effective-row entry, prefix sum,
 # compare and select (K1 and K2)
 SECTION_OPS_PER_SYMBOL = 4
+# K5: the bound compares of a candidate tested
+SEARCH_OPS_TEST = 4
 
 
 def bound(nbytes, nops):
@@ -550,7 +561,7 @@ def serving_main_path(t0, dev, smi, cfg, offsets, host, batches):
     peak = torch.cuda.max_memory_allocated() - held  # the session's own
     print(f"serving main path launches: {launches}")
     need = ("sptc_sections_encode", "sptc_sections_encode_colw", "sptc_sections_decode",
-            "sptc_run_walk", "sptc_recon_rows")
+            "sptc_run_walk", "sptc_recon_rows", "sptc_motion_search")
     missing = [kn for kn in need if launches[kn] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the serving path: {missing}")
@@ -685,17 +696,107 @@ def count_syncs(fn):
     return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
-def search_cost(tb, frames, prevs, cands, cfg):
-    """(CUDA-event ms, host syncs) of motion_search_streams alone on the
-    change map of frames / prevs [C, H, W, 3]."""
-    changed, rects = tb.change_analysis_streams(frames, prevs, cfg.nby, cfg.nbx)
-    ms, _ = cuda_ms(lambda: tb.motion_search_streams(frames, prevs, rects, changed, cands),
-                    TIMED_REPS)
-    return ms, count_syncs(
-        lambda: tb.motion_search_streams(frames, prevs, rects, changed, cands))[1]
+def search_work(fpk, rects, changed, cands, choice):
+    """K5's (bytes, operations) as this run's data needs them: the change
+    map and the choices of every block and the candidates once; each
+    changed block's rect and its current sub-rect (4 B a packed pixel);
+    of the previous frame one pixel for each in-frame candidate a changed
+    block rejects before its answer and the sub-rect at its match, at most
+    the previous frames of the streams with a change, each read once.
+    Operations: SEARCH_OPS_TEST bound compares for each candidate tested
+    before the answer (all of them where none matches), one pixel compare
+    more for each in-frame one rejected, one a position at a match."""
+    import torch
+
+    _, h, w = fpk.shape
+    n_cand = cands.shape[0]
+    ch = changed.reshape(-1)
+    r = rects.reshape(-1, 4)[ch].long()
+    ci = choice.reshape(-1)[ch].long()
+    area = (r[:, 2] - r[:, 0]) * (r[:, 3] - r[:, 1])
+    found = ci < n_cand
+    mx, my = cands[:, 0].long(), cands[:, 1].long()
+    order = torch.arange(n_cand, device=cands.device)
+    rejected_in = 0
+    for lo in range(0, r.shape[0], 4096):
+        rr, cc = r[lo:lo + 4096], ci[lo:lo + 4096]
+        inb = ((rr[:, 0:1] + mx >= 0) & (rr[:, 2:3] + mx <= w)
+               & (rr[:, 1:2] + my >= 0) & (rr[:, 3:4] + my <= h))
+        rejected_in += int((inb & (order < cc[:, None])).sum())
+    tested = int(torch.where(found, ci + 1, n_cand).sum())
+    matched_px = int(area[found].sum())
+    prev_bytes = min(4 * (rejected_in + matched_px),
+                     4 * h * w * int(changed.reshape(changed.shape[0], -1).any(dim=1).sum()))
+    nbytes = (5 * changed.numel() + 4 * cands.numel() + 16 * r.shape[0]
+              + 4 * int(area.sum()) + prev_bytes)
+    return nbytes, SEARCH_OPS_TEST * tested + rejected_in + matched_px
 
 
-def batch_encode_front(t0, dev, smi, frames, cfg):
+def hold_search(record, entry, frames, prevs, rects, changed, cands, label, smi):
+    """K5 (kernels.motion_search_streams_kernel on the packed frames)
+    against its plain version (blocks.motion_search_streams_plain) on these
+    inputs on the card, both timed by CUDA events; the choices must be
+    equal. record: the row to add it to (None: a check only). Returns
+    (kernel ms, plain ms)."""
+    from screenpressor_tpu_torch import blocks as tb
+    from screenpressor_tpu_torch import kernels as tk
+
+    fpk, ppk = tb.pack_pixels(frames), tb.pack_pixels(prevs)
+    ms, got = cuda_ms(lambda: tk.motion_search_streams_kernel(fpk, ppk, rects, changed, cands),
+                      TIMED_REPS)
+    plain_ms, want = cuda_ms(
+        lambda: tb.motion_search_streams_plain(frames, prevs, rects, changed, cands), 1, False)
+    err = max_abs_err([(got.cpu().numpy(), want.cpu().numpy())])
+    work = search_work(fpk, rects, changed, cands, got)
+    if record is not None:
+        record(entry, ms, plain_ms, err, work)
+    elif err:
+        raise AssertionError(f"K5 {label}: kernel differs from plain (max |err| {err})")
+    bms, by = bound(*work)
+    c, h, w = fpk.shape
+    print(f"K5 {label}: {c} x {w}x{h}, {int(changed.sum())} changed blocks, "
+          f"{int((got < cands.shape[0]).sum())} matched, {cands.shape[0]} candidates: kernel "
+          f"{ms:.3f} ms, bound {bms:.4f} ms ({by}), plain {plain_ms:.1f} ms, equal, on {smi}")
+    return ms, plain_ms
+
+
+def noise_search(dev, smi, cfg, rng):
+    """K5 on a noise frame against a noise prev (every block changed, none
+    matching: every candidate of every block tested) at 1080p, its choices
+    all "none" and equal to the plain version's on the first block row;
+    the plain version against K5 on the whole 360x640 noise pair."""
+    import torch
+
+    from screenpressor_tpu_torch import blocks as tb
+    from screenpressor_tpu_torch import kernels as tk
+    from screenpressor_tpu_torch.config import CodecConfig
+
+    cands = torch.tensor(tb.mv_candidates(cfg), dtype=torch.int32, device=dev).reshape(-1, 2)
+    pair = torch.as_tensor(rng.integers(0, 256, (2, 1, cfg.height, cfg.width, 3),
+                                        dtype=np.uint8), device=dev)
+    changed, rects = tb.change_analysis_streams(pair[1], pair[0], cfg.nby, cfg.nbx)
+    fpk, ppk = tb.pack_pixels(pair[1]), tb.pack_pixels(pair[0])
+    ms, got = cuda_ms(lambda: tk.motion_search_streams_kernel(fpk, ppk, rects, changed, cands),
+                      TIMED_REPS)
+    if not (bool(changed.all()) and bool((got == cands.shape[0]).all())):
+        raise AssertionError("K5 noise 1080p: a block unchanged or matched")
+    row = changed.clone()
+    row[:, cfg.nbx:] = False
+    hold_search(None, None, pair[1], pair[0], rects, row, cands,
+                "noise 1080p, first block row", smi)
+    work = search_work(fpk, rects, changed, cands, got)
+    bms, by = bound(*work)
+    print(f"K5 noise 1080p: {changed.numel()} changed blocks, none matched, "
+          f"{cands.shape[0]} candidates each: kernel {ms:.3f} ms, bound {bms:.4f} ms ({by}); "
+          f"the first block row equal to plain, on {smi}")
+    small = CodecConfig(width=S_W, height=S_H, msr_x=256, msr_y=256)
+    pair = torch.as_tensor(rng.integers(0, 256, (2, 1, S_H, S_W, 3), dtype=np.uint8),
+                           device=dev)
+    changed, rects = tb.change_analysis_streams(pair[1], pair[0], small.nby, small.nbx)
+    hold_search(None, None, pair[1], pair[0], rects, changed, cands, "noise 360x640", smi)
+
+
+def batch_encode_front(t0, dev, smi, record, frames, cfg):
     """Phase 6c on the single stream: the analysis of the 1080p batch's 63 P
     frames in one analyze_compact_streams call, as TorchEncoder.encode_batch
     makes it, against its P frames one by one (analyze_compact); counts and
@@ -710,7 +811,10 @@ def batch_encode_front(t0, dev, smi, frames, cfg):
     ms, (arrs, counts, _flat) = cuda_ms(lambda: tb.analyze_compact_streams(fr, pv, cands, cfg),
                                         TIMED_REPS)
     _, syncs = count_syncs(lambda: tb.analyze_compact_streams(fr, pv, cands, cfg))
-    search_ms, search_syncs = search_cost(tb, fr, pv, cands, cfg)
+    changed, rects = tb.change_analysis_streams(fr, pv, cfg.nby, cfg.nbx)
+    search_ms, search_plain_ms = hold_search(record, "sptc_motion_search", fr, pv, rects,
+                                             changed, cands, "1080p batch", smi)
+    noise_search(dev, smi, cfg, np.random.default_rng(13))
     loop_ms, ana = cuda_ms(lambda: [tb.analyze_compact(fr[j], pv[j], cands, cfg)
                                     for j in range(fr.shape[0])], 1)
     _, loop_syncs = count_syncs(lambda: [tb.analyze_compact(fr[j], pv[j], cands, cfg)
@@ -725,8 +829,8 @@ def batch_encode_front(t0, dev, smi, frames, cfg):
                                  "its analysis alone")
     print(f"1080p batch analysis: {fr.shape[0]} P frames, {int(ch[:, 6].sum())} data and "
           f"{int(ch[:, 5].sum())} motion blocks: one call {ms:.3f} ms (CUDA events), "
-          f"{syncs} host syncs, of which the motion search {search_ms:.3f} ms, "
-          f"{search_syncs} host syncs; frame by frame {loop_ms:.3f} ms, {loop_syncs} host "
+          f"{syncs} host syncs, of which the motion search (K5) {search_ms:.3f} ms (plain "
+          f"{search_plain_ms:.1f} ms); frame by frame {loop_ms:.3f} ms, {loop_syncs} host "
           f"syncs; counts and records equal, on {smi}")
     phase("1080p batch analysis", t0)
 
@@ -778,7 +882,11 @@ def serving_encode_front(t0, dev, smi, record, cfg, offsets, batches):
         ms, (arrs, ch, n_data, cls) = cuda_ms(batched, TIMED_REPS)
         hms, _ = host_ms(batched, TIMED_REPS)
         _, syncs = count_syncs(batched)
-        search_ms, search_syncs = search_cost(tb, fr, pv, cands, cfg)
+        _, a_syncs = count_syncs(lambda: tb.analyze_compact_streams(fr, pv, cands, cfg))
+        changed, rects = tb.change_analysis_streams(fr, pv, cfg.nby, cfg.nbx)
+        search_ms, search_plain_ms = hold_search(
+            record, "sptc_motion_search_streams", fr, pv, rects, changed, cands,
+            f"serving step {t}", smi)
         _build.reset_counts()
         batched()
         walks = _build.LAUNCHES["sptc_run_walk"]
@@ -824,9 +932,10 @@ def serving_encode_front(t0, dev, smi, record, cfg, offsets, batches):
               f"{int((ch[:, 0] != 0).sum())} changed, {int(ch[:, 5].sum())} motion and "
               f"{int(n_data.sum())} data blocks: stream-batched {ms:.3f} ms (CUDA events), "
               f"{hms:.3f} ms (host, synchronised), {syncs} host syncs, {walks} K3 "
-              f"launches, of which the motion search {search_ms:.3f} ms, {search_syncs} "
-              f"host syncs; per-stream loop {loop_ms:.3f} ms, {loop_hms:.3f} ms, "
-              f"{loop_syncs} host syncs; counts, records and classification equal{walk}, "
+              f"launches, of which the analysis {a_syncs} host syncs and the motion search "
+              f"(K5) {search_ms:.3f} ms (plain {search_plain_ms:.1f} ms); per-stream loop "
+              f"{loop_ms:.3f} ms, {loop_hms:.3f} ms, {loop_syncs} host syncs; counts, "
+              f"records and classification equal{walk}, "
               f"on {smi}")
     phase("serving P encode front half", t0)
 
@@ -955,7 +1064,7 @@ def session_api(t0, dev, smi, frames, cfg, pinned, rgb24_rates):
     launches = dict(_build.LAUNCHES)
     print(f"session API launches: {launches}")
     single = ("sptc_sections_encode", "sptc_sections_encode_colw", "sptc_sections_decode",
-              "sptc_run_walk", "sptc_recon_rows")
+              "sptc_run_walk", "sptc_recon_rows", "sptc_motion_search")
     missing = [k for k in single if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the session API: {missing}")
@@ -1054,6 +1163,7 @@ def sp_mesh(t0, dev, smi, record, frames_1080, cfg_1080, pinned_1080):
     import torch
 
     from screenpressor_tpu_torch import TorchDecoder, TorchEncoder, _build
+    from screenpressor_tpu_torch import blocks as tb
     from screenpressor_tpu_torch import classify as tcl
     from screenpressor_tpu_torch import coder as tc
     from screenpressor_tpu_torch import recon as tr
@@ -1098,28 +1208,31 @@ def sp_mesh(t0, dev, smi, record, frames_1080, cfg_1080, pinned_1080):
     captured = []
     real = tc.encode_sections
 
-    def capture(dealt_list, lens_list, tables, kts, col_w=None, col_bm=None):
+    def capture_sections(dealt_list, lens_list, tables, kts, col_w=None, col_bm=None):
         captured.append((list(dealt_list), list(lens_list), tables, kts))
         return real(dealt_list, lens_list, tables, kts, col_w, col_bm)
 
-    tc.encode_sections = capture
+    tc.encode_sections = capture_sections
     try:
         sp_encode(frames[:1], meshes[4], cfg)
     finally:
         tc.encode_sections = real
     sp_encode(frames, meshes[4], cfg)
 
-    # the counted run: the 8 frames at sp 1, 2 and 4, encode and decode
+    # the counted run: the 8 frames at sp 1, 2 and 4, encode and decode;
+    # its first motion search captured
+    searches = {}
     _build.reset_counts()
     timed = {}
-    for sp, mesh in meshes.items():
-        got, t_enc = session(sp_encode, frames, mesh, cfg)
-        dec, t_dec = session(sp_decode, got, mesh, cfg)
-        timed[sp] = (got, t_enc, dec, t_dec)
+    with capture(tb, "motion_search_streams", searches, "K5 sp"):
+        for sp, mesh in meshes.items():
+            got, t_enc = session(sp_encode, frames, mesh, cfg)
+            dec, t_dec = session(sp_decode, got, mesh, cfg)
+            timed[sp] = (got, t_enc, dec, t_dec)
     launches = dict(_build.LAUNCHES)
     print(f"sp path launches (8 4K frames at sp 1, 2 and 4, encode and decode): {launches}")
     missing = [k for k in ("sptc_sections_encode", "sptc_sections_decode", "sptc_run_walk",
-                           "sptc_recon_rows") if launches[k] <= 0]
+                           "sptc_recon_rows", "sptc_motion_search") if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the sp path: {missing}")
     for sp, (got, t_enc, dec, t_dec) in timed.items():
@@ -1202,6 +1315,8 @@ def sp_mesh(t0, dev, smi, record, frames_1080, cfg_1080, pinned_1080):
                         (got.cpu().numpy(), frames[0])]), recon_work(k4_rows, got))
     print(f"K4 4K keyframe: kernel {ms:.3f} ms, reconstruct_i {whole_ms:.3f} ms, plain "
           f"{plain_ms:.1f} ms, equal, equals the keyframe, on {smi}")
+    hold_search(record, "sptc_motion_search_sp", *searches.pop("K5 sp")[0],
+                "sp path, 4K P frame 1 (sp 1)", smi)
     phase("sp mesh kernels vs plain", t0)
 
     # the 1080p session at sp 2 (uneven I seams: rows 0-544 and 544-1080)
@@ -1271,9 +1386,10 @@ def capture(module, name, store, key, pick=lambda *a: True, tables_at=None):
 
 
 def window_captures(store, tag):
-    """The captures of K1-K4 launches on a window or split path: the first
+    """The captures of K1-K5 launches on a window or split path: the first
     K1 and K2 launch over at least two streams, the first keyframe walk,
-    data-block walk and K4 launch."""
+    data-block walk, K4 launch and motion search."""
+    from screenpressor_tpu_torch import blocks as tb
     from screenpressor_tpu_torch import classify as tcl
     from screenpressor_tpu_torch import coder as tc
     from screenpressor_tpu_torch import pframe as tp
@@ -1286,16 +1402,17 @@ def window_captures(store, tag):
     stack.enter_context(capture(tcl, "run_walk", store, f"K3 keyframes {tag}"))
     stack.enter_context(capture(tp, "run_walk", store, f"K3 data blocks {tag}"))
     stack.enter_context(capture(tr, "recon_rows", store, f"K4 {tag}"))
+    stack.enter_context(capture(tb, "motion_search_streams", store, f"K5 {tag}"))
     return stack
 
 
 def hold_captured(record, store, tag, entries, smi, subset=2):
-    """The captured K1-K4 launches of `tag` against their plain versions on
+    """The captured K1-K5 launches of `tag` against their plain versions on
     the card: K1 / K2 over all their streams (full-table col), timed, and
     the plain version on their first `subset` streams (a stream's bytes,
     starts, records and tables do not depend on the others); K3 whole; K4
-    timed whole, plain on its first `subset` frames. entries: the row
-    names for K1, K2, K3, K4."""
+    timed whole, plain on its first `subset` frames; K5 whole. entries:
+    the row names for K1, K2, K3, K4, K5."""
     import torch
 
     from screenpressor_tpu_torch import classify as tcl
@@ -1307,7 +1424,7 @@ def hold_captured(record, store, tag, entries, smi, subset=2):
         return max(int((a[kd][key][ids].long() - b[kd][key][ids].long()).abs().max())
                    for kd in b for key in b[kd])
 
-    k1, k2, k3, k4 = entries
+    k1, k2, k3, k4, k5 = entries
     (dealt, lens, _, kts, sidx, *_), tabs0 = store[f"K1 {tag}"]
     m = min(subset, len(sidx))
     sidx = [int(i) for i in sidx]
@@ -1372,6 +1489,8 @@ def hold_captured(record, store, tag, entries, smi, subset=2):
            recon_work(rows, got))
     print(f"{k4}: {rows.shape[0]} frames: kernel {ms:.3f} ms, plain on {m} of them "
           f"{plain_ms:.1f} ms, equal, on {smi}")
+
+    hold_search(record, k5, *store[f"K5 {tag}"][0], k5, smi)
 
 
 def payload_counts(p):
@@ -1548,7 +1667,7 @@ def window_serving(t0, dev, smi, record, frames_1080, synth_screencast):
     print(f"window path launches (16 steps in two windows of 8, WindowConfig defaults): "
           f"{counts}")
     missing = [k for k in ("sptc_sections_encode", "sptc_sections_decode", "sptc_run_walk",
-                           "sptc_recon_rows") if counts[k] <= 0]
+                           "sptc_recon_rows", "sptc_motion_search") if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the window path: {missing}")
     if [outs for outs, _ in got] != [outs for outs, _ in win[1:]]:
@@ -1570,9 +1689,18 @@ def window_serving(t0, dev, smi, record, frames_1080, synth_screencast):
     phase("window serving: bytes", t0)
     hold_captured(record, store, "window", ("sptc_sections_encode_window",
                                             "sptc_sections_decode_window",
-                                            "sptc_run_walk_window", "sptc_recon_rows_window"),
-                  smi)
+                                            "sptc_run_walk_window", "sptc_recon_rows_window",
+                                            "sptc_motion_search_window"), smi)
     del store
+
+    # a window's host syncs (torch's sync debug mode)
+    enc = ts.BatchedEncoder(S_STREAMS, cfg, dev, kf_offsets=offsets)
+    enc.encode(batches[0])
+    handle, begin_syncs = count_syncs(lambda: ss.encode_window_begin(enc, batches[1:9],
+                                                                     defaults))
+    _, finish_syncs = count_syncs(lambda: ss.encode_window_finish(handle))
+    print(f"window serving: host syncs of a window of 8 steps over {S_STREAMS} streams: "
+          f"encode_window_begin {begin_syncs}, encode_window_finish {finish_syncs}, on {smi}")
     phase("window serving: kernels vs plain", t0)
 
     n_sf = S_STREAMS * WIN_STEPS
@@ -1662,13 +1790,14 @@ def dp_split(t0, dev, smi, record, synth_screencast):
     counts = dict(_build.LAUNCHES)
     print(f"dp split path launches (2 groups, 5 steps): {counts}")
     missing = [k for k in ("sptc_sections_encode", "sptc_sections_decode", "sptc_run_walk",
-                           "sptc_recon_rows") if counts[k] <= 0]
+                           "sptc_recon_rows", "sptc_motion_search") if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the dp split path: {missing}")
     if [outs for outs, _ in got] != [outs for outs, _ in first[1]]:
         raise AssertionError("dp split counted run: bytes differ from unsplit")
     hold_captured(record, store, "dp", ("sptc_sections_encode_dp", "sptc_sections_decode_dp",
-                                        "sptc_run_walk_dp", "sptc_recon_rows_dp"), smi)
+                                        "sptc_run_walk_dp", "sptc_recon_rows_dp",
+                                        "sptc_motion_search_dp"), smi)
     phase("dp split: kernels vs plain", t0)
     return counts
 
@@ -1925,7 +2054,7 @@ def main() -> int:
     launches = dict(_build.LAUNCHES)
     print(f"single-stream main path launches: {launches}")
     single = ("sptc_sections_encode", "sptc_sections_encode_colw", "sptc_sections_decode",
-              "sptc_run_walk", "sptc_recon_rows")
+              "sptc_run_walk", "sptc_recon_rows", "sptc_motion_search")
     missing = [k for k in single if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the main path: {missing}")
@@ -1962,7 +2091,7 @@ def main() -> int:
     serve = serving_main_path(t0, dev, smi, s_cfg, s_offsets, s_host, s_batches)
     serving_rebuild(t0, dev, smi, s_cfg, s_offsets, s_batches)
     serving_encode_front(t0, dev, smi, record, s_cfg, s_offsets, s_batches)
-    batch_encode_front(t0, dev, smi, frames, cfg)
+    batch_encode_front(t0, dev, smi, record, frames, cfg)
     damaged_streams(t0, dev, smi)
     session_api(t0, dev, smi, frames, cfg, pinned, rgb24_rates)
     sp_counts = sp_mesh(t0, dev, smi, record, frames, cfg, pinned)
@@ -1975,6 +2104,10 @@ def main() -> int:
     k1, k2 = "screenpressor_tpu/jx/kernels.py:1016", "screenpressor_tpu/jx/kernels.py:577"
     k2_grid, k3 = "screenpressor_tpu/jx/kernels.py:685", "screenpressor_tpu/jx/classify.py:142"
     k4 = "screenpressor_tpu/jx/recon.py:143"
+    # K5 stands for the device-resident search motion_search_pruned (no
+    # Pallas site: XLA compiles its lax.while_loop)
+    search, k5 = ("screenpressor_tpu_torch/csrc/motion_search.cu",
+                  "screenpressor_tpu/jx/blocks.py:389")
     entries = (  # (entry, its launch count, main path's counts, source, TPU kernel)
         ("sptc_sections_encode", "sptc_sections_encode", launches, sections, k1),
         ("sptc_sections_encode_colw", "sptc_sections_encode_colw", launches, sections, k1),
@@ -1998,6 +2131,11 @@ def main() -> int:
         ("sptc_sections_decode_dp", "sptc_sections_decode", dp_counts, sections, k2_grid),
         ("sptc_run_walk_dp", "sptc_run_walk", dp_counts, walk, k3),
         ("sptc_recon_rows_dp", "sptc_recon_rows", dp_counts, recon, k4),
+        ("sptc_motion_search", "sptc_motion_search", launches, search, k5),
+        ("sptc_motion_search_streams", "sptc_motion_search", serve, search, k5),
+        ("sptc_motion_search_sp", "sptc_motion_search", sp_counts, search, k5),
+        ("sptc_motion_search_window", "sptc_motion_search", win_counts, search, k5),
+        ("sptc_motion_search_dp", "sptc_motion_search", dp_counts, search, k5),
     )
     kernels = [
         {"name": entry, "route": "cuda", "source": src, "replaces": rep,
@@ -2005,7 +2143,7 @@ def main() -> int:
          "ms": rows[entry]["ms"], "plain_ms": rows[entry]["plain_ms"],
          "bound_ms": rows[entry]["bound_ms"],
          "bound_by": "bytes" if rows[entry]["bytes_ms"] >= rows[entry]["ops_ms"] else "operations",
-         "library_ms": None}  # no single PyTorch call computes K1-K4
+         "library_ms": None}  # no single PyTorch call computes K1-K5
         for entry, count, path, src, rep in entries
     ]
     print(json.dumps({"kernels": kernels}))

@@ -6,9 +6,10 @@ interface under `build/torch_kernels/` (next to the package), named by a
 hash of the sources so an edited source rebuilds on first use. The
 library is loaded with ctypes; every kernel wrapper calls `launch`, which
 adds one to that kernel's launch count (and K1's colw variant's, for a
-launch that holds a colw section), passes PyTorch's current stream and
-raises when the launch is refused. Compiling the sources side by side
-bounds the build by its slowest source, not by their sum.
+launch that holds a colw section), makes the inputs' card current and
+passes its current stream, and raises when the launch is refused.
+Compiling the sources side by side bounds the build by its slowest
+source, not by their sum.
 
 Nothing here runs at import: the build happens on the first launch, so the
 CPU tests (no nvcc, no card) import every module freely.
@@ -41,6 +42,7 @@ SIGNATURES = {
     "sptc_sections_decode": (_P, _I, _I, _P),
     "sptc_run_walk": (_P, _P, _P, _L, _I, _P),
     "sptc_recon_rows": (_P, _P, _I, _I, _I, _I, _P),
+    "sptc_motion_search": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
 }
 
 # kernel -> launches since the last reset_counts(); a K1 launch that holds
@@ -125,12 +127,13 @@ def library():
     return _LIB
 
 
-def launch(name: str, *args, counts=None) -> None:
-    """Launch C entry `name` on the current stream and add one to each of
-    `counts` (default: `name`); raises if the launch is refused."""
+def launch(name: str, *args, device, counts=None) -> None:
+    """Launch C entry `name` on `device` (the inputs' card: made current for
+    the launch, on its current stream) and add one to each of `counts`
+    (default: `name`); raises if the launch is refused."""
     fn = getattr(library(), name)
-    stream = torch.cuda.current_stream().cuda_stream
-    err = fn(*args, stream)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
     for count in counts or (name,):

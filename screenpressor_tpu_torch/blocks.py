@@ -9,14 +9,18 @@ case C = 1 (`analyze_compact`).
 The motion vector of a changed block is the first candidate, in
 `mv_candidates` order (FORMAT.md "Motion search"), whose shifted
 previous-frame region equals the block's changed sub-rect byte for byte
-and lies inside the frame. The search takes the changed blocks of every
-stream as one flat list (one `nonzero` a call); each block carries its
-stream id and reads its own previous frame through the stream's offset.
-Pixels are packed to int32 (r | g << 8 | b << 16), one compare a pixel. Per
-chunk of candidates it gathers each open block's shifted 16x16 windows,
-tests the sub-rect for zero mismatch, records the lowest matching candidate
-and drops the blocks it resolved from later chunks: one host sync a chunk,
-however many streams the call holds.
+and lies inside the frame. Pixels are packed to int32 (r | g << 8 | b <<
+16), one compare a pixel. On the card the search is K5
+(`kernels.motion_search_streams_kernel`, `csrc/motion_search.cu`): one
+launch over every block of every stream, no host sync, so
+`analyze_compact_streams` on a CUDA tensor reads nothing back, as the
+reference's jitted `analyze_compact` does. On the CPU it is the plain
+version, `motion_search_streams_plain`: the changed blocks of every stream
+as one flat list (one `nonzero` a call), each block reading its own
+previous frame through its stream's offset; per chunk of candidates it
+gathers each open block's shifted 16x16 windows, tests the sub-rect for
+zero mismatch, records the lowest matching candidate and drops the blocks
+it resolved from later chunks (one host sync a chunk).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from screenpressor_tpu_torch.config import (
     CodecConfig,
     next_pow2,
 )
+from screenpressor_tpu_torch.kernels import motion_search_streams_kernel
 
 I32 = torch.int32
 AREA = BLOCK * BLOCK
@@ -103,8 +108,20 @@ def motion_search_streams(frames: torch.Tensor, prevs: torch.Tensor, rects: torc
                           changed: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
     """First matching candidate index of each block of each stream ([C, nb]
     int32; n_cand = none). frames, prevs [C, H, W, 3]; rects [C, nb, 4];
-    changed [C, nb]; cands [n_cand, 2]. Host syncs: the call's `nonzero`,
-    then one a candidate chunk but the last.
+    changed [C, nb]; cands [n_cand, 2]. K5 on CUDA tensors (no host sync;
+    raises if the launch fails), the plain version on CPU tensors."""
+    if not frames.is_cuda:
+        return motion_search_streams_plain(frames, prevs, rects, changed, cands)
+    return motion_search_streams_kernel(pack_pixels(frames), pack_pixels(prevs), rects,
+                                        changed, cands.to(frames.device))
+
+
+def motion_search_streams_plain(frames: torch.Tensor, prevs: torch.Tensor,
+                                rects: torch.Tensor, changed: torch.Tensor,
+                                cands: torch.Tensor) -> torch.Tensor:
+    """The plain version of K5 (motion_search_streams' contract) in chunks
+    of candidates. Host syncs: the call's `nonzero`, then one a candidate
+    chunk but the last.
 
     A window position is read at its coordinate clamped into the stream's
     own frame: only the sub-rect's positions are compared, and a candidate

@@ -106,7 +106,7 @@ def run_walk(bits: torch.Tensor, st: torch.Tensor, tile: int) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.bool, device=bits.device)
     if n:
         _build.launch("sptc_run_walk", bits.data_ptr(), st.data_ptr(),
-                      out.data_ptr(), n, tile)
+                      out.data_ptr(), n, tile, device=bits.device)
     return out
 
 

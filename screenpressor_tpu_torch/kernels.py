@@ -1,7 +1,10 @@
 """Wrappers of the fused section kernels K1 (encode) and K2 (decode),
 `csrc/sections.cu`, replacing the Pallas kernels of
 `screenpressor_tpu/jx/kernels.py` (`encode_sections_fused`,
-`decode_sections_fused`).
+`decode_sections_fused`), and of the motion search K5,
+`csrc/motion_search.cu` (the reference's device-resident
+`jx/blocks.py` `motion_search_pruned`, which has no Pallas site; its plain
+version is `blocks.motion_search_streams_plain`).
 
 Same contracts as the stream loops of the plain coder in `coder.py`
 (`encode_sections_streams_plain`: `model_scan` + `rans_pack`;
@@ -139,7 +142,7 @@ def encode_sections_streams_kernel(dealt_list, lens_list, tables_b: dict, kts, s
             keep += [recs, iv]
         d = np.asarray(desc + [slots.data_ptr()] + tabs + secs, np.int64)
         colw = any(kts[i][0].startswith("colw") for i in group)
-        _build.launch("sptc_sections_encode", d.ctypes.data, len(group), c,
+        _build.launch("sptc_sections_encode", d.ctypes.data, len(group), c, device=dev,
                       counts=("sptc_sections_encode", "sptc_sections_encode_colw")
                       if colw else None)
     return bufs, starts
@@ -171,5 +174,36 @@ def decode_sections_streams_kernel(pay_list, lens_list, tables_b: dict, kts, sid
             secs += [CODECS[name].cid, k, t, pay.shape[2], recs[i].data_ptr(),
                      lens_list[i].data_ptr(), 0, 0, 0, pay.data_ptr(), 0]
         d = np.asarray(desc + [slots.data_ptr()] + tabs + secs, np.int64)
-        _build.launch("sptc_sections_decode", d.ctypes.data, len(group), c)
+        _build.launch("sptc_sections_decode", d.ctypes.data, len(group), c, device=dev)
     return recs
+
+
+def motion_search_streams_kernel(fpk: torch.Tensor, ppk: torch.Tensor, rects: torch.Tensor,
+                                 changed: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
+    """K5: the first matching candidate of every block of C streams, with
+    no host sync. fpk, ppk [C, H, W] int32 packed pixels (blocks.pack_pixels);
+    rects [C, nb, 4] int32 absolute exclusive sub-rects (x1, y1, x2, y2),
+    1 to 16 pixels a side inside the frame where changed; changed [C, nb]
+    bool; cands [n_cand, 2] int32 (mx, my) in mv_candidates order. Returns
+    choice [C, nb] int32, n_cand where a block is unchanged or nothing
+    matches."""
+    c, h, w = fpk.shape
+    nb = rects.shape[1]
+    n_cand = cands.shape[0]
+    rects, cands = rects.to(I32).contiguous(), cands.to(I32).contiguous()
+    changed = changed.to(torch.bool).contiguous()
+    _build.require_cuda(fpk, ppk, rects, changed, cands)
+    if (fpk.dtype != I32 or ppk.dtype != I32 or ppk.shape != fpk.shape
+            or rects.shape != (c, nb, 4) or changed.shape != (c, nb)
+            or cands.shape != (n_cand, 2)):
+        raise ValueError(f"motion search: frames {tuple(fpk.shape)} {fpk.dtype}, prevs "
+                         f"{tuple(ppk.shape)} {ppk.dtype}, rects {tuple(rects.shape)}, changed "
+                         f"{tuple(changed.shape)}, cands {tuple(cands.shape)}")
+    if h * w >= 2 ** 31:
+        raise ValueError(f"motion search: a {h}x{w} frame has over 2^31 pixels")
+    choice = torch.empty((c, nb), dtype=I32, device=fpk.device)
+    if c * nb:
+        _build.launch("sptc_motion_search", fpk.data_ptr(), ppk.data_ptr(), rects.data_ptr(),
+                      changed.data_ptr(), cands.data_ptr(), choice.data_ptr(), c * nb, nb, h,
+                      w, n_cand, device=fpk.device)
+    return choice

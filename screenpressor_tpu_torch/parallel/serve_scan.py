@@ -6,11 +6,11 @@ classification at a fixed capacity, the section encode (K1) with the raw
 escape, the keyframe slots, the flat / no-change bookkeeping and the
 container bytes all stay on the device, with fixed capacities throughout
 (`WindowConfig`). The steps are a Python loop (torch has no scan); every K1
-launch takes its step count from a capacity, not from pulled counts. The
-only host syncs inside a window are the motion search's, one a candidate
-chunk (`blocks.motion_search_streams`). `encode_window_finish` then makes
-two pulls: the [F, S] lengths and kinds, then one gather of exactly the
-used bytes (RAW bodies included).
+launch takes its step count from a capacity, not from pulled counts; the
+motion search is one K5 launch a step (`blocks.motion_search_streams`),
+which reads nothing back. `encode_window_finish` then makes two pulls: the
+[F, S] lengths and kinds, then one gather of exactly the used bytes (RAW
+bodies included).
 
 Capacities are part of the bytes. Within them a window emits exactly the
 sequential `BatchedEncoder.encode()` bytes; a stream-step beyond them is

@@ -8,12 +8,12 @@ section kernels update in place. Each section group of a step is one K1 or
 K2 launch over all the streams that code it (an index list of stream ids,
 not a skip mask); the keyframing streams share one K3 run walk and, on
 decode, one K4 launch. On encode the P streams share one change analysis,
-motion search and record compaction (`blocks.analyze_compact_streams`)
-and one classification of all their data blocks
-(`pframe.classify_assemble_streams`, one K3 launch); each section is dealt
-for all of them in one gather (`coder.deal_streams`). On decode the coded
-P streams share one block resolution, motion apply and block rebuild
-(`pframe.rebuild_p_streams`).
+motion search (one K5 launch, no host sync) and record compaction
+(`blocks.analyze_compact_streams`) and one classification of all their
+data blocks (`pframe.classify_assemble_streams`, one K3 launch); each
+section is dealt for all of them in one gather (`coder.deal_streams`). On
+decode the coded P streams share one block resolution, motion apply and
+block rebuild (`pframe.rebuild_p_streams`).
 
 Streams use a fixed lane count (`CodecConfig.k_fixed`, default
 min(k_max, 256)); the bitstreams are standard SPTC and decode with any

@@ -156,7 +156,8 @@ def recon_rows(rows: torch.Tensor, w: int) -> torch.Tensor:
     out = torch.empty((*lead, w, 3), dtype=torch.uint8, device=rows.device)
     n, h = (lead[0], lead[1]) if rows.dim() == 3 else (1, lead[0])
     if n and h:
-        _build.launch("sptc_recon_rows", rows.data_ptr(), out.data_ptr(), n, h, w, wp)
+        _build.launch("sptc_recon_rows", rows.data_ptr(), out.data_ptr(), n, h, w, wp,
+                      device=rows.device)
     return out
 
 

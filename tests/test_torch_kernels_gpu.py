@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1-K4, their stream-batched launches and K1's
-colw variant) against their plain PyTorch versions, on the card. Skips
-where there is no CUDA device.
+colw variant; the motion search K5) against their plain PyTorch versions,
+on the card. Skips where there is no CUDA device.
 
 This file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
@@ -900,3 +900,128 @@ def test_split_on_card_equals_unsplit(cuda, n):
         got[label] = steps
     assert got["split"] == got["unsplit"]
     assert _window_session(cuda, [cuda] * n) == _window_session(cuda)
+
+
+def _k5_vs_plain(frames, prevs, cfg, dev):
+    """K5 (motion_search_streams on the card) and the plain version on the
+    same device tensors -> (K5's choices, plain's, K5's launches)."""
+    from screenpressor_tpu_torch import blocks as tb
+
+    cands = torch.tensor(tb.mv_candidates(cfg), dtype=torch.int32, device=dev).reshape(-1, 2)
+    fr, pv = torch.as_tensor(frames, device=dev), torch.as_tensor(prevs, device=dev)
+    changed, rects = tb.change_analysis_streams(fr, pv, cfg.nby, cfg.nbx)
+    n0 = _build.LAUNCHES["sptc_motion_search"]
+    got = tb.motion_search_streams(fr, pv, rects, changed, cands)
+    launches = _build.LAUNCHES["sptc_motion_search"] - n0
+    want = tb.motion_search_streams_plain(fr, pv, rects, changed, cands)
+    return got.cpu(), want.cpu(), launches
+
+
+@pytest.mark.parametrize("name", ["noise", "last", "edges", "streams", "idle"])
+def test_motion_search_kernel_matches_plain(cuda, name):
+    """K5 equals the plain version (on the card and on the CPU) on the
+    motion search fixtures, in one launch."""
+    from torch_support import MS_CFG, motion_search_fixtures  # tests/ is on the path
+
+    frames, prevs, _ = motion_search_fixtures()[name]
+    cfg = CodecConfig(**MS_CFG)
+    got, want, launches = _k5_vs_plain(frames, prevs, cfg, cuda)
+    assert torch.equal(got, want)
+    assert launches == 1
+    cpu, _, _ = _k5_vs_plain(frames, prevs, cfg, "cpu")
+    assert torch.equal(got, cpu)
+
+
+def test_motion_search_kernel_on_1080p_batch(cuda):
+    """K5 equals the plain version on the 1080p synth_screencast batch's 63
+    (frame, prev) pairs in one call, as encode_batch makes it."""
+    from screenpressor_tpu_torch.synth import synth_screencast
+
+    frames = np.stack(synth_screencast(1080, 1920, 64))
+    got, want, launches = _k5_vs_plain(frames[1:], frames[:-1],
+                                       CodecConfig(width=1920, height=1080), cuda)
+    assert torch.equal(got, want) and launches == 1
+    assert (got < 1278).sum() > 0
+
+
+def _serving_steps(n=5):
+    """chip_smoke.py's serving profile: 64 streams of 360x640, stream i
+    rolled 3 i columns, n steps."""
+    from screenpressor_tpu_torch.synth import synth_screencast
+
+    base = synth_screencast(360, 640, n, seed=3)
+    return [np.stack([np.roll(base[t], 3 * i, axis=1) for i in range(64)]) for t in range(n)]
+
+
+def test_motion_search_kernel_on_serving_steps(cuda):
+    """K5 equals the plain version on every step of the serving session
+    (64 streams of 360x640, msr 256), each step's 64 pairs in one call."""
+    steps = _serving_steps()
+    cfg = CodecConfig(width=640, height=360, k_fixed=64, msr_x=256, msr_y=256)
+    for t in range(1, len(steps)):
+        got, want, launches = _k5_vs_plain(steps[t], steps[t - 1], cfg, cuda)
+        assert torch.equal(got, want), t
+        assert launches == 1
+
+
+def test_analyze_compact_streams_makes_no_host_sync(cuda):
+    """analyze_compact_streams on CUDA tensors makes no host sync (torch's
+    sync debug mode set to raise), on the serving scroll step and on the
+    noise fixture, and its outputs equal the CPU port's."""
+    from torch_support import MS_CFG, motion_search_fixtures  # tests/ is on the path
+
+    from screenpressor_tpu_torch import blocks as tb
+
+    steps = _serving_steps(3)
+    noise = motion_search_fixtures()["noise"]
+    for (frames, prevs), cfg in (
+            ((steps[1], steps[0]), CodecConfig(width=640, height=360, msr_x=256, msr_y=256)),
+            (noise[:2], CodecConfig(**MS_CFG))):
+        cands = torch.tensor(tb.mv_candidates(cfg), dtype=torch.int32).reshape(-1, 2)
+        fr, pv, cd = (torch.as_tensor(x, device=cuda) for x in (frames, prevs, cands))
+        tb.analyze_compact_streams(fr, pv, cd, cfg)  # builds and loads K5 first
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            arrs, counts, flat = tb.analyze_compact_streams(fr, pv, cd, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = tb.analyze_compact_streams(torch.as_tensor(frames), torch.as_tensor(prevs),
+                                          cands, cfg)
+        assert torch.equal(counts.cpu(), want[1]) and torch.equal(flat.cpu(), want[2])
+        for nm, a in arrs.items():
+            assert torch.equal(a.cpu(), want[0][nm]), nm
+
+
+def test_motion_search_kernel_past_2_31_pixels(cuda):
+    """A call of 2,049 streams of 1024x1024 (C * H * W > 2^31): the last
+    stream's blocks, whose pixel offsets pass 2^31, get the plain version's
+    choices on that stream alone; the other streams are unchanged."""
+    from torch_support import _ms_shift  # tests/ is on the path
+
+    from screenpressor_tpu_torch import blocks as tb
+
+    c, h, w = 2049, 1024, 1024
+    cfg = CodecConfig(width=w, height=h, msr_x=16, msr_y=16)
+    rng = np.random.default_rng(71)
+    prev = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    cur = prev.copy()
+    for i, box in enumerate(((1008, 1008, 1024, 1024), (3, 5, 12, 16), (512, 40, 520, 48))):
+        _ms_shift(cur, prev, box, *((-i - 1, 0), (0, 1), (2, 2))[i])
+    cur[600:610, 700:710] = 9  # two data blocks
+    cands = torch.tensor(tb.mv_candidates(cfg), dtype=torch.int32, device=cuda).reshape(-1, 2)
+    one_f = torch.as_tensor(cur, device=cuda)[None]
+    one_p = torch.as_tensor(prev, device=cuda)[None]
+    changed1, rects1 = tb.change_analysis_streams(one_f, one_p, cfg.nby, cfg.nbx)
+    want = tb.motion_search_streams_plain(one_f, one_p, rects1, changed1, cands)[0]
+    fr = torch.zeros((c, h, w, 3), dtype=torch.uint8, device=cuda)
+    pv = torch.zeros_like(fr)
+    fr[-1], pv[-1] = one_f[0], one_p[0]
+    nb = cfg.nbx * cfg.nby
+    changed = torch.zeros((c, nb), dtype=torch.bool, device=cuda)
+    rects = torch.zeros((c, nb, 4), dtype=torch.int32, device=cuda)
+    changed[-1], rects[-1] = changed1[0], rects1[0]
+    got = tb.motion_search_streams(fr, pv, rects, changed, cands)
+    assert torch.equal(got[-1], want)
+    assert bool((got[:-1] == cands.shape[0]).all())
+    assert int((want < cands.shape[0]).sum()) == 3

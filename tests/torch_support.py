@@ -2,6 +2,7 @@
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -50,8 +51,6 @@ def corrupt_payloads(n_flips=40, n_cuts=10, seed=6, device="cpu", k_fixed=None):
     corruptions and n_cuts truncations, from a seed, then the
     INDEX_SITE_FLIPS. Returns (cfg, frames, payloads, [(frame index,
     damaged payload)])."""
-    import numpy as np
-
     from screenpressor_tpu_torch import TorchEncoder
     from screenpressor_tpu_torch.config import CodecConfig
     from screenpressor_tpu_torch.synth import synth_screencast
@@ -82,8 +81,6 @@ def damaged_serving_steps(device="cpu"):
     (cfg, steps [t][stream] payloads, stream 1's payloads, damaged cases
     [(step, damaged stream-1 payload)]: the 40 flips of corrupt_payloads,
     then the SERVING_SITE_FLIPS)."""
-    import numpy as np
-
     from screenpressor_tpu_torch.parallel.serving import BatchedEncoder
 
     cfg, frames, payloads, damaged = corrupt_payloads(seed=8, k_fixed=8, device=device)
@@ -205,3 +202,133 @@ def sp_stage_ms(fn):
             if lo <= at <= hi:
                 ms[name] += (e.time_range.end - e.time_range.start) / 1e3
     return out, ms
+
+
+# The motion search fixtures' config (msr 8, low 2: 46 candidates) and
+# frame size (block rows and columns 16, 16, 8 / 16, 16, 16, 8 pixels).
+MS_CFG = dict(width=56, height=40, msr_x=8, msr_y=8, msr_low_x=2, msr_low_y=2)
+
+
+def _ms_noise(rng, c, h=40, w=56):
+    return rng.integers(0, 256, (c, h, w, 3), dtype=np.uint8)
+
+
+def _ms_desktop(rng, h, w):
+    """A flat background with short strokes of a few colours (text-like)."""
+    img = np.full((h, w, 3), (40, 44, 52), np.uint8)
+    pal = rng.integers(0, 256, (4, 3))
+    for _ in range(h * w // 40):
+        y, x = int(rng.integers(h)), int(rng.integers(w - 6))
+        img[y, x:x + int(rng.integers(1, 6))] = pal[int(rng.integers(4))]
+    return img
+
+
+def _ms_shift(cur, prev, box, mx, my):
+    """cur's box (x1, y1, x2, y2) := prev shifted by (mx, my): a block whose
+    sub-rect matches at that candidate (and, prev being noise, at no
+    other)."""
+    x1, y1, x2, y2 = box
+    cur[y1:y2, x1:x2] = prev[y1 + my:y2 + my, x1 + mx:x2 + mx]
+
+
+def _ms_clamp_shift(cur, prev, box, mx, my):
+    """cur's box := prev shifted by (mx, my) with coordinates clamped into
+    the frame: what a search that clamps its reads without the exact bounds
+    test would take as a match of (mx, my)."""
+    h, w = prev.shape[:2]
+    x1, y1, x2, y2 = box
+    ys = np.clip(np.arange(y1, y2) + my, 0, h - 1)
+    xs = np.clip(np.arange(x1, x2) + mx, 0, w - 1)
+    cur[y1:y2, x1:x2] = prev[ys[:, None], xs[None, :]]
+
+
+def _ms_flat_shift(cur, prevs, s, box, d):
+    """Stream s's box := its prev read at flat pixel offset +d over the
+    whole [C, H, W] call (rows wrap, the frame's end runs into the next
+    stream's): what a search without the exact bounds test would take as a
+    match of the candidate whose offset is d."""
+    c, h, w, _ = prevs.shape
+    flat = prevs.reshape(-1, 3)
+    x1, y1, x2, y2 = box
+    for y in range(y1, y2):
+        for x in range(x1, x2):
+            cur[y, x] = flat[(s * h + y) * w + x + d]
+
+
+def motion_search_fixtures(seed=70):
+    """The motion search's fixtures at MS_CFG: name -> (frames, prevs [C,
+    40, 56, 3] uint8, expect {(stream, block): (mx, my) or None}, the
+    choices the fixture was built to give, None meaning no match).
+
+    noise: two noise frames against noise prevs, every block changed and
+      none matching;
+    last: the only match of a full and of a partial block is the last
+      candidate, (2, 2);
+    edges: sub-rects that a candidate puts exactly at the frame's edge
+      (x2 + mx == W, y2 + my == H, x1 + mx == 0, y1 + my == 0: found) and
+      one past it (taken as a match only by a search that reads flat
+      offsets across rows or into the neighbouring stream, or that clamps
+      its reads into the frame: no match);
+    streams: four streams with different change maps in one call (noise,
+      idle, a desktop scrolled by 3 rows with a window moved on it, a
+      typed block);
+    idle: no changed block."""
+    from screenpressor_tpu_torch.blocks import mv_candidates
+    from screenpressor_tpu_torch.config import CodecConfig
+
+    h, w = MS_CFG["height"], MS_CFG["width"]
+    nbx = -(-w // 16)
+    cands = mv_candidates(CodecConfig(**MS_CFG))
+    rng = np.random.default_rng(seed)
+
+    def blk(x, y):
+        return (y // 16) * nbx + x // 16
+
+    out = {}
+    prevs = _ms_noise(rng, 2)
+    out["noise"] = (_ms_noise(rng, 2), prevs, {(s, b): None for s in range(2)
+                                               for b in range(3 * nbx)})
+
+    prevs = _ms_noise(rng, 1)
+    cur = prevs.copy()
+    last = cands[-1]
+    for box in ((18, 17, 30, 30), (49, 33, 54, 38)):  # a full block's box, a partial one's
+        _ms_shift(cur[0], prevs[0], box, *last)
+    out["last"] = (cur, prevs, {(0, blk(18, 17)): last, (0, blk(49, 33)): last})
+
+    prevs = _ms_noise(rng, 2)
+    cur = prevs.copy()
+    expect = {}
+    for s, box, mv in ((0, (49, 3, 55, 9), (1, 0)),      # x2 + mx == W
+                       (0, (18, 33, 26, 39), (0, 1)),    # y2 + my == H
+                       (0, (1, 20, 7, 28), (-1, 0)),     # x1 + mx == 0
+                       (0, (20, 1, 27, 7), (0, -1))):    # y1 + my == 0
+        _ms_shift(cur[s], prevs[s], box, *mv)
+        expect[(s, blk(box[0], box[1]))] = mv
+    for s, box, d in ((0, (50, 19, 56, 25), 1),        # x2 + 1 == W + 1: wraps a row
+                      (0, (36, 34, 44, 40), w),        # y2 + 1 == H + 1: stream 1's row 0
+                      (1, (35, 0, 42, 6), -w),         # y1 - 1 == -1: stream 0's last row
+                      (1, (0, 3, 6, 9), -1)):          # x1 - 1 == -1: wraps a row
+        _ms_flat_shift(cur[s], prevs, s, box, d)
+        expect[(s, blk(box[0], box[1]))] = None
+    for s, box, mv in ((0, (49, 33, 55, 39), (2, 0)),     # x2 + 2 == W + 1
+                       (1, (20, 33, 28, 39), (0, 2)),     # y2 + 2 == H + 1
+                       (1, (1, 18, 7, 26), (-2, 0)),      # x1 - 2 == -1
+                       (1, (49, 1, 55, 7), (0, -2))):     # y1 - 2 == -1
+        _ms_clamp_shift(cur[s], prevs[s], box, *mv)
+        expect[(s, blk(box[0], box[1]))] = None
+    out["edges"] = (cur, prevs, expect)
+
+    tall = _ms_desktop(rng, h + 8, w)
+    desk = _ms_desktop(rng, h, w)
+    typed = desk.copy()
+    typed[21:27, 30:35] = (200, 30, 30)
+    moved = tall[3:3 + h].copy()  # a scroll by 3 rows: candidate (0, 3)
+    _ms_shift(moved, tall[:h], (16, 16, 32, 32), -2, 1)  # a window moved (-2, 1) on it
+    prevs = np.stack([_ms_noise(rng, 1)[0], desk, tall[:h], desk])
+    cur = np.stack([_ms_noise(rng, 1)[0], desk, moved, typed])
+    out["streams"] = (cur, prevs, {(0, b): None for b in range(3 * nbx)})
+
+    prevs = np.stack([desk, tall[:h]])
+    out["idle"] = (prevs.copy(), prevs, {})
+    return out
