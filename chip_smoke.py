@@ -50,13 +50,14 @@ Phases, each printed with its seconds:
      classify_assemble stream by stream; both timed by CUDA events and by
      the synchronised host clock, with their host syncs counted (torch's
      sync debug mode; the analysis alone makes none); counts, records and
-     classification must be equal; K5, the motion search, against its
-     plain version on each step's inputs; then the 1080p batch's 63 P
-     frames in one analyze_compact_streams call (as encode_batch makes it)
-     against analyze_compact frame by frame, K5 against plain on them, and
-     K5 on a noise frame against a noise prev (every candidate of every
-     block tested) at 1080p (plain on its first block row) and at 360x640
-     (plain on all of it);
+     classification must be equal; K5 (the analysis's block front end:
+     change map, sub-rects, flat flags, motion search) against its plain
+     version on each step's inputs; then the 1080p batch's 63 P frames in
+     one analyze_compact_streams call (as encode_batch makes it; its ms
+     printed) against analyze_compact frame by frame, K5 against plain on
+     them, and K5 on a noise frame against a noise prev (every candidate
+     of every block tested) at 1080p (plain on its first block row, a row
+     range) and at 360x640 (plain on all of it);
   7. damaged streams: one-byte corruptions and truncations of a 48x64
      stream decode on the card to the CPU port's verdicts, and a clean
      stream decodes after them in the same process; then the serving
@@ -88,7 +89,8 @@ Phases, each printed with its seconds:
      of each stage (the mesh's "sp ..." ranges under torch.profiler); K3
      on a 4K shard's walk, K1 / K2 on the 4K keyframe's rec and col
      sections (as the sp path deals them), K4 on the 4K keyframe and K5 on
-     the counted run's first motion search against their plain versions;
+     the counted run's first shard analysis (a row range of the full
+     frames) against their plain versions;
      the 64-frame 1080p session at sp 2 (uneven I seams) against the
      pinned 1080p digests; dryrun_step
      on 64 streams of 360x640 at dp 2 x sp 2, each stream's lanes,
@@ -102,7 +104,7 @@ Phases, each printed with its seconds:
      capacity rule (counted by cause) or equal to serve_pipelined's bytes,
      decode lossless; the window path counted from a reset (K1-K5 must all
      appear), its first K1 and K2 launch over the streams, its walks, its
-     K4 launch and its first motion search against their plain versions;
+     K4 launch and its first K5 launch against their plain versions;
      the window at capacities that hold every stream-step equal to
      serve_pipelined everywhere; a window's begin and finish with their
      host syncs counted; then
@@ -116,13 +118,14 @@ Phases, each printed with its seconds:
      phase 10.
 K4 in phase 3 and 5 also reports its time a row and the whole
 reconstruct_i (expand, pad, kernel). Phases 4, 6, 8-11 require K5 (the
-motion search) among their launches too.
+P analysis's block front end) among their launches too; phase 4 prints the
+1080p session encode's peak device memory.
 The kernels' JSON summary gives each kernel's launches on its main path,
 its time, its plain version's, its largest error and its roofline bound
 (the larger of the bytes it must move over 3.35 TB/s and its scalar
 operations over 67 TOP/s, the H100 SXM figures): summed over the compared
 launches, like the times, and "library_ms": null (no single PyTorch call
-computes K1-K5: K5 is a first-match search). Then the card's nvidia-smi
+computes K1-K5: K5 ends in a first-match search). Then the card's nvidia-smi
 name and power limit; the last line is {"ok": true, "device": {...}}. Any failure raises (non-zero exit,
 no result line). Needs a CUDA device; imports nothing of JAX, of the JAX
 package or of its benchmark.
@@ -180,8 +183,10 @@ SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 # per lane, substep and alphabet entry: effective-row entry, prefix sum,
 # compare and select (K1 and K2)
 SECTION_OPS_PER_SYMBOL = 4
-# K5: the bound compares of a candidate tested
+# K5: the bound compares of a candidate tested; per pixel of the range its
+# packing, change compare and flat compare
 SEARCH_OPS_TEST = 4
+ANALYSIS_OPS_PIXEL = 3
 
 
 def bound(nbytes, nops):
@@ -561,7 +566,7 @@ def serving_main_path(t0, dev, smi, cfg, offsets, host, batches):
     peak = torch.cuda.max_memory_allocated() - held  # the session's own
     print(f"serving main path launches: {launches}")
     need = ("sptc_sections_encode", "sptc_sections_encode_colw", "sptc_sections_decode",
-            "sptc_run_walk", "sptc_recon_rows", "sptc_motion_search")
+            "sptc_run_walk", "sptc_recon_rows", "sptc_analyze_blocks")
     missing = [kn for kn in need if launches[kn] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the serving path: {missing}")
@@ -696,19 +701,23 @@ def count_syncs(fn):
     return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
-def search_work(fpk, rects, changed, cands, choice):
-    """K5's (bytes, operations) as this run's data needs them: the change
-    map and the choices of every block and the candidates once; each
-    changed block's rect and its current sub-rect (4 B a packed pixel);
-    of the previous frame one pixel for each in-frame candidate a changed
-    block rejects before its answer and the sub-rect at its match, at most
-    the previous frames of the streams with a change, each read once.
-    Operations: SEARCH_OPS_TEST bound compares for each candidate tested
-    before the answer (all of them where none matches), one pixel compare
-    more for each in-frame one rejected, one a position at a match."""
+def analysis_work(frames, cands, row0, nby, out):
+    """K5's (bytes, operations) as this run's data needs them: both frames'
+    rows of block rows [row0, row0 + nby) once (3 B a pixel each), the
+    candidates once, the four outputs once (22 B a block); then the
+    search's reads of the previous frame outside those rows (none when the
+    call covers the whole frame): one pixel for each in-frame candidate a
+    changed block rejects before its answer and the sub-rect at its match,
+    at most the rest of the previous frame of each stream with a change,
+    read once. Operations: ANALYSIS_OPS_PIXEL a pixel of the range,
+    SEARCH_OPS_TEST bound compares for each candidate tested before the
+    answer (all of them where none matches), one pixel compare more for
+    each in-frame one rejected, one a position at a match."""
     import torch
 
-    _, h, w = fpk.shape
+    changed, rects, choice, _flat = out
+    c, h, w, _ = frames.shape
+    rows = max(0, min((row0 + nby) * 16, h) - row0 * 16)
     n_cand = cands.shape[0]
     ch = changed.reshape(-1)
     r = rects.reshape(-1, 4)[ch].long()
@@ -725,38 +734,38 @@ def search_work(fpk, rects, changed, cands, choice):
         rejected_in += int((inb & (order < cc[:, None])).sum())
     tested = int(torch.where(found, ci + 1, n_cand).sum())
     matched_px = int(area[found].sum())
-    prev_bytes = min(4 * (rejected_in + matched_px),
-                     4 * h * w * int(changed.reshape(changed.shape[0], -1).any(dim=1).sum()))
-    nbytes = (5 * changed.numel() + 4 * cands.numel() + 16 * r.shape[0]
-              + 4 * int(area.sum()) + prev_bytes)
-    return nbytes, SEARCH_OPS_TEST * tested + rejected_in + matched_px
+    prev_bytes = min(3 * (rejected_in + matched_px),
+                     3 * (h - rows) * w * int(changed.reshape(c, -1).any(dim=1).sum()))
+    nbytes = 2 * 3 * c * rows * w + 4 * cands.numel() + 22 * changed.numel() + prev_bytes
+    return nbytes, (ANALYSIS_OPS_PIXEL * c * rows * w + SEARCH_OPS_TEST * tested
+                    + rejected_in + matched_px)
 
 
-def hold_search(record, entry, frames, prevs, rects, changed, cands, label, smi):
-    """K5 (kernels.motion_search_streams_kernel on the packed frames)
-    against its plain version (blocks.motion_search_streams_plain) on these
-    inputs on the card, both timed by CUDA events; the choices must be
-    equal. record: the row to add it to (None: a check only). Returns
-    (kernel ms, plain ms)."""
+def hold_analysis(record, entry, args, label, smi):
+    """K5 (kernels.analyze_blocks_streams_kernel) against its plain version
+    (blocks.analyze_blocks_streams_plain) on these inputs (frames, prevs,
+    cands, row0, nby) on the card, both timed by CUDA events; changed,
+    rects, choice and flat must be equal. record: the row to add it to
+    (None: a check only). Returns (kernel ms, plain ms)."""
     from screenpressor_tpu_torch import blocks as tb
     from screenpressor_tpu_torch import kernels as tk
 
-    fpk, ppk = tb.pack_pixels(frames), tb.pack_pixels(prevs)
-    ms, got = cuda_ms(lambda: tk.motion_search_streams_kernel(fpk, ppk, rects, changed, cands),
-                      TIMED_REPS)
-    plain_ms, want = cuda_ms(
-        lambda: tb.motion_search_streams_plain(frames, prevs, rects, changed, cands), 1, False)
-    err = max_abs_err([(got.cpu().numpy(), want.cpu().numpy())])
-    work = search_work(fpk, rects, changed, cands, got)
+    frames, prevs, cands, row0, nby = args
+    ms, got = cuda_ms(lambda: tk.analyze_blocks_streams_kernel(*args), TIMED_REPS)
+    plain_ms, want = cuda_ms(lambda: tb.analyze_blocks_streams_plain(*args), 1, False)
+    err = max_abs_err([(g.cpu().numpy().astype(np.int64), wt.cpu().numpy().astype(np.int64))
+                       for g, wt in zip(got, want)])
+    work = analysis_work(frames, cands, row0, nby, got)
     if record is not None:
         record(entry, ms, plain_ms, err, work)
     elif err:
         raise AssertionError(f"K5 {label}: kernel differs from plain (max |err| {err})")
     bms, by = bound(*work)
-    c, h, w = fpk.shape
-    print(f"K5 {label}: {c} x {w}x{h}, {int(changed.sum())} changed blocks, "
-          f"{int((got < cands.shape[0]).sum())} matched, {cands.shape[0]} candidates: kernel "
-          f"{ms:.3f} ms, bound {bms:.4f} ms ({by}), plain {plain_ms:.1f} ms, equal, on {smi}")
+    c, h, w, _ = frames.shape
+    print(f"K5 {label}: {c} x {w}x{h}, block rows {row0}-{row0 + nby}, "
+          f"{int(got[0].sum())} changed blocks, {int((got[2] < cands.shape[0]).sum())} matched, "
+          f"{int(got[3].sum())} flat, {cands.shape[0]} candidates: kernel {ms:.3f} ms, bound "
+          f"{bms:.4f} ms ({by}, reach {bms / ms:.3f}), plain {plain_ms:.1f} ms, equal, on {smi}")
     return ms, plain_ms
 
 
@@ -774,26 +783,20 @@ def noise_search(dev, smi, cfg, rng):
     cands = torch.tensor(tb.mv_candidates(cfg), dtype=torch.int32, device=dev).reshape(-1, 2)
     pair = torch.as_tensor(rng.integers(0, 256, (2, 1, cfg.height, cfg.width, 3),
                                         dtype=np.uint8), device=dev)
-    changed, rects = tb.change_analysis_streams(pair[1], pair[0], cfg.nby, cfg.nbx)
-    fpk, ppk = tb.pack_pixels(pair[1]), tb.pack_pixels(pair[0])
-    ms, got = cuda_ms(lambda: tk.motion_search_streams_kernel(fpk, ppk, rects, changed, cands),
-                      TIMED_REPS)
-    if not (bool(changed.all()) and bool((got == cands.shape[0]).all())):
+    args = (pair[1], pair[0], cands, 0, cfg.nby)
+    ms, got = cuda_ms(lambda: tk.analyze_blocks_streams_kernel(*args), TIMED_REPS)
+    if not (bool(got[0].all()) and bool((got[2] == cands.shape[0]).all())):
         raise AssertionError("K5 noise 1080p: a block unchanged or matched")
-    row = changed.clone()
-    row[:, cfg.nbx:] = False
-    hold_search(None, None, pair[1], pair[0], rects, row, cands,
-                "noise 1080p, first block row", smi)
-    work = search_work(fpk, rects, changed, cands, got)
-    bms, by = bound(*work)
-    print(f"K5 noise 1080p: {changed.numel()} changed blocks, none matched, "
+    hold_analysis(None, None, (pair[1], pair[0], cands, 0, 1), "noise 1080p, first block row",
+                  smi)
+    bms, by = bound(*analysis_work(pair[1], cands, 0, cfg.nby, got))
+    print(f"K5 noise 1080p: {got[0].numel()} changed blocks, none matched, "
           f"{cands.shape[0]} candidates each: kernel {ms:.3f} ms, bound {bms:.4f} ms ({by}); "
           f"the first block row equal to plain, on {smi}")
     small = CodecConfig(width=S_W, height=S_H, msr_x=256, msr_y=256)
     pair = torch.as_tensor(rng.integers(0, 256, (2, 1, S_H, S_W, 3), dtype=np.uint8),
                            device=dev)
-    changed, rects = tb.change_analysis_streams(pair[1], pair[0], small.nby, small.nbx)
-    hold_search(None, None, pair[1], pair[0], rects, changed, cands, "noise 360x640", smi)
+    hold_analysis(None, None, (pair[1], pair[0], cands, 0, small.nby), "noise 360x640", smi)
 
 
 def batch_encode_front(t0, dev, smi, record, frames, cfg):
@@ -807,13 +810,14 @@ def batch_encode_front(t0, dev, smi, record, frames, cfg):
 
     cands = torch.tensor(tb.mv_candidates(cfg), dtype=torch.int32, device=dev).reshape(-1, 2)
     dev_frames = torch.as_tensor(np.stack(frames), device=dev)
-    fr, pv = dev_frames[1:], dev_frames[:-1]
+    # two tensors, as encode_batch's torch.stack makes them (views of one
+    # tensor would share their bytes in L2)
+    fr, pv = dev_frames[1:].clone(), dev_frames[:-1].clone()
     ms, (arrs, counts, _flat) = cuda_ms(lambda: tb.analyze_compact_streams(fr, pv, cands, cfg),
                                         TIMED_REPS)
     _, syncs = count_syncs(lambda: tb.analyze_compact_streams(fr, pv, cands, cfg))
-    changed, rects = tb.change_analysis_streams(fr, pv, cfg.nby, cfg.nbx)
-    search_ms, search_plain_ms = hold_search(record, "sptc_motion_search", fr, pv, rects,
-                                             changed, cands, "1080p batch", smi)
+    search_ms, search_plain_ms = hold_analysis(record, "sptc_analyze_blocks",
+                                               (fr, pv, cands, 0, cfg.nby), "1080p batch", smi)
     noise_search(dev, smi, cfg, np.random.default_rng(13))
     loop_ms, ana = cuda_ms(lambda: [tb.analyze_compact(fr[j], pv[j], cands, cfg)
                                     for j in range(fr.shape[0])], 1)
@@ -829,7 +833,8 @@ def batch_encode_front(t0, dev, smi, record, frames, cfg):
                                  "its analysis alone")
     print(f"1080p batch analysis: {fr.shape[0]} P frames, {int(ch[:, 6].sum())} data and "
           f"{int(ch[:, 5].sum())} motion blocks: one call {ms:.3f} ms (CUDA events), "
-          f"{syncs} host syncs, of which the motion search (K5) {search_ms:.3f} ms (plain "
+          f"{syncs} host syncs, of which K5 (change map, sub-rects, flat flags, motion search) "
+          f"{search_ms:.3f} ms (plain "
           f"{search_plain_ms:.1f} ms); frame by frame {loop_ms:.3f} ms, {loop_syncs} host "
           f"syncs; counts and records equal, on {smi}")
     phase("1080p batch analysis", t0)
@@ -883,9 +888,8 @@ def serving_encode_front(t0, dev, smi, record, cfg, offsets, batches):
         hms, _ = host_ms(batched, TIMED_REPS)
         _, syncs = count_syncs(batched)
         _, a_syncs = count_syncs(lambda: tb.analyze_compact_streams(fr, pv, cands, cfg))
-        changed, rects = tb.change_analysis_streams(fr, pv, cfg.nby, cfg.nbx)
-        search_ms, search_plain_ms = hold_search(
-            record, "sptc_motion_search_streams", fr, pv, rects, changed, cands,
+        search_ms, search_plain_ms = hold_analysis(
+            record, "sptc_analyze_blocks_streams", (fr, pv, cands, 0, cfg.nby),
             f"serving step {t}", smi)
         _build.reset_counts()
         batched()
@@ -932,8 +936,8 @@ def serving_encode_front(t0, dev, smi, record, cfg, offsets, batches):
               f"{int((ch[:, 0] != 0).sum())} changed, {int(ch[:, 5].sum())} motion and "
               f"{int(n_data.sum())} data blocks: stream-batched {ms:.3f} ms (CUDA events), "
               f"{hms:.3f} ms (host, synchronised), {syncs} host syncs, {walks} K3 "
-              f"launches, of which the analysis {a_syncs} host syncs and the motion search "
-              f"(K5) {search_ms:.3f} ms (plain {search_plain_ms:.1f} ms); per-stream loop "
+              f"launches, of which the analysis {a_syncs} host syncs and K5 "
+              f"{search_ms:.3f} ms (plain {search_plain_ms:.1f} ms); per-stream loop "
               f"{loop_ms:.3f} ms, {loop_hms:.3f} ms, {loop_syncs} host syncs; counts, "
               f"records and classification equal{walk}, "
               f"on {smi}")
@@ -1064,7 +1068,7 @@ def session_api(t0, dev, smi, frames, cfg, pinned, rgb24_rates):
     launches = dict(_build.LAUNCHES)
     print(f"session API launches: {launches}")
     single = ("sptc_sections_encode", "sptc_sections_encode_colw", "sptc_sections_decode",
-              "sptc_run_walk", "sptc_recon_rows", "sptc_motion_search")
+              "sptc_run_walk", "sptc_recon_rows", "sptc_analyze_blocks")
     missing = [k for k in single if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the session API: {missing}")
@@ -1224,7 +1228,7 @@ def sp_mesh(t0, dev, smi, record, frames_1080, cfg_1080, pinned_1080):
     searches = {}
     _build.reset_counts()
     timed = {}
-    with capture(tb, "motion_search_streams", searches, "K5 sp"):
+    with capture(tm, "analyze_blocks_streams", searches, "K5 sp"):
         for sp, mesh in meshes.items():
             got, t_enc = session(sp_encode, frames, mesh, cfg)
             dec, t_dec = session(sp_decode, got, mesh, cfg)
@@ -1232,7 +1236,7 @@ def sp_mesh(t0, dev, smi, record, frames_1080, cfg_1080, pinned_1080):
     launches = dict(_build.LAUNCHES)
     print(f"sp path launches (8 4K frames at sp 1, 2 and 4, encode and decode): {launches}")
     missing = [k for k in ("sptc_sections_encode", "sptc_sections_decode", "sptc_run_walk",
-                           "sptc_recon_rows", "sptc_motion_search") if launches[k] <= 0]
+                           "sptc_recon_rows", "sptc_analyze_blocks") if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the sp path: {missing}")
     for sp, (got, t_enc, dec, t_dec) in timed.items():
@@ -1315,7 +1319,7 @@ def sp_mesh(t0, dev, smi, record, frames_1080, cfg_1080, pinned_1080):
                         (got.cpu().numpy(), frames[0])]), recon_work(k4_rows, got))
     print(f"K4 4K keyframe: kernel {ms:.3f} ms, reconstruct_i {whole_ms:.3f} ms, plain "
           f"{plain_ms:.1f} ms, equal, equals the keyframe, on {smi}")
-    hold_search(record, "sptc_motion_search_sp", *searches.pop("K5 sp")[0],
+    hold_analysis(record, "sptc_analyze_blocks_sp", searches.pop("K5 sp")[0],
                 "sp path, 4K P frame 1 (sp 1)", smi)
     phase("sp mesh kernels vs plain", t0)
 
@@ -1402,7 +1406,7 @@ def window_captures(store, tag):
     stack.enter_context(capture(tcl, "run_walk", store, f"K3 keyframes {tag}"))
     stack.enter_context(capture(tp, "run_walk", store, f"K3 data blocks {tag}"))
     stack.enter_context(capture(tr, "recon_rows", store, f"K4 {tag}"))
-    stack.enter_context(capture(tb, "motion_search_streams", store, f"K5 {tag}"))
+    stack.enter_context(capture(tb, "analyze_blocks_streams", store, f"K5 {tag}"))
     return stack
 
 
@@ -1490,7 +1494,7 @@ def hold_captured(record, store, tag, entries, smi, subset=2):
     print(f"{k4}: {rows.shape[0]} frames: kernel {ms:.3f} ms, plain on {m} of them "
           f"{plain_ms:.1f} ms, equal, on {smi}")
 
-    hold_search(record, k5, *store[f"K5 {tag}"][0], k5, smi)
+    hold_analysis(record, k5, store[f"K5 {tag}"][0], k5, smi)
 
 
 def payload_counts(p):
@@ -1667,7 +1671,7 @@ def window_serving(t0, dev, smi, record, frames_1080, synth_screencast):
     print(f"window path launches (16 steps in two windows of 8, WindowConfig defaults): "
           f"{counts}")
     missing = [k for k in ("sptc_sections_encode", "sptc_sections_decode", "sptc_run_walk",
-                           "sptc_recon_rows", "sptc_motion_search") if counts[k] <= 0]
+                           "sptc_recon_rows", "sptc_analyze_blocks") if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the window path: {missing}")
     if [outs for outs, _ in got] != [outs for outs, _ in win[1:]]:
@@ -1690,7 +1694,7 @@ def window_serving(t0, dev, smi, record, frames_1080, synth_screencast):
     hold_captured(record, store, "window", ("sptc_sections_encode_window",
                                             "sptc_sections_decode_window",
                                             "sptc_run_walk_window", "sptc_recon_rows_window",
-                                            "sptc_motion_search_window"), smi)
+                                            "sptc_analyze_blocks_window"), smi)
     del store
 
     # a window's host syncs (torch's sync debug mode)
@@ -1790,14 +1794,14 @@ def dp_split(t0, dev, smi, record, synth_screencast):
     counts = dict(_build.LAUNCHES)
     print(f"dp split path launches (2 groups, 5 steps): {counts}")
     missing = [k for k in ("sptc_sections_encode", "sptc_sections_decode", "sptc_run_walk",
-                           "sptc_recon_rows", "sptc_motion_search") if counts[k] <= 0]
+                           "sptc_recon_rows", "sptc_analyze_blocks") if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the dp split path: {missing}")
     if [outs for outs, _ in got] != [outs for outs, _ in first[1]]:
         raise AssertionError("dp split counted run: bytes differ from unsplit")
     hold_captured(record, store, "dp", ("sptc_sections_encode_dp", "sptc_sections_decode_dp",
                                         "sptc_run_walk_dp", "sptc_recon_rows_dp",
-                                        "sptc_motion_search_dp"), smi)
+                                        "sptc_analyze_blocks_dp"), smi)
     phase("dp split: kernels vs plain", t0)
     return counts
 
@@ -2039,22 +2043,25 @@ def main() -> int:
     # ---- 4. the main path: a first session, then the counted one ----
     def session():
         torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         te = time.perf_counter()
         payloads = TorchEncoder(cfg, dev).encode_batch(frames)
         torch.cuda.synchronize()
         td = time.perf_counter()
+        enc_peak = torch.cuda.max_memory_allocated() - held
         decoded = TorchDecoder(cfg, dev).decode_batch([p for p, _ in payloads],
                                                       device_out=True)
         torch.cuda.synchronize()
-        return payloads, decoded, td - te, time.perf_counter() - td
+        return payloads, decoded, td - te, time.perf_counter() - td, enc_peak
 
-    _, _, t_enc0, t_dec0 = session()
+    _, _, t_enc0, t_dec0, _ = session()
     _build.reset_counts()
-    payloads, decoded, t_enc, t_dec = session()
+    payloads, decoded, t_enc, t_dec, enc_peak = session()
     launches = dict(_build.LAUNCHES)
     print(f"single-stream main path launches: {launches}")
     single = ("sptc_sections_encode", "sptc_sections_encode_colw", "sptc_sections_decode",
-              "sptc_run_walk", "sptc_recon_rows", "sptc_motion_search")
+              "sptc_run_walk", "sptc_recon_rows", "sptc_analyze_blocks")
     missing = [k for k in single if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the main path: {missing}")
@@ -2065,6 +2072,8 @@ def main() -> int:
             raise AssertionError(f"frame {i}: decode is not lossless")
     sizes = [len(p) for p, _ in payloads]
     print(f"decoded all {len(frames)} frames losslessly; bytes per frame: {sizes}")
+    print(f"1080p session: the encode's peak device memory {enc_peak / 2**20:.1f} MiB "
+          f"(torch.cuda.max_memory_allocated above what was held), on {smi}")
 
     with open(NATIVE_DIGESTS) as fh:
         pinned = json.load(fh)
@@ -2104,8 +2113,9 @@ def main() -> int:
     k1, k2 = "screenpressor_tpu/jx/kernels.py:1016", "screenpressor_tpu/jx/kernels.py:577"
     k2_grid, k3 = "screenpressor_tpu/jx/kernels.py:685", "screenpressor_tpu/jx/classify.py:142"
     k4 = "screenpressor_tpu/jx/recon.py:143"
-    # K5 stands for the device-resident search motion_search_pruned (no
-    # Pallas site: XLA compiles its lax.while_loop)
+    # K5 stands for the block front end of the jitted analyze_compact: its
+    # change_analysis and the search motion_search_pruned (no Pallas site:
+    # XLA fuses them, the search a lax.while_loop)
     search, k5 = ("screenpressor_tpu_torch/csrc/motion_search.cu",
                   "screenpressor_tpu/jx/blocks.py:389")
     entries = (  # (entry, its launch count, main path's counts, source, TPU kernel)
@@ -2131,11 +2141,11 @@ def main() -> int:
         ("sptc_sections_decode_dp", "sptc_sections_decode", dp_counts, sections, k2_grid),
         ("sptc_run_walk_dp", "sptc_run_walk", dp_counts, walk, k3),
         ("sptc_recon_rows_dp", "sptc_recon_rows", dp_counts, recon, k4),
-        ("sptc_motion_search", "sptc_motion_search", launches, search, k5),
-        ("sptc_motion_search_streams", "sptc_motion_search", serve, search, k5),
-        ("sptc_motion_search_sp", "sptc_motion_search", sp_counts, search, k5),
-        ("sptc_motion_search_window", "sptc_motion_search", win_counts, search, k5),
-        ("sptc_motion_search_dp", "sptc_motion_search", dp_counts, search, k5),
+        ("sptc_analyze_blocks", "sptc_analyze_blocks", launches, search, k5),
+        ("sptc_analyze_blocks_streams", "sptc_analyze_blocks", serve, search, k5),
+        ("sptc_analyze_blocks_sp", "sptc_analyze_blocks", sp_counts, search, k5),
+        ("sptc_analyze_blocks_window", "sptc_analyze_blocks", win_counts, search, k5),
+        ("sptc_analyze_blocks_dp", "sptc_analyze_blocks", dp_counts, search, k5),
     )
     kernels = [
         {"name": entry, "route": "cuda", "source": src, "replaces": rep,

@@ -1,7 +1,7 @@
 """P-frame block analysis — PyTorch port of `screenpressor_tpu/jx/blocks.py`.
 
-Change map over 16x16 blocks, minimal changed sub-rects, exact-match motion
-search and compaction of the block-level record arrays, as plain tensor ops
+Change map over 16x16 blocks, minimal changed sub-rects, flat flags,
+exact-match motion search and compaction of the block-level record arrays,
 over a leading axis of C streams or frames (`analyze_compact_streams`, the
 counterpart of the reference's vmapped `analyze_compact`); one frame is the
 case C = 1 (`analyze_compact`).
@@ -9,18 +9,21 @@ case C = 1 (`analyze_compact`).
 The motion vector of a changed block is the first candidate, in
 `mv_candidates` order (FORMAT.md "Motion search"), whose shifted
 previous-frame region equals the block's changed sub-rect byte for byte
-and lies inside the frame. Pixels are packed to int32 (r | g << 8 | b <<
-16), one compare a pixel. On the card the search is K5
-(`kernels.motion_search_streams_kernel`, `csrc/motion_search.cu`): one
-launch over every block of every stream, no host sync, so
-`analyze_compact_streams` on a CUDA tensor reads nothing back, as the
-reference's jitted `analyze_compact` does. On the CPU it is the plain
-version, `motion_search_streams_plain`: the changed blocks of every stream
-as one flat list (one `nonzero` a call), each block reading its own
-previous frame through its stream's offset; per chunk of candidates it
-gathers each open block's shifted 16x16 windows, tests the sub-rect for
-zero mismatch, records the lowest matching candidate and drops the blocks
-it resolved from later chunks (one host sync a chunk).
+and lies inside the frame. On the card the whole block front end (change
+map, sub-rects, flat flags, search) is K5
+(`kernels.analyze_blocks_streams_kernel`, `csrc/motion_search.cu`): one
+launch over every block of every stream that reads the uint8 frames where
+they lie, no host sync, so `analyze_compact_streams` on a CUDA tensor reads
+nothing back, as the reference's jitted `analyze_compact` does. On the CPU
+it is the plain version, `analyze_blocks_streams_plain`: the change map
+and flat flags as tensor ops, then `motion_search_streams_plain`, which
+packs pixels to int32 (r | g << 8 | b << 16, one compare a pixel) and
+takes the changed blocks of every stream as one flat list (one `nonzero`
+a call), each block reading its own previous frame through its stream's
+offset; per chunk of candidates it gathers each open block's shifted 16x16
+windows, tests the sub-rect for zero mismatch, records the lowest matching
+candidate and drops the blocks it resolved from later chunks (one host
+sync a chunk).
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from screenpressor_tpu_torch.config import (
     CodecConfig,
     next_pow2,
 )
-from screenpressor_tpu_torch.kernels import motion_search_streams_kernel
+from screenpressor_tpu_torch.kernels import analyze_blocks_streams_kernel
 
 I32 = torch.int32
 AREA = BLOCK * BLOCK
@@ -69,14 +72,24 @@ def mv_candidates(cfg: CodecConfig) -> list[tuple[int, int]]:
     return cands
 
 
-def change_analysis_streams(frames: torch.Tensor, prevs: torch.Tensor, nby: int, nbx: int):
-    """frames, prevs [C, H, W, 3] -> (changed [C, nb] bool, rects [C, nb, 4]
-    absolute sub-rects (x1, y1, x2, y2), exclusive; garbage for unchanged
-    blocks)."""
+def _rows(h: int, nby: int, row0: int):
+    """Pixel rows [y0, y1) of block rows [row0, row0 + nby) inside a frame
+    of h rows."""
+    y0 = row0 * BLOCK
+    return y0, max(y0, min(y0 + nby * BLOCK, h))
+
+
+def change_analysis_streams(frames: torch.Tensor, prevs: torch.Tensor, nby: int, nbx: int,
+                            row0: int = 0):
+    """frames, prevs [C, H, W, 3], block rows [row0, row0 + nby) (rows past
+    the frame unchanged) -> (changed [C, nb] bool, rects [C, nb, 4]
+    absolute sub-rects (x1, y1, x2, y2), exclusive; (bx + 16, by + 16, bx,
+    by) for unchanged blocks)."""
     c, h, w, _ = frames.shape
     dev = frames.device
+    y0, y1 = _rows(h, nby, row0)
     diff = torch.zeros((c, nby * BLOCK, nbx * BLOCK), dtype=torch.bool, device=dev)
-    diff[:, :h, :w] = (frames != prevs).any(dim=-1)
+    diff[:, :y1 - y0, :w] = (frames[:, y0:y1] != prevs[:, y0:y1]).any(dim=-1)
     d4 = diff.reshape(c, nby, BLOCK, nbx, BLOCK)
     r = torch.arange(BLOCK, device=dev)
     rows_any = d4.any(dim=4)  # [C, nby, 16, nbx]
@@ -86,15 +99,48 @@ def change_analysis_streams(frames: torch.Tensor, prevs: torch.Tensor, nby: int,
     x1 = torch.where(cols_any, r, BLOCK).amin(dim=3)
     x2 = torch.where(cols_any, r + 1, 0).amax(dim=3)
     bx = torch.arange(nbx, device=dev)[None, :] * BLOCK
-    by = torch.arange(nby, device=dev)[:, None] * BLOCK
+    by = (row0 + torch.arange(nby, device=dev)[:, None]) * BLOCK
     rects = torch.stack([bx + x1, by + y1, bx + x2, by + y2], dim=-1).to(I32)
     return (y2 > 0).reshape(c, -1), rects.reshape(c, -1, 4)
 
 
-def change_analysis(frame: torch.Tensor, prev: torch.Tensor, nby: int, nbx: int):
-    """change_analysis_streams of one frame -> (changed [nb], rects [nb, 4])."""
-    changed, rects = change_analysis_streams(frame[None], prev[None], nby, nbx)
-    return changed[0], rects[0]
+def flat_blocks_streams(frames: torch.Tensor, nby: int, nbx: int, row0: int = 0):
+    """[C, nb] bool: every in-frame pixel of the block (block rows [row0,
+    row0 + nby)) equals its frame's pixel (0, 0)."""
+    c, h, w, _ = frames.shape
+    y0, y1 = _rows(h, nby, row0)
+    eq = torch.ones((c, nby * BLOCK, nbx * BLOCK), dtype=torch.bool, device=frames.device)
+    eq[:, :y1 - y0, :w] = (frames[:, y0:y1] == frames[:, :1, :1]).all(dim=-1)
+    return eq.reshape(c, nby, BLOCK, nbx, BLOCK).all(dim=4).all(dim=2).reshape(c, -1)
+
+
+def analyze_blocks_streams(frames: torch.Tensor, prevs: torch.Tensor, cands: torch.Tensor,
+                           row0: int = 0, nby: int | None = None):
+    """The block front end of the P analysis of C streams (frames, prevs
+    [C, H, W, 3] uint8; cands [n_cand, 2]) over block rows [row0, row0 +
+    nby) (default: to the frame's last): (changed [C, nb] bool, rects [C,
+    nb, 4] int32 in frame coordinates, choice [C, nb] int32 (n_cand = no
+    match), flat [C, nb] bool). A row shard reads its candidates from the
+    full frames. K5 on CUDA tensors (one launch, no host sync; raises if
+    the launch fails), the plain version on CPU tensors."""
+    if nby is None:
+        nby = -(-frames.shape[1] // BLOCK) - row0
+    if not frames.is_cuda:
+        return analyze_blocks_streams_plain(frames, prevs, cands, row0, nby)
+    return analyze_blocks_streams_kernel(frames, prevs, cands.to(frames.device), row0, nby)
+
+
+def analyze_blocks_streams_plain(frames: torch.Tensor, prevs: torch.Tensor,
+                                 cands: torch.Tensor, row0: int = 0, nby: int | None = None):
+    """The plain version of K5 (analyze_blocks_streams' contract):
+    change_analysis_streams, motion_search_streams_plain on the full frames,
+    flat_blocks_streams."""
+    if nby is None:
+        nby = -(-frames.shape[1] // BLOCK) - row0
+    nbx = -(-frames.shape[2] // BLOCK)
+    changed, rects = change_analysis_streams(frames, prevs, nby, nbx, row0)
+    choice = motion_search_streams_plain(frames, prevs, rects, changed, cands)
+    return changed, rects, choice, flat_blocks_streams(frames, nby, nbx, row0)
 
 
 def pack_pixels(img: torch.Tensor) -> torch.Tensor:
@@ -104,23 +150,13 @@ def pack_pixels(img: torch.Tensor) -> torch.Tensor:
             | (img[..., 2].to(I32) << 16))
 
 
-def motion_search_streams(frames: torch.Tensor, prevs: torch.Tensor, rects: torch.Tensor,
-                          changed: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
-    """First matching candidate index of each block of each stream ([C, nb]
-    int32; n_cand = none). frames, prevs [C, H, W, 3]; rects [C, nb, 4];
-    changed [C, nb]; cands [n_cand, 2]. K5 on CUDA tensors (no host sync;
-    raises if the launch fails), the plain version on CPU tensors."""
-    if not frames.is_cuda:
-        return motion_search_streams_plain(frames, prevs, rects, changed, cands)
-    return motion_search_streams_kernel(pack_pixels(frames), pack_pixels(prevs), rects,
-                                        changed, cands.to(frames.device))
-
-
 def motion_search_streams_plain(frames: torch.Tensor, prevs: torch.Tensor,
                                 rects: torch.Tensor, changed: torch.Tensor,
                                 cands: torch.Tensor) -> torch.Tensor:
-    """The plain version of K5 (motion_search_streams' contract) in chunks
-    of candidates. Host syncs: the call's `nonzero`, then one a candidate
+    """First matching candidate index of each block of each stream ([C, nb]
+    int32; n_cand = none) in chunks of candidates: frames, prevs [C, H, W,
+    3]; rects [C, nb, 4] in frame coordinates; changed [C, nb]; cands
+    [n_cand, 2]. Host syncs: the call's `nonzero`, then one a candidate
     chunk but the last.
 
     A window position is read at its coordinate clamped into the stream's
@@ -185,13 +221,6 @@ def motion_search_streams_plain(frames: torch.Tensor, prevs: torch.Tensor,
         todo, base, x1, y1, x2, y2, cur, mask = (
             a[keep] for a in (todo, base, x1, y1, x2, y2, cur, mask))
     return choice.view(c, nb)
-
-
-def motion_search(frame: torch.Tensor, prev: torch.Tensor, rects: torch.Tensor,
-                  changed: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
-    """motion_search_streams of one frame -> [nb] int32."""
-    return motion_search_streams(frame[None], prev[None], rects[None], changed[None],
-                                 cands)[0]
 
 
 def block_types_from(valid: torch.Tensor, found: torch.Tensor,
@@ -279,10 +308,9 @@ def analyze_compact_streams(frames: torch.Tensor, prevs: torch.Tensor,
     [C, nbp, 2] and data_rects [C, nbp, 4]; counts [C, 7] = (any_change,
     xx1, xx2, n_bt, n_sxy, n_mv, n_data); flat [C, 4] = (is_flat, r, g, b)
     of pixel (0, 0)."""
-    c, h, w, _ = frames.shape
+    _, h, w, _ = frames.shape
     nbx, nby = cfg.nbx, cfg.nby
-    changed, rects = change_analysis_streams(frames, prevs, nby, nbx)
-    choice = motion_search_streams(frames, prevs, rects, changed, cands)
+    changed, rects, choice, flat_blk = analyze_blocks_streams(frames, prevs, cands, 0, nby)
     n_cand = cands.shape[0]
     found = changed & (choice < n_cand)
     if n_cand:
@@ -292,9 +320,7 @@ def analyze_compact_streams(frames: torch.Tensor, prevs: torch.Tensor,
     bts = block_types_from(changed, found, rects, nbx, h, w)
     bt, sxy, mv, data_rects, counts = compact_block_records(
         bts, rects, mvs, nbx, next_pow2(nbx * nby))
-    c0 = frames[:, 0, 0]
-    is_flat = (frames == c0[:, None, None]).reshape(c, -1).all(dim=1)
-    flat = torch.cat([is_flat.to(I32)[:, None], c0.to(I32)], dim=1)
+    flat = torch.cat([flat_blk.all(dim=1).to(I32)[:, None], frames[:, 0, 0].to(I32)], dim=1)
     arrs = {"bt": bt, "sxy": sxy, "mv": mv, "data_rects": data_rects}
     return arrs, counts, flat
 

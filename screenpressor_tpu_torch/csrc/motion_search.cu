@@ -1,122 +1,216 @@
-// First-match motion search (K5) for Hopper (sm_90a).
+// The P analysis's block front end (K5) for Hopper (sm_90a): change map,
+// sub-rects, flat flags and first-match motion search in one launch.
 //
-// Stands for the JAX package's device-resident search: jx/blocks.py
-// motion_search (:119) and motion_search_pruned (:389, a lax.while_loop
-// reached through analyze_compact :856). It has no Pallas site there: XLA
-// compiles the loop. The port's plain version is
-// blocks.motion_search_streams_plain, whose chunks each end in a host
-// sync; this kernel runs the whole search on the card with none.
+// Stands for the JAX package's jitted analyze_compact (jx/blocks.py :856):
+// its change_analysis (:45), the probe pixels and channel packing of its
+// search (:436-437) and motion_search_pruned (:389, a lax.while_loop).
+// None of them has a Pallas site: XLA fuses them into one program. The
+// port's plain version is blocks.analyze_blocks_streams_plain
+// (change_analysis_streams, flat_blocks_streams, motion_search_streams_plain).
 //
-// For every block of every stream (C x nb), with the frames packed to one
-// int32 a pixel (r | g << 8 | b << 16, blocks.pack_pixels): an unchanged
-// block gets n_cand; a changed block gets the lowest candidate index ci
-// (mv_candidates order) whose shift (mx, my) keeps the block's sub-rect
-// [x1, x2) x [y1, y2) inside the frame and whose shifted previous frame
-// equals the current frame at every position of the sub-rect (the box,
-// not only its changed pixels), or n_cand when none does.
+// For every 16 x 16 block of block rows [row0, row0 + nby) of every stream
+// (C x nby x nbx, reading the uint8 [C, H, W, 3] frames and previous
+// frames where they lie; block rows past the frame have no pixel):
+//   changed  the block holds a pixel that differs from the previous frame;
+//   rects    its minimal changed sub-rect (x1, y1, x2, y2), absolute and
+//            exclusive; an unchanged block gets (bx + 16, by + 16, bx, by),
+//            the plain version's value;
+//   flat     every in-frame pixel of the block equals the frame's pixel
+//            (0, 0);
+//   choice   the lowest candidate index ci (mv_candidates order) whose
+//            shift (mx, my) keeps the sub-rect inside the frame and whose
+//            shifted previous frame equals the current frame at every
+//            position of the sub-rect; n_cand for an unchanged block or
+//            when none does.
 //
-// Design: one warp a block, eight blocks a thread block.
-//   1. The warp holds the block's sub-rect (at most 256 positions) in
-//      registers, position p = lane + 32 k in lane `lane`, slot k: its
-//      offset from the sub-rect's origin and its current pixel. Comparing
-//      it against the previous frame at shift 0 gives, by ballot, the
-//      first and the last changed pixel: the two probes (the ones jx's
-//      run_search takes, first and last changed pixel of the block).
-//   2. The 32 lanes take 32 consecutive candidates at a time. Each lane
-//      runs its candidate's bounds test, then reads the previous frame at
-//      the two shifted probes. A true match equals the current frame at
-//      every position of the sub-rect, so a probe that differs rejects
-//      only candidates the full compare would reject.
-//   3. The candidates that pass their probes (a ballot) are verified in
-//      ascending order by the whole warp: each lane compares its <= 8
-//      positions (independent loads, coalesced along the sub-rect's rows)
-//      and __any_sync decides. The first that verifies is the block's
-//      answer; the warp stops at the first group with one.
-// Reads of the previous frame go through L1 / L2: the shifted windows of
-// neighbouring candidates overlap, and a 1080p packed frame is 8.3 MB.
-// A frame's pixel offsets are int32 (the wrapper checks H * W < 2^31); a
-// stream's base offset is int64, so C * H * W may pass 2^31.
-//
-// What bounds it on this card: not bytes (both frames once: 0.0050 ms for
-// a 1080p pair at 3.35 TB/s) but the dependent L2 reads of the candidate
-// loop: a block with no match walks all ceil(n_cand / 32) groups, one
-// candidate load and one probe load each (40 groups at the defaults'
-// 1,278 candidates). Every warp walks its own block, so the blocks of a
-// frame overlap their latencies; the warp's cost is set by its block's
-// first match (a scroll resolves in the first group) or by n_cand (noise).
+// What bounds it on this card: bytes. Both frames are read once (784 MB
+// for the 1080p batch's 63 pairs, 0.234 ms at 3.35 TB/s); the search
+// reads the previous frame again only for the candidates of changed
+// blocks, which are few in screen content. The design:
+//   1. A thread block takes a strip of 8 adjacent blocks of one block row
+//      (16 rows x 128 pixels) and stages both frames' strip into shared
+//      memory (6 KB each), a warp two rows of each: cp.async 16-byte
+//      copies where a row's start is 16-byte aligned (3W a multiple of 16,
+//      as at 640, 1920 and 3840), 4-byte or single-byte loads otherwise.
+//      No packed copy and no change map in device memory. The pixel
+//      (0, 0) of the stream's frame is loaded beside the strip.
+//   2. A warp a block, from shared memory: lane l holds column l & 15 of
+//      rows 2k + (l >> 4), k < 8, each pixel packed into one int
+//      (r | g << 8 | b << 16). One ballot per k gives the changed
+//      positions of two rows: their OR gives the changed columns, their
+//      halves the changed rows, so x1, x2, y1, y2 and the change bit fall
+//      out with no shuffle; __all_sync gives the flat bit. The first and
+//      the last changed position are the two probes (as jx's run_search).
+//   3. Only a changed block searches, PR 13's shape: 32 candidates at a
+//      time, a lane a candidate, its bounds test and the previous frame
+//      at the two shifted probes (three bytes each, through L1 / L2);
+//      the survivors verified in ascending order by the whole warp (each
+//      lane its <= 8 sub-rect positions, held in registers since step 2);
+//      the first that verifies is the answer, lowest index first.
+// Six thread blocks an SM (40 registers a thread): the strip loads of the
+// resident blocks are what overlaps one block's analysis and search, so
+// residency sets the rate (at 59 registers, four blocks an SM, it was
+// slower on the 1080p batch and the serving steps; noise, where every
+// block searches every candidate, is a little faster there).
+// A frame's byte offsets are int32 (the launcher checks 3 H W < 2^31); a
+// stream's base offset is int64, so C * H * W * 3 may pass 2^31.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #define FULL 0xffffffffu
-#define SEARCH_WARPS 8   // blocks of the frame per thread block
-#define PER_LANE 8       // 256 positions of a 16 x 16 block over 32 lanes
+#define BLK 16
+#define STRIP_BLOCKS 8                     // blocks (warps) a thread block
+#define STRIP_BYTES (STRIP_BLOCKS * BLK * 3)  // 384: a strip row's RGB bytes
 
-__global__ void __launch_bounds__(SEARCH_WARPS * 32)
-motion_search_kernel(const int* __restrict__ cur, const int* __restrict__ prev,
-                     const int* __restrict__ rects, const unsigned char* __restrict__ changed,
-                     const int* __restrict__ cands, int* __restrict__ choice,
-                     long long n_blocks, int nb, int h, int w, int n_cand) {
-  const int lane = threadIdx.x & 31;
-  const long long blk = (long long)blockIdx.x * SEARCH_WARPS + (threadIdx.x >> 5);
-  if (blk >= n_blocks) return;
-  if (!changed[blk]) {
-    if (lane == 0) choice[blk] = n_cand;
-    return;
-  }
-  const int x1 = rects[4 * blk], y1 = rects[4 * blk + 1];
-  const int x2 = rects[4 * blk + 2], y2 = rects[4 * blk + 3];
-  const int bw = x2 - x1, area = bw * (y2 - y1);
-  if (bw < 1 || y2 <= y1 || area > 32 * PER_LANE) {  // outside the contract: no read
-    if (lane == 0) choice[blk] = n_cand;
-    return;
-  }
-  const long long base = (blk / nb) * (long long)h * w;
-  const int* cf = cur + base;
-  const int* pf = prev + base;
-  const int origin = y1 * w + x1;
+__device__ __forceinline__ int packed(const unsigned char* p) {
+  return p[0] | (p[1] << 8) | (p[2] << 16);
+}
 
-  // 1. the sub-rect in registers; the probes from ballots at shift 0
-  int rel[PER_LANE], val[PER_LANE];
-  unsigned in_rect = 0;
-  int first = area, last = -1;
+__device__ __forceinline__ int packed_ldg(const unsigned char* p) {
+  return __ldg(p) | (__ldg(p + 1) << 8) | (__ldg(p + 2) << 16);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+// one strip row of one frame (n bytes at src) into shared memory by a warp
+__device__ __forceinline__ void stage_row(unsigned char* dst, const unsigned char* src, int n,
+                                          int lane) {
+  const uintptr_t a = (uintptr_t)src;
+  int done = 0;
+  if ((a & 15) == 0) {
+    done = n & ~15;
+    for (int i = 16 * lane; i < done; i += 16 * 32) cp_async16(dst + i, src + i);
+  } else if ((a & 3) == 0) {
+    done = n & ~3;
+    for (int i = 4 * lane; i < done; i += 4 * 32)
+      *(unsigned*)(dst + i) = __ldg((const unsigned*)(src + i));
+  }
+  for (int i = done + lane; i < n; i += 32) dst[i] = __ldg(src + i);
+}
+
+__global__ void __launch_bounds__(STRIP_BLOCKS * 32, 6)  // 40 registers: 6 blocks an SM
+analyze_blocks_kernel(const unsigned char* __restrict__ cur,
+                      const unsigned char* __restrict__ prev, const int* __restrict__ cands,
+                      unsigned char* __restrict__ changed, int* __restrict__ rects,
+                      int* __restrict__ choice, unsigned char* __restrict__ flat, int h, int w,
+                      int row0, int nby, int nbx, int n_strips, int n_cand) {
+  __shared__ __align__(16) unsigned char s_cur[BLK][STRIP_BYTES];
+  __shared__ __align__(16) unsigned char s_prev[BLK][STRIP_BYTES];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const long long strip = blockIdx.x;
+  const int sx = (int)(strip % n_strips);
+  const long long row = strip / n_strips;  // stream * nby + block row
+  const int by = row0 + (int)(row % nby);
+  const long long base = (row / nby) * 3LL * h * w;
+  const int x0 = sx * STRIP_BLOCKS * BLK, y0 = by * BLK;
+  const int nrows = max(0, min(BLK, h - y0));
+  const int nbytes = 3 * min(STRIP_BLOCKS * BLK, w - x0);
+  const unsigned char* cf = cur + base;
+  const unsigned char* pf = prev + base;
+  const int c0 = packed_ldg(cf);  // the frame's pixel (0, 0), loaded beside the strip
+
+  // 1. the strip of both frames into shared memory, a warp two rows each
 #pragma unroll
-  for (int k = 0; k < PER_LANE; ++k) {
-    const int p = lane + 32 * k;
-    const bool in = p < area;
-    rel[k] = in ? (p / bw) * w + p % bw : 0;
-    val[k] = in ? cf[origin + rel[k]] : 0;
-    in_rect |= (unsigned)in << k;
-    const unsigned diff = __ballot_sync(FULL, in && val[k] != pf[origin + rel[k]]);
-    if (diff) {
-      first = min(first, 32 * k + __ffs(diff) - 1);
-      last = max(last, 32 * k + 31 - __clz(diff));
+  for (int j = 0; j < 2; ++j) {
+    const int r = 2 * wid + j;
+    if (r < nrows) {
+      const int off = 3 * ((y0 + r) * w + x0);
+      stage_row(s_cur[r], cf + off, nbytes, lane);
+      stage_row(s_prev[r], pf + off, nbytes, lane);
     }
   }
-  if (last < 0) first = last = 0;  // a changed block's sub-rect holds a change
-  const int rel_a = (first / bw) * w + first % bw, rel_b = (last / bw) * w + last % bw;
-  const int va = cf[origin + rel_a], vb = cf[origin + rel_b];
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
 
+  const int bx = sx * STRIP_BLOCKS + wid;
+  if (bx >= nbx) return;  // no barrier below
+  const long long blk = row * nbx + bx;
+  const int lc = lane & 15, lr = lane >> 4;
+  const int bx0 = bx * BLK;
+  const bool col_in = bx0 + lc < w;
+
+  // 2. change and flat bits a position; ballots give rows, columns, probes
+  int val[8];
+  unsigned rowmask = 0, colmask = 0;
+  int first = -1, last = -1;
+  bool is_flat = true;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int r = 2 * k + lr;
+    const bool in = col_in && r < nrows;
+    int cv = 0, pv = 0;
+    if (in) {
+      cv = packed(&s_cur[r][3 * (wid * BLK + lc)]);
+      pv = packed(&s_prev[r][3 * (wid * BLK + lc)]);
+    }
+    val[k] = cv;
+    is_flat &= !in || cv == c0;
+    const unsigned m = __ballot_sync(FULL, in && cv != pv);
+    if (m) {
+      if (first < 0) first = 32 * k + __ffs(m) - 1;
+      last = 32 * k + 31 - __clz(m);
+    }
+    // two ifs: the unrolled select-and-shift form of these lines compiled
+    // wrong at -O3 on sm_90a (row bits 0 and 7 lost, row 8's moved to bit 0)
+    if (m & 0xffffu) rowmask |= 1u << (2 * k);
+    if (m & 0xffff0000u) rowmask |= 2u << (2 * k);
+    colmask |= (m & 0xffffu) | (m >> 16);
+  }
+  is_flat = __all_sync(FULL, is_flat);
+  int x1 = BLK, y1 = BLK, x2 = 0, y2 = 0;
+  if (rowmask) {
+    y1 = __ffs(rowmask) - 1;
+    y2 = 32 - __clz(rowmask);
+    x1 = __ffs(colmask) - 1;
+    x2 = 32 - __clz(colmask);
+  }
+  if (lane == 0) {
+    changed[blk] = rowmask != 0;
+    flat[blk] = is_flat;
+    int4 rc = make_int4(bx0 + x1, y0 + y1, bx0 + x2, y0 + y2);
+    *(int4*)(rects + 4 * blk) = rc;
+  }
+  if (!rowmask || n_cand == 0) {
+    if (lane == 0) choice[blk] = n_cand;
+    return;
+  }
+
+  // 3. the search: bounds and two probes a lane, survivors verified in order
+  const int ax = bx0 + (first & 15), ay = y0 + (first >> 4);
+  const int bpx = bx0 + (last & 15), bpy = y0 + (last >> 4);
+  const int va = packed(&s_cur[first >> 4][3 * (wid * BLK + (first & 15))]);
+  const int vb = packed(&s_cur[last >> 4][3 * (wid * BLK + (last & 15))]);
+  const int rx1 = bx0 + x1, rx2 = bx0 + x2, ry1 = y0 + y1, ry2 = y0 + y2;
+  unsigned in_rect = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int r = 2 * k + lr;
+    in_rect |= (unsigned)(r >= y1 && r < y2 && lc >= x1 && lc < x2) << k;
+  }
   for (int g = 0; g < n_cand; g += 32) {
-    // 2. bounds and probes, a candidate a lane
     const int ci = g + lane;
     bool ok = false;
-    int shifted = 0;
+    int mx = 0, my = 0;
     if (ci < n_cand) {
-      const int mx = cands[2 * ci], my = cands[2 * ci + 1];
-      if (x1 + mx >= 0 && x2 + mx <= w && y1 + my >= 0 && y2 + my <= h) {
-        shifted = origin + my * w + mx;
-        ok = pf[shifted + rel_a] == va && pf[shifted + rel_b] == vb;
-      }
+      mx = __ldg(cands + 2 * ci);
+      my = __ldg(cands + 2 * ci + 1);
+      if (rx1 + mx >= 0 && rx2 + mx <= w && ry1 + my >= 0 && ry2 + my <= h)
+        ok = packed_ldg(pf + 3 * ((ay + my) * w + ax + mx)) == va &&
+             packed_ldg(pf + 3 * ((bpy + my) * w + bpx + mx)) == vb;
     }
-    // 3. the survivors verified in order by the whole warp
     unsigned pass = __ballot_sync(FULL, ok);
     while (pass) {
       const int src = __ffs(pass) - 1;
-      const int s = __shfl_sync(FULL, shifted, src);
+      const int smx = __shfl_sync(FULL, mx, src), smy = __shfl_sync(FULL, my, src);
+      const unsigned char* sh = pf + 3 * ((y0 + lr + smy) * w + bx0 + lc + smx);
       bool bad = false;
 #pragma unroll
-      for (int k = 0; k < PER_LANE; ++k)
-        bad |= ((in_rect >> k) & 1u) && pf[s + rel[k]] != val[k];
+      for (int k = 0; k < 8; ++k)
+        if ((in_rect >> k) & 1u) bad |= packed_ldg(sh + 3 * 2 * k * w) != val[k];
       if (!__any_sync(FULL, bad)) {
         if (lane == 0) choice[blk] = g + src;
         return;
@@ -127,16 +221,18 @@ motion_search_kernel(const int* __restrict__ cur, const int* __restrict__ prev,
   if (lane == 0) choice[blk] = n_cand;
 }
 
-extern "C" int sptc_motion_search(const int* cur, const int* prev, const int* rects,
-                                  const unsigned char* changed, const int* cands, int* choice,
-                                  long long n_blocks, int nb, int h, int w, int n_cand,
-                                  void* stream) {
-  if (n_blocks < 1 || nb < 1 || h < 1 || w < 1 || n_cand < 0 ||
-      (long long)h * w >= 0x80000000LL)
+extern "C" int sptc_analyze_blocks(const unsigned char* cur, const unsigned char* prev,
+                                   const int* cands, unsigned char* changed, int* rects,
+                                   int* choice, unsigned char* flat, long long n_streams, int h,
+                                   int w, int row0, int nby, int n_cand, void* stream) {
+  if (n_streams < 1 || h < 1 || w < 1 || row0 < 0 || nby < 1 || n_cand < 0 ||
+      3LL * h * w >= 0x80000000LL || (long long)(row0 + nby) * BLK >= 0x80000000LL)
     return (int)cudaErrorInvalidValue;
-  const long long grid = (n_blocks + SEARCH_WARPS - 1) / SEARCH_WARPS;
+  const int nbx = (w + BLK - 1) / BLK;
+  const int n_strips = (nbx + STRIP_BLOCKS - 1) / STRIP_BLOCKS;
+  const long long grid = n_streams * nby * n_strips;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  motion_search_kernel<<<(unsigned)grid, SEARCH_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      cur, prev, rects, changed, cands, choice, n_blocks, nb, h, w, n_cand);
+  analyze_blocks_kernel<<<(unsigned)grid, STRIP_BLOCKS * 32, 0, (cudaStream_t)stream>>>(
+      cur, prev, cands, changed, rects, choice, flat, h, w, row0, nby, nbx, n_strips, n_cand);
   return (int)cudaGetLastError();
 }

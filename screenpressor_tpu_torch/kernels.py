@@ -1,10 +1,11 @@
 """Wrappers of the fused section kernels K1 (encode) and K2 (decode),
 `csrc/sections.cu`, replacing the Pallas kernels of
 `screenpressor_tpu/jx/kernels.py` (`encode_sections_fused`,
-`decode_sections_fused`), and of the motion search K5,
-`csrc/motion_search.cu` (the reference's device-resident
-`jx/blocks.py` `motion_search_pruned`, which has no Pallas site; its plain
-version is `blocks.motion_search_streams_plain`).
+`decode_sections_fused`), and of K5, the P analysis's block front end
+(change map, sub-rects, flat flags, first-match motion search),
+`csrc/motion_search.cu` (the reference's jitted `jx/blocks.py`
+`analyze_compact` up to its record compaction, which has no Pallas site;
+its plain version is `blocks.analyze_blocks_streams_plain`).
 
 Same contracts as the stream loops of the plain coder in `coder.py`
 (`encode_sections_streams_plain`: `model_scan` + `rans_pack`;
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from screenpressor_tpu_torch.config import (
+    BLOCK,
     COLOR_CTX_BITS_A,
     COLOR_CTX_BITS_B,
     MIX_ESC_C,
@@ -178,32 +180,40 @@ def decode_sections_streams_kernel(pay_list, lens_list, tables_b: dict, kts, sid
     return recs
 
 
-def motion_search_streams_kernel(fpk: torch.Tensor, ppk: torch.Tensor, rects: torch.Tensor,
-                                 changed: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
-    """K5: the first matching candidate of every block of C streams, with
-    no host sync. fpk, ppk [C, H, W] int32 packed pixels (blocks.pack_pixels);
-    rects [C, nb, 4] int32 absolute exclusive sub-rects (x1, y1, x2, y2),
-    1 to 16 pixels a side inside the frame where changed; changed [C, nb]
-    bool; cands [n_cand, 2] int32 (mx, my) in mv_candidates order. Returns
-    choice [C, nb] int32, n_cand where a block is unchanged or nothing
-    matches."""
-    c, h, w = fpk.shape
-    nb = rects.shape[1]
+def analyze_blocks_streams_kernel(frames: torch.Tensor, prevs: torch.Tensor,
+                                  cands: torch.Tensor, row0: int, nby: int):
+    """K5: the block front end of the P analysis of C streams in one launch,
+    with no host sync. frames, prevs [C, H, W, 3] uint8 (read where they
+    lie: no packed copy); cands [n_cand, 2] int32 (mx, my) in
+    mv_candidates order; block rows [row0, row0 + nby) (rows past the frame
+    have no pixel). Returns, nb = nby * nbx: changed [C, nb] bool, rects
+    [C, nb, 4] int32 absolute exclusive sub-rects (x1, y1, x2, y2) (an
+    unchanged block's (bx + 16, by + 16, bx, by)), choice [C, nb] int32
+    (the first matching candidate, n_cand where a block is unchanged or
+    nothing matches) and flat [C, nb] bool (every in-frame pixel of the
+    block equals the frame's pixel (0, 0))."""
+    c, h, w = frames.shape[:3]
+    nbx = -(-w // BLOCK)
     n_cand = cands.shape[0]
-    rects, cands = rects.to(I32).contiguous(), cands.to(I32).contiguous()
-    changed = changed.to(torch.bool).contiguous()
-    _build.require_cuda(fpk, ppk, rects, changed, cands)
-    if (fpk.dtype != I32 or ppk.dtype != I32 or ppk.shape != fpk.shape
-            or rects.shape != (c, nb, 4) or changed.shape != (c, nb)
-            or cands.shape != (n_cand, 2)):
-        raise ValueError(f"motion search: frames {tuple(fpk.shape)} {fpk.dtype}, prevs "
-                         f"{tuple(ppk.shape)} {ppk.dtype}, rects {tuple(rects.shape)}, changed "
-                         f"{tuple(changed.shape)}, cands {tuple(cands.shape)}")
-    if h * w >= 2 ** 31:
-        raise ValueError(f"motion search: a {h}x{w} frame has over 2^31 pixels")
-    choice = torch.empty((c, nb), dtype=I32, device=fpk.device)
-    if c * nb:
-        _build.launch("sptc_motion_search", fpk.data_ptr(), ppk.data_ptr(), rects.data_ptr(),
-                      changed.data_ptr(), cands.data_ptr(), choice.data_ptr(), c * nb, nb, h,
-                      w, n_cand, device=fpk.device)
-    return choice
+    frames, prevs = frames.contiguous(), prevs.contiguous()
+    cands = cands.to(I32).contiguous()
+    _build.require_cuda(frames, prevs, cands)
+    if (frames.dtype != torch.uint8 or prevs.dtype != torch.uint8 or frames.dim() != 4
+            or frames.shape[3] != 3 or prevs.shape != frames.shape
+            or cands.shape != (n_cand, 2) or row0 < 0 or nby < 1):
+        raise ValueError(f"block analysis: frames {tuple(frames.shape)} {frames.dtype}, prevs "
+                         f"{tuple(prevs.shape)} {prevs.dtype}, cands {tuple(cands.shape)}, "
+                         f"rows {row0} + {nby}")
+    if 3 * h * w >= 2 ** 31:
+        raise ValueError(f"block analysis: a {h}x{w} frame has over 2^31 bytes")
+    dev = frames.device
+    nb = nby * nbx
+    changed = torch.empty((c, nb), dtype=torch.bool, device=dev)
+    rects = torch.empty((c, nb, 4), dtype=I32, device=dev)
+    choice = torch.empty((c, nb), dtype=I32, device=dev)
+    flat = torch.empty((c, nb), dtype=torch.bool, device=dev)
+    if c:
+        _build.launch("sptc_analyze_blocks", frames.data_ptr(), prevs.data_ptr(),
+                      cands.data_ptr(), changed.data_ptr(), rects.data_ptr(), choice.data_ptr(),
+                      flat.data_ptr(), c, h, w, row0, nby, n_cand, device=dev)
+    return changed, rects, choice, flat

@@ -39,10 +39,9 @@ import torch
 from screenpressor_tpu_torch import bitstream as bs
 from screenpressor_tpu_torch import coder as tc
 from screenpressor_tpu_torch.blocks import (
+    analyze_blocks_streams,
     block_types_from,
-    change_analysis,
     compact_block_records,
-    motion_search,
     mv_candidates,
 )
 from screenpressor_tpu_torch.classify import (
@@ -472,27 +471,27 @@ def _cands(cfg: CodecConfig, device) -> torch.Tensor:
     return torch.tensor(mv_candidates(cfg), dtype=I32, device=device).reshape(-1, 2)
 
 
-def _analyze_shard(f, p, full_f, full_p, cands, i: int, h_loc: int, cfg: CodecConfig):
-    """P analysis of row shard i (f, p [h_loc, w, 3], zero rows past the
-    frame): change map and sub-rects, the first-match motion search of its
-    changed blocks against the full frames (rects in frame coordinates),
-    block types. Returns (bts [nb_loc], rects [nb_loc, 4], mvs [nb_loc, 2],
-    data blocks [1])."""
+def _analyze_shard(full_f, full_p, cands, i: int, h_loc: int, cfg: CodecConfig):
+    """P analysis of row shard i (block rows i * h_loc / 16 on, h_loc / 16 of
+    them, rows past the frame unchanged) in one call on the full frames
+    (full_f, full_p [H, W, 3]): change map and sub-rects in frame
+    coordinates, the first-match motion search of its changed blocks
+    against the full frames, block types. Returns (bts [nb_loc], rects
+    [nb_loc, 4], mvs [nb_loc, 2], data blocks [1], flat [1]: 1 where every
+    pixel of its rows equals the frame's pixel (0, 0))."""
     nby_loc, nbx = h_loc // BLOCK, cfg.nbx
-    changed, rects = change_analysis(f, p, nby_loc, nbx)
-    y_off = i * h_loc
-    rects = rects + torch.tensor([0, y_off, 0, y_off], dtype=I32, device=f.device)
+    changed, rects, choice, flat = (a[0] for a in analyze_blocks_streams(
+        full_f[None], full_p[None], cands, i * nby_loc, nby_loc))
     n_cand = cands.shape[0]
-    choice = motion_search(full_f, full_p, rects, changed, cands)
     found = changed & (choice < n_cand)
     if n_cand:
         mvs = cands[choice.clamp(0, n_cand - 1).long()]
     else:
-        mvs = torch.zeros(changed.shape + (2,), dtype=I32, device=f.device)
+        mvs = torch.zeros(changed.shape + (2,), dtype=I32, device=full_f.device)
     bts = block_types_from(changed, found, rects, nbx, cfg.height, cfg.width,
                            lin0=i * nby_loc * nbx)
     nd = ((bts == BT_FULL_DATA) | (bts == BT_PARTIAL_DATA)).sum(dtype=I32).reshape(1)
-    return bts, rects, mvs, nd
+    return bts, rects, mvs, nd, flat.all().to(I32).reshape(1)
 
 
 def encode_p_sp(frame, prev, mesh: Mesh, cfg: CodecConfig, tables: dict):
@@ -526,9 +525,9 @@ def encode_p_sp(frame, prev, mesh: Mesh, cfg: CodecConfig, tables: dict):
     shard_out = []
     for i, dev in enumerate(devs):
         with _on(dev), _stage(f"analysis shard {i}"):
-            shard_out.append(_analyze_shard(fs[i], ps[i], *full[dev], i, h_loc, cfg))
-    real = [min(h_loc, max(h - i * h_loc, 0)) for i in range(sp)]
-    flat, c0 = _flat_shards(fs, real, home)
+            shard_out.append(_analyze_shard(*full[dev], i, h_loc, cfg))
+    flat = (psum([o[4] for o in shard_out], home) == sp).to(I32).reshape(1)
+    c0 = fs[0][0, 0].to(home, I32)
     with _on(home), _stage("block records"):
         bts, rects, mvs = (all_gather([o[j] for o in shard_out], home)[:nb][None]
                            for j in range(3))

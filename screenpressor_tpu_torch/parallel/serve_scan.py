@@ -7,8 +7,9 @@ escape, the keyframe slots, the flat / no-change bookkeeping and the
 container bytes all stay on the device, with fixed capacities throughout
 (`WindowConfig`). The steps are a Python loop (torch has no scan); every K1
 launch takes its step count from a capacity, not from pulled counts; the
-motion search is one K5 launch a step (`blocks.motion_search_streams`),
-which reads nothing back. `encode_window_finish` then makes two pulls: the
+block analysis (change map, sub-rects, flat flags, motion search) is one
+K5 launch a step (`blocks.analyze_blocks_streams`), which reads nothing
+back. `encode_window_finish` then makes two pulls: the
 [F, S] lengths and kinds, then one gather of exactly the used bytes (RAW
 bodies included).
 

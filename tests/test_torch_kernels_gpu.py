@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1-K4, their stream-batched launches and K1's
-colw variant; the motion search K5) against their plain PyTorch versions,
-on the card. Skips where there is no CUDA device.
+colw variant; K5, the P analysis's block front end) against their plain
+PyTorch versions, on the card. Skips where there is no CUDA device.
 
 This file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
@@ -902,34 +902,41 @@ def test_split_on_card_equals_unsplit(cuda, n):
     assert _window_session(cuda, [cuda] * n) == _window_session(cuda)
 
 
-def _k5_vs_plain(frames, prevs, cfg, dev):
-    """K5 (motion_search_streams on the card) and the plain version on the
-    same device tensors -> (K5's choices, plain's, K5's launches)."""
+def _k5_vs_plain(frames, prevs, cfg, dev, row0=0, nby=None):
+    """K5 (analyze_blocks_streams on the card) and the plain version on the
+    same device tensors -> (K5's (changed, rects, choice, flat), plain's,
+    K5's launches)."""
     from screenpressor_tpu_torch import blocks as tb
 
     cands = torch.tensor(tb.mv_candidates(cfg), dtype=torch.int32, device=dev).reshape(-1, 2)
     fr, pv = torch.as_tensor(frames, device=dev), torch.as_tensor(prevs, device=dev)
-    changed, rects = tb.change_analysis_streams(fr, pv, cfg.nby, cfg.nbx)
-    n0 = _build.LAUNCHES["sptc_motion_search"]
-    got = tb.motion_search_streams(fr, pv, rects, changed, cands)
-    launches = _build.LAUNCHES["sptc_motion_search"] - n0
-    want = tb.motion_search_streams_plain(fr, pv, rects, changed, cands)
-    return got.cpu(), want.cpu(), launches
+    n0 = _build.LAUNCHES["sptc_analyze_blocks"]
+    got = tb.analyze_blocks_streams(fr, pv, cands, row0, nby)
+    launches = _build.LAUNCHES["sptc_analyze_blocks"] - n0
+    want = tb.analyze_blocks_streams_plain(fr, pv, cands, row0, nby)
+    return [a.cpu() for a in got], [a.cpu() for a in want], launches
 
 
-@pytest.mark.parametrize("name", ["noise", "last", "edges", "streams", "idle"])
+def _assert_k5_equal(got, want, what=""):
+    for g, w, name in zip(got, want, ("changed", "rects", "choice", "flat")):
+        assert g.shape == w.shape and torch.equal(g, w), f"{what}: {name}"
+
+
+@pytest.mark.parametrize("name", ["noise", "last", "edges", "streams", "idle", "flat"])
 def test_motion_search_kernel_matches_plain(cuda, name):
     """K5 equals the plain version (on the card and on the CPU) on the
-    motion search fixtures, in one launch."""
+    motion search fixtures (40x56: partial edge blocks; 3W = 168, so the
+    strip rows alternate 16-byte and 4-byte staging), all four outputs,
+    in one launch."""
     from torch_support import MS_CFG, motion_search_fixtures  # tests/ is on the path
 
     frames, prevs, _ = motion_search_fixtures()[name]
     cfg = CodecConfig(**MS_CFG)
     got, want, launches = _k5_vs_plain(frames, prevs, cfg, cuda)
-    assert torch.equal(got, want)
+    _assert_k5_equal(got, want, name)
     assert launches == 1
     cpu, _, _ = _k5_vs_plain(frames, prevs, cfg, "cpu")
-    assert torch.equal(got, cpu)
+    _assert_k5_equal(got, cpu, f"{name} against the CPU")
 
 
 def test_motion_search_kernel_on_1080p_batch(cuda):
@@ -940,8 +947,59 @@ def test_motion_search_kernel_on_1080p_batch(cuda):
     frames = np.stack(synth_screencast(1080, 1920, 64))
     got, want, launches = _k5_vs_plain(frames[1:], frames[:-1],
                                        CodecConfig(width=1920, height=1080), cuda)
-    assert torch.equal(got, want) and launches == 1
-    assert (got < 1278).sum() > 0
+    _assert_k5_equal(got, want, "1080p batch")
+    assert launches == 1
+    assert (got[2] < 1278).sum() > 0 and got[0].sum() > 0
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_motion_search_kernel_row_ranges(cuda, sp):
+    """K5 over the block rows of each sp shard (1080p: 68 block rows, the
+    last shard of sp 4 ends at the frame; 4 of the batch's pairs) equals
+    the plain version, rects in frame coordinates."""
+    from screenpressor_tpu_torch.synth import synth_screencast
+
+    frames = np.stack(synth_screencast(1080, 1920, 5))
+    cfg = CodecConfig(width=1920, height=1080)
+    nby_loc = -(-cfg.nby // sp)
+    for i in range(sp):
+        got, want, launches = _k5_vs_plain(frames[1:], frames[:-1], cfg, cuda,
+                                           i * nby_loc, nby_loc)
+        _assert_k5_equal(got, want, f"sp {sp} shard {i}")
+        assert launches == 1 and got[0].shape == (4, nby_loc * cfg.nbx)
+
+
+def test_motion_search_kernel_on_noise_pair(cuda):
+    """A noise frame against a noise prev: every block changed, none
+    matching (every candidate of every block tested); equal to plain."""
+    rng = np.random.default_rng(73)
+    pair = rng.integers(0, 256, (2, 2, 96, 200, 3), dtype=np.uint8)
+    got, want, launches = _k5_vs_plain(pair[1], pair[0], CodecConfig(width=200, height=96),
+                                       cuda)
+    _assert_k5_equal(got, want, "noise")
+    assert launches == 1 and bool(got[0].all()) and not bool(got[3].any())
+    assert bool((got[2] == got[2].max()).all())
+
+
+@pytest.mark.parametrize("h, w", [(37, 131), (45, 20), (33, 130)])
+def test_motion_search_kernel_odd_widths(cuda, h, w):
+    """Widths whose 3W is no multiple of 16 or of 4 (strip rows staged by
+    single bytes, streams at unaligned offsets), partial edge blocks: a
+    scrolled desktop with a typed patch and a moved region, three streams,
+    equal to plain."""
+    from torch_support import _ms_desktop  # tests/ is on the path
+
+    rng = np.random.default_rng(h * w)
+    tall = np.stack([_ms_desktop(rng, h + 4, w) for _ in range(3)])
+    prevs = tall[:, :h].copy()
+    frames = tall[:, 2:h + 2].copy()
+    frames[0, 5:11, 3:9] = (200, 30, 30)
+    frames[1] = prevs[1]
+    frames[2, h // 2:, w // 2:] = rng.integers(0, 256, (h - h // 2, w - w // 2, 3))
+    cfg = CodecConfig(width=w, height=h, msr_x=8, msr_y=8)
+    got, want, launches = _k5_vs_plain(frames, prevs, cfg, cuda)
+    _assert_k5_equal(got, want, f"{h}x{w}")
+    assert launches == 1 and int((got[2] < got[2].max()).sum()) > 0
 
 
 def _serving_steps(n=5):
@@ -960,14 +1018,15 @@ def test_motion_search_kernel_on_serving_steps(cuda):
     cfg = CodecConfig(width=640, height=360, k_fixed=64, msr_x=256, msr_y=256)
     for t in range(1, len(steps)):
         got, want, launches = _k5_vs_plain(steps[t], steps[t - 1], cfg, cuda)
-        assert torch.equal(got, want), t
+        _assert_k5_equal(got, want, f"step {t}")
         assert launches == 1
 
 
-def test_analyze_compact_streams_makes_no_host_sync(cuda):
-    """analyze_compact_streams on CUDA tensors makes no host sync (torch's
-    sync debug mode set to raise), on the serving scroll step and on the
-    noise fixture, and its outputs equal the CPU port's."""
+def test_analyze_compact_streams_makes_no_host_sync(cuda, monkeypatch):
+    """analyze_compact_streams on CUDA tensors makes one K5 launch, calls
+    neither pack_pixels nor change_analysis_streams and makes no host sync
+    (torch's sync debug mode set to raise), on the serving scroll step and
+    on the noise fixture, and its outputs equal the CPU port's."""
     from torch_support import MS_CFG, motion_search_fixtures  # tests/ is on the path
 
     from screenpressor_tpu_torch import blocks as tb
@@ -978,25 +1037,35 @@ def test_analyze_compact_streams_makes_no_host_sync(cuda):
             ((steps[1], steps[0]), CodecConfig(width=640, height=360, msr_x=256, msr_y=256)),
             (noise[:2], CodecConfig(**MS_CFG))):
         cands = torch.tensor(tb.mv_candidates(cfg), dtype=torch.int32).reshape(-1, 2)
+        want = tb.analyze_compact_streams(torch.as_tensor(frames), torch.as_tensor(prevs),
+                                          cands, cfg)
         fr, pv, cd = (torch.as_tensor(x, device=cuda) for x in (frames, prevs, cands))
         tb.analyze_compact_streams(fr, pv, cd, cfg)  # builds and loads K5 first
         torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            arrs, counts, flat = tb.analyze_compact_streams(fr, pv, cd, cfg)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        want = tb.analyze_compact_streams(torch.as_tensor(frames), torch.as_tensor(prevs),
-                                          cands, cfg)
+
+        def banned(*args, **kw):
+            raise AssertionError("a plain analysis stage ran on the card")
+
+        with monkeypatch.context() as mp:
+            mp.setattr(tb, "pack_pixels", banned)
+            mp.setattr(tb, "change_analysis_streams", banned)
+            n0 = _build.LAUNCHES["sptc_analyze_blocks"]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                arrs, counts, flat = tb.analyze_compact_streams(fr, pv, cd, cfg)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert _build.LAUNCHES["sptc_analyze_blocks"] - n0 == 1
         assert torch.equal(counts.cpu(), want[1]) and torch.equal(flat.cpu(), want[2])
         for nm, a in arrs.items():
             assert torch.equal(a.cpu(), want[0][nm]), nm
 
 
 def test_motion_search_kernel_past_2_31_pixels(cuda):
-    """A call of 2,049 streams of 1024x1024 (C * H * W > 2^31): the last
-    stream's blocks, whose pixel offsets pass 2^31, get the plain version's
-    choices on that stream alone; the other streams are unchanged."""
+    """A call of 2,049 streams of 1024x1024 (C * H * W * 3 bytes > 2^31, and
+    C * H * W > 2^31 too): the last stream's blocks, whose byte offsets
+    pass 2^31, get the plain version's outputs on that stream alone; the
+    other streams (zero frames) are unchanged and flat."""
     from torch_support import _ms_shift  # tests/ is on the path
 
     from screenpressor_tpu_torch import blocks as tb
@@ -1012,16 +1081,52 @@ def test_motion_search_kernel_past_2_31_pixels(cuda):
     cands = torch.tensor(tb.mv_candidates(cfg), dtype=torch.int32, device=cuda).reshape(-1, 2)
     one_f = torch.as_tensor(cur, device=cuda)[None]
     one_p = torch.as_tensor(prev, device=cuda)[None]
-    changed1, rects1 = tb.change_analysis_streams(one_f, one_p, cfg.nby, cfg.nbx)
-    want = tb.motion_search_streams_plain(one_f, one_p, rects1, changed1, cands)[0]
+    want = [a[0] for a in tb.analyze_blocks_streams_plain(one_f, one_p, cands)]
     fr = torch.zeros((c, h, w, 3), dtype=torch.uint8, device=cuda)
     pv = torch.zeros_like(fr)
     fr[-1], pv[-1] = one_f[0], one_p[0]
-    nb = cfg.nbx * cfg.nby
-    changed = torch.zeros((c, nb), dtype=torch.bool, device=cuda)
-    rects = torch.zeros((c, nb, 4), dtype=torch.int32, device=cuda)
-    changed[-1], rects[-1] = changed1[0], rects1[0]
-    got = tb.motion_search_streams(fr, pv, rects, changed, cands)
-    assert torch.equal(got[-1], want)
-    assert bool((got[:-1] == cands.shape[0]).all())
-    assert int((want < cands.shape[0]).sum()) == 3
+    del one_f, one_p
+    changed, rects, choice, flat = tb.analyze_blocks_streams(fr, pv, cands)
+    _assert_k5_equal([changed[-1], rects[-1], choice[-1], flat[-1]], want, "last stream")
+    assert bool((choice[:-1] == cands.shape[0]).all())
+    assert not bool(changed[:-1].any()) and bool(flat[:-1].all())
+    assert torch.equal(rects[:-1], rects[:1].expand(c - 1, -1, -1))
+    assert int((want[2] < cands.shape[0]).sum()) == 3
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_sp_shard_analysis_one_launch_no_sync(cuda, monkeypatch, sp):
+    """parallel/mesh.py's _analyze_shard on the card: one K5 launch over the
+    shard's block rows of the full frames, neither pack_pixels nor
+    change_analysis_streams, no host sync (sync debug mode "error"), and
+    the CPU port's outputs (1080p, the batch's scroll pair; at sp 4 the
+    last shard ends at the frame)."""
+    from screenpressor_tpu_torch import blocks as tb
+    from screenpressor_tpu_torch.parallel import mesh as tm
+    from screenpressor_tpu_torch.synth import synth_screencast
+
+    frames = synth_screencast(1080, 1920, 2)
+    cfg = CodecConfig(width=1920, height=1080)
+    h_loc = -(-cfg.nby // sp) * 16
+    cands = torch.tensor(tb.mv_candidates(cfg), dtype=torch.int32).reshape(-1, 2)
+    full = [torch.as_tensor(frames[1]), torch.as_tensor(frames[0])]
+    want = [tm._analyze_shard(*full, cands, i, h_loc, cfg) for i in range(sp)]
+    on_card, cd = [t.to(cuda) for t in full], cands.to(cuda)
+    tm._analyze_shard(*on_card, cd, 0, h_loc, cfg)  # builds and loads K5 first
+    torch.cuda.synchronize()
+
+    def banned(*args, **kw):
+        raise AssertionError("a plain analysis stage ran on the card")
+
+    monkeypatch.setattr(tb, "pack_pixels", banned)
+    monkeypatch.setattr(tb, "change_analysis_streams", banned)
+    for i in range(sp):
+        n0 = _build.LAUNCHES["sptc_analyze_blocks"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = tm._analyze_shard(*on_card, cd, i, h_loc, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert _build.LAUNCHES["sptc_analyze_blocks"] - n0 == 1
+        for g, w in zip(got, want[i]):
+            assert torch.equal(g.cpu(), w), i

@@ -63,10 +63,8 @@ def test_analysis_matches_spec():
     for prev, cur in ((frames[0], frames[1]), (frames[1], f2)):
         bts, rects, mvs = analyze_p(cur, prev, cfg)
         cands = torch.tensor(tb.mv_candidates(port_config(cfg)), dtype=torch.int32)
-        changed, rects_t = tb.change_analysis(torch.as_tensor(cur), torch.as_tensor(prev),
-                                              cfg.nby, cfg.nbx)
-        choice = tb.motion_search(torch.as_tensor(cur), torch.as_tensor(prev), rects_t,
-                                  changed, cands)
+        changed, rects_t, choice, _flat = (a[0] for a in tb.analyze_blocks_streams(
+            torch.as_tensor(cur)[None], torch.as_tensor(prev)[None], cands))
         bts_t = tb.block_types_from(changed, changed & (choice < len(cands)), rects_t,
                                     cfg.nbx, cfg.height, cfg.width)
         np.testing.assert_array_equal(bts_t.numpy(), bts)

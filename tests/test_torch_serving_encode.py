@@ -175,7 +175,7 @@ def test_motion_first_match_across_chunks(monkeypatch, chunk):
     cands = torch.tensor(tb.mv_candidates(pcfg), dtype=torch.int32)
     ft, pt = torch.as_tensor(cur)[None], torch.as_tensor(prev)[None]
     changed, rects = tb.change_analysis_streams(ft, pt, cfg.nby, cfg.nbx)
-    whole = tb.motion_search_streams(ft, pt, rects, changed, cands)[0]
+    whole = tb.motion_search_streams_plain(ft, pt, rects, changed, cands)[0]
     x1, y1, x2, y2 = rects[0, 0].tolist()
     for ci in (2, 3):  # both candidates match the moved block
         dx, dy = cands[ci].tolist()
@@ -186,7 +186,7 @@ def test_motion_first_match_across_chunks(monkeypatch, chunk):
     assert int(whole[0]) == 2
     monkeypatch.setattr(tb, "SEARCH_CHUNK", chunk)
     got = _port_analysis(cur[None], prev[None], cfg)
-    chunked = tb.motion_search_streams(ft, pt, rects, changed, cands)[0]
+    chunked = tb.motion_search_streams_plain(ft, pt, rects, changed, cands)[0]
     np.testing.assert_array_equal(chunked.numpy(), whole.numpy())
     _assert_analysis_equal(got, _reference_analysis(cur[None], prev[None], cfg, True),
                            f"chunk {chunk}")
@@ -292,8 +292,7 @@ def _run_session(name):
     def banned(*args, **kws):
         raise AssertionError("a per-stream P function ran in a serving step")
 
-    for mod, fn in ((tb, "analyze_compact"), (tb, "motion_search"),
-                    (tp, "classify_assemble")):
+    for mod, fn in ((tb, "analyze_compact"), (tp, "classify_assemble")):
         mp.setattr(mod, fn, banned)
     cfg = RefCodecConfig(**kw)
     batches = make()

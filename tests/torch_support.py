@@ -170,15 +170,20 @@ def sp_decode(payloads, mesh, cfg):
 
 
 def sp_stage_ms(fn):
-    """(fn(), {stage: ms}): fn run under torch.profiler; for each stage that
-    screenpressor_tpu_torch.parallel.mesh labels (a record_function range
-    "sp <stage>"), the device time of the kernels and copies launched while
-    its range was open on the host, summed over its calls. A device event
-    belongs to the host launch call (cudaLaunchKernel, cudaMemcpyAsync, ...)
-    with its correlation id; the launch's host time places it in a range.
-    The kernels of ctypes launches are joined to no PyTorch op, so the
-    ranges' own device totals miss them. Without a CUDA device the times
-    are 0."""
+    """(fn(), {stage: ms}): stage_ms over the stages that
+    screenpressor_tpu_torch.parallel.mesh labels ("sp <stage>")."""
+    return stage_ms(fn, "sp ")
+
+
+def stage_ms(fn, prefix):
+    """(fn(), {stage: ms}): fn run under torch.profiler; for each
+    record_function range named `prefix + stage`, the device time of the
+    kernels and copies launched while its range was open on the host,
+    summed over its calls. A device event belongs to the host launch call
+    (cudaLaunchKernel, cudaMemcpyAsync, ...) with its correlation id; the
+    launch's host time places it in a range. The kernels of ctypes
+    launches are joined to no PyTorch op, so the ranges' own device totals
+    miss them. Without a CUDA device the times are 0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -189,8 +194,8 @@ def sp_stage_ms(fn):
         for i in range(torch.cuda.device_count() if cuda else 0):
             torch.cuda.synchronize(i)
     events = prof.events()
-    ranges = [(e.time_range.start, e.time_range.end, e.name[3:]) for e in events
-              if e.device_type == DeviceType.CPU and e.name.startswith("sp ")]
+    ranges = [(e.time_range.start, e.time_range.end, e.name[len(prefix):]) for e in events
+              if e.device_type == DeviceType.CPU and e.name.startswith(prefix)]
     launched = {e.id: e.time_range.start for e in events
                 if e.device_type == DeviceType.CPU and e.name.startswith("cu")}
     ms = {name: 0.0 for _, _, name in ranges}
@@ -272,7 +277,10 @@ def motion_search_fixtures(seed=70):
     streams: four streams with different change maps in one call (noise,
       idle, a desktop scrolled by 3 rows with a window moved on it, a
       typed block);
-    idle: no changed block."""
+    idle: no changed block;
+    flat: three flat frames: against a noise prev whose left 20 columns
+      are the flat colour, against their own copy, and with one pixel of
+      the last (partial) block changed."""
     from screenpressor_tpu_torch.blocks import mv_candidates
     from screenpressor_tpu_torch.config import CodecConfig
 
@@ -331,4 +339,12 @@ def motion_search_fixtures(seed=70):
 
     prevs = np.stack([desk, tall[:h]])
     out["idle"] = (prevs.copy(), prevs, {})
+
+    flat = np.full((3, h, w, 3), (17, 99, 230), np.uint8)
+    prevs = flat.copy()
+    prevs[0] = _ms_noise(rng, 1)[0]
+    prevs[0, :, :20] = flat[0, :, :20]
+    cur = flat.copy()
+    cur[2, h - 1, w - 1] = (17, 99, 231)  # the last (partial) block, not flat
+    out["flat"] = (cur, prevs, {})
     return out

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """K1 (section encode), K3 (run walk), K4 (row reconstruction), the
-serving session and the 1080p session of two checkouts of the PyTorch /
-CUDA port on one card, in one process tree: before / after numbers that
+serving session, the 1080p session and the P analysis of two checkouts of
+the PyTorch / CUDA port on one card, in one process tree: before / after numbers that
 may stand side by side.
 
-    python3 tools/torch_kernels_before_after.py --parent DIR [--kernels serving,session]
+    python3 tools/torch_kernels_before_after.py --parent DIR [--kernels serving,analysis]
 
 DIR is a checkout of the commit to compare with (for example `git archive
 <commit> | tar -x -C DIR`); the change is the checkout this script lies in.
@@ -40,8 +40,13 @@ phases). Every run works on the same inputs, made from seeds:
     session's steps alone, each timed and profiled.
   - session: chip_smoke.py's 1080p single-stream session (64 frames), three
     timed encodes and decodes after a warm-up, and a profiled encode.
---kernels picks the groups to run (k1, k3, k4, serving, session; default
-k1,k3,k4).
+  - analysis: the P analysis (blocks.analyze_compact_streams) of the 1080p
+    batch's 63 P frames and of the serving scroll step, one call timed and
+    one profiled with each stage's device ms (change map, each
+    pack_pixels, K5, block types, compaction, the rest), the parent's
+    flat test alone, and the 1080p session encode's peak device memory.
+--kernels picks the groups to run (k1, k3, k4, serving, session, analysis;
+default k1,k3,k4).
 Kernel times are CUDA events, the mean of 5 launches after a warm-up. Prints one
 JSON line per run, then a table, with the card's nvidia-smi name and power
 limit. Needs a CUDA device and nvcc; imports nothing of JAX.
@@ -106,7 +111,10 @@ def measure(root: str, kernels) -> dict:
             whole = ms_of(lambda: tr.reconstruct_i(*recs[0], hh, ww))
         out["k4"][f"{label}: reconstruct_i with expand and pad"] = whole
 
-    out = {"k1": {}, "k1_probe": {}, "k3": {}, "k4": {}, "serving": {}, "session": {}}
+    out = {"k1": {}, "k1_probe": {}, "k3": {}, "k4": {}, "serving": {}, "session": {},
+           "analysis": {}}
+    if "analysis" in kernels:
+        analysis(out["analysis"], dev, synth_screencast)
     if "serving" in kernels:
         serving(out["serving"], dev, synth_screencast)
     if "session" in kernels:
@@ -219,6 +227,107 @@ def measure(root: str, kernels) -> dict:
     out["k1"][f"serving keyframe step, colw{col_w} path"] = ms_of(
         lambda: tc.encode_sections_streams(dealt_l, lens_l, tabs_b, kts, sidx, col_w, bm))
     return out
+
+
+# the P analysis's stages: functions of blocks.py, whichever the checkout has
+ANALYSIS_STAGES = (("change map", "change_analysis_streams"), ("pack_pixels", "pack_pixels"),
+                   ("K5", "motion_search_streams_kernel"),
+                   ("K5", "analyze_blocks_streams_kernel"),
+                   ("block types", "block_types_from"), ("compaction", "compact_block_records"))
+
+
+def analysis(out: dict, dev, synth_screencast):
+    """The P analysis (blocks.analyze_compact_streams) of the 1080p batch's
+    63 P frames (two tensors, as encode_batch stacks them) and of the
+    serving scroll step's P streams (chip_smoke.py's inputs): one call's
+    time (CUDA events, the mean of REPS calls after a warm-up), then one
+    call under torch.profiler with each stage (a function of blocks.py:
+    ANALYSIS_STAGES) wrapped in a record_function range, each stage's
+    device ms (torch_support.stage_ms); "other" is the call's device time
+    outside them (the flat test, the candidate gather). Then the parent's
+    flat expression alone on the same frames, and the 1080p session's
+    encode (TorchEncoder.encode_batch) with its peak device memory."""
+    import numpy as np
+    import torch
+    from torch.profiler import record_function
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))  # a `tests` package elsewhere
+    from torch_support import stage_ms  # would shadow ROOT/tests
+
+    from screenpressor_tpu_torch import TorchEncoder
+    from screenpressor_tpu_torch import blocks as tb
+    from screenpressor_tpu_torch.config import CodecConfig
+
+    h, w = 1080, 1920
+    frames = synth_screencast(h, w, 64)
+    dev_frames = torch.as_tensor(np.stack(frames), device=dev)
+    n, s_h, s_w, kf = 64, 360, 640, 150
+    base = synth_screencast(s_h, s_w, 2, seed=3)
+    steps = [torch.as_tensor(np.stack([np.roll(base[t], 3 * i, axis=1) for i in range(n)]),
+                             device=dev) for t in range(2)]
+    own = torch.as_tensor(np.nonzero((1 + (np.arange(n) * kf) // n) % kf != 0)[0], device=dev)
+    inputs = (
+        ("1080p batch (63 P frames)", dev_frames[1:].clone(), dev_frames[:-1].clone(),
+         CodecConfig(width=w, height=h)),
+        (f"serving scroll step ({own.numel()} P streams)", steps[1][own], steps[0][own],
+         CodecConfig(width=s_w, height=s_h, kf_interval=kf, k_fixed=64, msr_x=256, msr_y=256)),
+    )
+    for label, fr, pv, cfg in inputs:
+        cands = torch.tensor(tb.mv_candidates(cfg), dtype=torch.int32, device=dev).reshape(-1, 2)
+        call = lambda: tb.analyze_compact_streams(fr, pv, cands, cfg)  # noqa: E731
+        call()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(REPS):
+            call()
+        b.record()
+        torch.cuda.synchronize()
+        out[f"{label}: one call ms"] = a.elapsed_time(b) / REPS
+
+        real, seen = {}, {}
+        for stage, fn in ANALYSIS_STAGES:
+            if hasattr(tb, fn):
+                real[fn] = getattr(tb, fn)
+
+                def wrapped(*args, _fn=fn, _stage=stage, **kw):
+                    seen[_stage] = seen.get(_stage, 0) + 1
+                    tag = f"{_stage} {seen[_stage]}" if _stage == "pack_pixels" else _stage
+                    with record_function(f"ana {tag}"):
+                        return real[_fn](*args, **kw)
+                setattr(tb, fn, wrapped)
+
+        def whole():
+            with record_function("ana whole"):
+                call()
+        try:
+            _, ms = stage_ms(whole, "ana ")
+        finally:
+            for fn, f in real.items():
+                setattr(tb, fn, f)
+        total = ms.pop("whole")
+        for stage, v in ms.items():
+            out[f"{label}: device ms, {stage}"] = v
+        out[f"{label}: device ms, other"] = total - sum(ms.values())
+        out[f"{label}: device ms, whole call"] = total
+
+        c0 = fr[:, 0, 0]
+
+        def flat():
+            with record_function("ana flat"):
+                (fr == c0[:, None, None]).reshape(fr.shape[0], -1).all(dim=1)
+        out[f"{label}: device ms, the parent's flat test alone"] = (
+            stage_ms(flat, "ana ")[1]["flat"])
+
+    cfg = CodecConfig(width=w, height=h)
+    TorchEncoder(cfg, dev).encode_batch(frames)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    TorchEncoder(cfg, dev).encode_batch(frames)
+    torch.cuda.synchronize()
+    out["1080p session encode: peak device memory MiB"] = (
+        torch.cuda.max_memory_allocated() - held) / 2**20
 
 
 def serving(out: dict, dev, synth_screencast):
@@ -451,7 +560,7 @@ def main() -> int:
         print(json.dumps({"run": tag, "card": smi, **res}), flush=True)
     print(f"\nms (us or stream-frames/s where the name says so) on {smi}; columns: "
           + " | ".join(tag for tag, _ in results))
-    for group in ("k1", "k1_probe", "k3", "k4", "serving", "session"):
+    for group in ("k1", "k1_probe", "k3", "k4", "serving", "session", "analysis"):
         names = []
         for _, res in results:
             names += [nm for nm in res[group] if nm not in names]

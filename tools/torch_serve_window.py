@@ -10,7 +10,7 @@ through serve_windowed (WindowConfig defaults, F 8), each once under
 torch.profiler after a warm-up, and prints for each: its wall, the
 device's busy time and idle share of the wall, the device time of each
 kernel (K1 encode_kernel, K2 decode_kernel, K3 run_walk_kernel, K4
-recon_kernel, K5 motion_search_kernel) and of everything else, K1's
+recon_kernel, K5 analyze_blocks_kernel) and of everything else, K1's
 device time a step, and the kernels' launch counts. Then the encode alone (the window's begin and
 finish, or the encode steps) the same way. Prints the card's nvidia-smi
 name and power limit. Walls: three unprofiled runs after the warm-up.
@@ -26,7 +26,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = {"K1": "encode_kernel", "K2": "decode_kernel", "K3": "run_walk_kernel",
-           "K4": "recon_kernel", "K5": "motion_search_kernel"}
+           "K4": "recon_kernel", "K5": "analyze_blocks_kernel"}
 
 
 def device_time(prof):
