@@ -41,7 +41,13 @@ Phases, each printed with its seconds:
      pframe.rebuild_p_streams on the scroll and the typing step (one call
      over every coded P stream), that call against pframe.rebuild_p stream
      by stream, both timed by CUDA events and by the synchronised host
-     clock; frames and error words must be equal;
+     clock; frames and error words must be equal; K6 (the data-block
+     rebuild, one launch a call) against its plain version on each step's
+     call, K6 timed as its device time from a CUDA graph of its launches;
+     then the 1080p session's decode with each of its 32 rebuild_p_streams
+     calls captured: K6 against plain on every one, the scroll and the
+     typing frame's call timed, and all of them in sequence
+     beside the session's decode time;
   6c. the serving P encode front half: on each P step of the serving
      session, one blocks.analyze_compact_streams call over the step's P
      streams, the pull of their counts and one
@@ -82,15 +88,16 @@ Phases, each printed with its seconds:
      on the one card (devices=[cuda] * sp, printed as such): the 8-frame
      4K synth_screencast session through encode_i_sp / encode_p_sp at sp
      1, 2 and 4 and back through decode_i_sp / decode_p_sp, counted from a
-     reset (K1-K5 must all appear), each equal to the unsharded
+     reset (K1-K6 must all appear), each equal to the unsharded
      TorchEncoder session on the card and to the native digests pinned in
      tests/data/torch_native_4k_8.json, every decode lossless, the Mpix/s
      beside the unsharded session's; then, not counted, the device time
      of each stage (the mesh's "sp ..." ranges under torch.profiler); K3
      on a 4K shard's walk, K1 / K2 on the 4K keyframe's rec and col
-     sections (as the sp path deals them), K4 on the 4K keyframe and K5 on
+     sections (as the sp path deals them), K4 on the 4K keyframe, K5 on
      the counted run's first shard analysis (a row range of the full
-     frames) against their plain versions;
+     frames) and K6 on every block rebuild of that run against their
+     plain versions;
      the 64-frame 1080p session at sp 2 (uneven I seams) against the
      pinned 1080p digests; dryrun_step
      on 64 streams of 360x640 at dp 2 x sp 2, each stream's lanes,
@@ -102,9 +109,10 @@ Phases, each printed with its seconds:
      defaults and through serve_pipelined, 3 runs each in turns (times,
      peak memory); every stream-step of the window RAW by a cause of the
      capacity rule (counted by cause) or equal to serve_pipelined's bytes,
-     decode lossless; the window path counted from a reset (K1-K5 must all
+     decode lossless; the window path counted from a reset (K1-K6 must all
      appear), its first K1 and K2 launch over the streams, its walks, its
-     K4 launch and its first K5 launch against their plain versions;
+     K4 launch, its first K5 launch and every K6 launch against their
+     plain versions;
      the window at capacities that hold every stream-step equal to
      serve_pipelined everywhere; a window's begin and finish with their
      host syncs counted; then
@@ -118,16 +126,18 @@ Phases, each printed with its seconds:
      phase 10.
 K4 in phase 3 and 5 also reports its time a row and the whole
 reconstruct_i (expand, pad, kernel). Phases 4, 6, 8-11 require K5 (the
-P analysis's block front end) among their launches too; phase 4 prints the
-1080p session encode's peak device memory.
+P analysis's block front end) and K6 (the P decode's data-block rebuild)
+among their launches too; phase 4 prints the 1080p session encode's peak
+device memory.
 The kernels' JSON summary gives each kernel's launches on its main path,
 its time, its plain version's, its largest error and its roofline bound
 (the larger of the bytes it must move over 3.35 TB/s and its scalar
 operations over 67 TOP/s, the H100 SXM figures): summed over the compared
 launches, like the times, and "library_ms": null (no single PyTorch call
-computes K1-K5: K5 ends in a first-match search). Then the card's nvidia-smi
-name and power limit; the last line is {"ok": true, "device": {...}}. Any failure raises (non-zero exit,
-no result line). Needs a CUDA device; imports nothing of JAX, of the JAX
+computes K1-K6: K5 ends in a first-match search, K6 is a recurrence).
+Then the card's nvidia-smi name and power limit; the last line is
+{"ok": true, "device": {...}}. Any failure raises (non-zero exit, no
+result line). Needs a CUDA device; imports nothing of JAX, of the JAX
 package or of its benchmark.
 """
 
@@ -187,6 +197,9 @@ SECTION_OPS_PER_SYMBOL = 4
 # packing, change compare and flat compare
 SEARCH_OPS_TEST = 4
 ANALYSIS_OPS_PIXEL = 3
+# K6: per position of a sub-rect, the row step's selects and its four
+# shuffle-and-add scan steps
+REBUILD_OPS_POSITION = 8
 
 
 def bound(nbytes, nops):
@@ -255,6 +268,127 @@ def recon_timings(tr, records, lits, h, w, reps):
     if not (whole == got).all():
         raise AssertionError("reconstruct_i differs from K4 on its padded rows")
     return ms, whole_ms, rows, got
+
+
+def rebuild_work(args):
+    """K6's (bytes, operations) on one call's inputs (out, prev, rects,
+    bsid, ptypes, rlens, lits), counted from what this call's records need:
+    each slot's rect (16 B) and, for a slot with a sub-rect, its stream id
+    (8 B); the run lengths of the records that start inside the sub-rect
+    (4 B each), the ptype of each record a position takes (4 B) and the
+    three literals of each such literal record (12 B); the distinct pixels
+    of prev that the positions read (the row above, the left edge and the
+    above-left pixel where a predictor reads them, a PT_PREVFRAME
+    position's own pixel; 3 B each, none outside the frame); 3 B for each
+    distinct pixel written. Operations: REBUILD_OPS_POSITION a position."""
+    import torch
+
+    from screenpressor_tpu_torch.config import (PT_ABOVE, PT_ABOVELEFT, PT_GRADIENT, PT_LEFT,
+                                                PT_LITERAL, PT_PREVFRAME)
+
+    _, prev, rects, bsid, ptypes, rlens, _ = args
+    c, h, w = prev.shape[:3]
+    dev, nblk = prev.device, rects.shape[0]
+    rects, bsid, rl, pt_rec = rects.long(), bsid.long(), rlens.long(), ptypes.long()
+    bw = (rects[:, 2] - rects[:, 0]).clamp(0, 16)
+    bh = (rects[:, 3] - rects[:, 1]).clamp(0, 16)
+    n_pos = torch.where((bsid >= 0) & (bsid < c), bw * bh, 0)
+    # each position's record, as the plain version expands them
+    starts = rl.cumsum(1) - rl
+    marks = (rl > 0) & (starts >= 0) & (starts < 256)
+    at = torch.zeros((nblk, 257), dtype=torch.long, device=dev)
+    at.scatter_add_(1, torch.where(marks, starts, 256), marks.long())
+    rid = (at[:, :256].cumsum(1) - 1).clamp(0, 255)
+    p = torch.arange(256, device=dev)[None]
+    inside = p < n_pos[:, None]
+    used = torch.zeros((nblk, 256), dtype=torch.long, device=dev)
+    used = used.scatter_add_(1, rid, inside.long()) > 0
+    n_rlens = int(((starts < n_pos[:, None]) & (n_pos[:, None] > 0)).sum())
+    n_lits = int((used & (pt_rec == PT_LITERAL)).sum())
+    # the pixels of prev the positions read, and those written
+    pt = pt_rec.gather(1, rid)
+    ry, rx = p // bw.clamp_min(1)[:, None], p % bw.clamp_min(1)[:, None]
+    y, x = rects[:, 1:2] + ry, rects[:, 0:1] + rx
+    edge, grad = (ry == 0) | (rx == 0), pt == PT_GRADIENT
+    sid = bsid.clamp(0, c - 1)[:, None]
+
+    def pixels(yy, xx, need):
+        keep = need & inside & (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        return ((sid * h + yy) * w + xx)[keep]
+
+    reads = torch.cat([
+        pixels(y - 1, x, (ry == 0) & ((pt == PT_ABOVE) | grad)),
+        pixels(y, x, pt == PT_PREVFRAME),
+        pixels(y - 1, x - 1, edge & ((pt == PT_ABOVELEFT) | grad)),
+        pixels(y, x - 1, (rx == 0) & ((pt == PT_LEFT) | grad)),
+    ])
+    n_read = int(torch.unique(reads).numel())
+    n_written = int(torch.unique(pixels(y, x, inside)).numel())
+    nbytes = (16 * nblk + 8 * int((n_pos > 0).sum()) + 4 * n_rlens + 4 * int(used.sum())
+              + 12 * n_lits + 3 * n_read + 3 * n_written)
+    return nbytes, REBUILD_OPS_POSITION * int(n_pos.sum())
+
+
+def graph_ms(fn, reps, replays=20):
+    """Device milliseconds a call of fn: reps calls captured in one CUDA
+    graph, replayed `replays` times between CUDA events after one warm
+    replay, over reps * replays. The host's dispatch of fn is not in it;
+    the graph's gaps between its kernels are."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def hold_rebuild(record, entry, calls, label, smi):
+    """K6 (kernels.rebuild_blocks_streams_kernel) against its plain version
+    (pframe.reconstruct_blocks_streams_plain) on captured calls (out before
+    the rebuild, prev, rects, bsid, ptypes, rlens, lits), summed over the
+    calls; the frames must be equal (the sink row aside). K6's time is its
+    device time from a CUDA graph of its launches (graph_ms); the
+    wrapper's time by CUDA events over TIMED_REPS calls queued back to
+    back (its host dispatch sets that) is printed beside it; plain: CUDA
+    events, one run. record: the row to add them to. Returns (kernel ms,
+    plain ms, bound ms)."""
+    from screenpressor_tpu_torch import kernels as tk
+    from screenpressor_tpu_torch import pframe as tp
+
+    ms = wrapper_ms = plain_ms = 0.0
+    err, nbytes, nops, n_slots, n_live = 0, 0, 0, 0, 0
+    for args in calls:
+        out, rest = args[0], args[1:]
+        got, want = out.clone(), out.clone()
+        run = lambda: tk.rebuild_blocks_streams_kernel(got, *rest)  # noqa: E731
+        wrapper_ms += cuda_ms(run, TIMED_REPS)[0]
+        plain_ms += cuda_ms(lambda: tp.reconstruct_blocks_streams_plain(want, *rest), 1, False)[0]
+        err = max(err, max_abs_err([(got[:-1].cpu().numpy(), want[:-1].cpu().numpy())]))
+        b, o = rebuild_work(args)
+        nbytes, nops = nbytes + b, nops + o
+        n_slots += args[2].shape[0]
+        n_live += int((args[2][:, 2] > args[2][:, 0]).sum())
+        if args[2].shape[0]:
+            ms += graph_ms(run, TIMED_REPS)
+    record(entry, ms, plain_ms, err, (nbytes, nops))
+    bms, by = bound(nbytes, nops)
+    print(f"K6 {label}: {len(calls)} calls, {n_slots} data-block slots ({n_live} not empty): "
+          f"kernel {ms:.4f} ms (device, a CUDA graph of its launches; the wrapper "
+          f"{wrapper_ms:.4f} ms by CUDA events), bound {bms:.4g} ms ({by}; {nbytes} B, "
+          f"{nops} operations), plain {plain_ms:.1f} ms, equal, on {smi}")
+    return ms, plain_ms, bms
 
 
 def phase(name, t0):
@@ -566,7 +700,7 @@ def serving_main_path(t0, dev, smi, cfg, offsets, host, batches):
     peak = torch.cuda.max_memory_allocated() - held  # the session's own
     print(f"serving main path launches: {launches}")
     need = ("sptc_sections_encode", "sptc_sections_encode_colw", "sptc_sections_decode",
-            "sptc_run_walk", "sptc_recon_rows", "sptc_analyze_blocks")
+            "sptc_run_walk", "sptc_recon_rows", "sptc_analyze_blocks", "sptc_rebuild_blocks")
     missing = [kn for kn in need if launches[kn] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the serving path: {missing}")
@@ -626,17 +760,19 @@ def host_ms(fn, reps):
     return 1e3 * (time.perf_counter() - start) / reps, out
 
 
-def serving_rebuild(t0, dev, smi, cfg, offsets, batches):
+def serving_rebuild(t0, dev, smi, record, cfg, offsets, batches):
     """Phase 6b: the stream-batched P rebuild (pframe.rebuild_p_streams,
     one call a step) against pframe.rebuild_p stream by stream, on the
     inputs BatchedDecoder hands it on the serving session's scroll and
-    typing steps; both must be equal."""
+    typing steps; both must be equal. K6 (the data-block rebuild inside
+    it) against its plain version on each step's call."""
     import torch
 
+    from screenpressor_tpu_torch import _build
     from screenpressor_tpu_torch import pframe as tp
     from screenpressor_tpu_torch.parallel import serving as ts
     sys.path.insert(0, os.path.join(ROOT, "tests"))  # a `tests` package elsewhere
-    from torch_support import rebuild_p_loop  # would shadow ROOT/tests
+    from torch_support import rebuild_calls, rebuild_p_loop  # would shadow ROOT/tests
 
     enc = ts.BatchedEncoder(S_STREAMS, cfg, dev, kf_offsets=offsets)
     steps = [[p for p, _ in enc.encode(batches[t])] for t in range(3)]
@@ -650,22 +786,29 @@ def serving_rebuild(t0, dev, smi, cfg, offsets, batches):
         return real(recs, lay, prev, cfg_)
 
     dec = ts.BatchedDecoder(S_STREAMS, cfg, dev)
+    k6_calls = []
     ts.rebuild_p_streams = capture
     try:
-        for step in steps:
-            dec.decode(step)
+        with rebuild_calls(k6_calls):
+            for step in steps:
+                dec.decode(step)
     finally:
         ts.rebuild_p_streams = real
     del dec
     if len(captured) != 2:
         raise AssertionError(f"expected one stream-batched rebuild on each P step, got "
                              f"{len(captured)}")
-    for (recs, rows, prev), label in zip(captured, ("scroll", "typing")):
+    for (recs, rows, prev), k6, label in zip(captured, k6_calls, ("scroll", "typing")):
         def batched():
             return tp.rebuild_p_streams(recs, tp.step_layout(rows, dev), prev, cfg)
 
         ms, (frames, err) = cuda_ms(batched, TIMED_REPS)
         hms, _ = host_ms(batched, TIMED_REPS)
+        _build.reset_counts()
+        batched()
+        k6_launches = _build.LAUNCHES["sptc_rebuild_blocks"]
+        k6_ms, k6_plain, k6_bound = hold_rebuild(record, "sptc_rebuild_blocks_streams", [k6],
+                                                 f"serving {label} step", smi)
         loop_ms, (frames_l, err_l) = cuda_ms(lambda: rebuild_p_loop(recs, rows, prev, cfg), 2)
         loop_hms, _ = host_ms(lambda: rebuild_p_loop(recs, rows, prev, cfg), 2)
         if not (torch.equal(frames, frames_l) and torch.equal(err, err_l)):
@@ -677,10 +820,67 @@ def serving_rebuild(t0, dev, smi, cfg, offsets, batches):
         n_blk = int(np.maximum(rows[:, 7], 1).sum())
         print(f"P rebuild, {label} step: {len(rows)} coded P streams, {n_mv} motion and "
               f"{n_blk} data-block slots: stream-batched {ms:.3f} ms (CUDA events), "
-              f"{hms:.3f} ms (host, synchronised); per-stream loop {loop_ms:.3f} ms, "
-              f"{loop_hms:.3f} ms; frames and error words equal, on {smi}")
-    del captured
+              f"{hms:.3f} ms (host, synchronised), {k6_launches} K6 launch (kernel "
+              f"{k6_ms:.4f} ms, bound {k6_bound:.4g} ms, plain {k6_plain:.1f} ms); per-stream "
+              f"loop {loop_ms:.3f} ms, {loop_hms:.3f} ms; frames and error words equal, on {smi}")
+    del captured, k6_calls
     phase("serving P rebuild", t0)
+
+
+def session_rebuild(t0, dev, smi, record, payloads, cfg, t_dec):
+    """Phase 6b on the single stream: the 1080p session's decode with each
+    pframe.rebuild_p_streams call (one a coded P frame, C = 1) captured; K6
+    against its plain version on every call; the first two coded P frames'
+    calls (the scroll and the typing frame) timed by CUDA events and the synchronised host
+    clock with their K6 launches; all the calls again in sequence on the
+    synchronised host clock, beside the session's decode time t_dec."""
+    import torch
+
+    from screenpressor_tpu_torch import TorchDecoder, _build
+    from screenpressor_tpu_torch import bitstream as bs
+    from screenpressor_tpu_torch import pframe as tp
+    from screenpressor_tpu_torch.config import ALG_P
+    sys.path.insert(0, os.path.join(ROOT, "tests"))  # a `tests` package elsewhere
+    from torch_support import rebuild_calls  # would shadow ROOT/tests
+
+    captured, k6_calls = [], []
+    real = tp.rebuild_p_streams
+
+    def capture(recs, lay, prev, cfg_):
+        captured.append((recs, lay, prev.clone()))
+        return real(recs, lay, prev, cfg_)
+
+    tp.rebuild_p_streams = capture
+    try:
+        with rebuild_calls(k6_calls):
+            TorchDecoder(cfg, dev).decode_batch([p for p, _ in payloads], device_out=True)
+    finally:
+        tp.rebuild_p_streams = real
+    torch.cuda.synchronize()
+    hold_rebuild(record, "sptc_rebuild_blocks", k6_calls,
+                 f"1080p session, its {len(k6_calls)} coded P frames", smi)
+    coded = [i for i, (p, _) in enumerate(payloads)
+             if bs.parse_header_byte(p[0]) == ALG_P and tp.parse_p_header(p, 1, cfg)]
+    if len(coded) != len(captured):
+        raise AssertionError(f"1080p decode: {len(captured)} rebuilds for {len(coded)} coded "
+                             "P frames")
+    for j in (0, 1):  # the 1080p batch's frame 1 scrolls, frame 2 types
+        recs, lay, prev = captured[j]
+        ms, _ = cuda_ms(lambda: real(recs, lay, prev, cfg), TIMED_REPS)
+        hms, _ = host_ms(lambda: real(recs, lay, prev, cfg), TIMED_REPS)
+        _build.reset_counts()
+        real(recs, lay, prev, cfg)
+        n_blk = int((k6_calls[j][2][:, 2] > k6_calls[j][2][:, 0]).sum())
+        print(f"P rebuild, 1080p frame {coded[j]}: {int(lay.msid.shape[0])} motion slots, "
+              f"{n_blk} data blocks, rebuild_p_streams "
+              f"{ms:.3f} ms (CUDA events), {hms:.3f} ms (host, synchronised), "
+              f"{_build.LAUNCHES['sptc_rebuild_blocks']} K6 launch, on {smi}")
+    all_ms, _ = host_ms(lambda: [real(*c, cfg) for c in captured], 3)
+    print(f"P rebuild, 1080p session: its {len(captured)} rebuild_p_streams calls in sequence "
+          f"{all_ms:.3f} ms (host, synchronised), {all_ms / 1e3 / t_dec:.4f} of the session's "
+          f"decode ({t_dec:.3f} s), on {smi}")
+    del captured, k6_calls
+    phase("1080p session P rebuild", t0)
 
 
 def count_syncs(fn):
@@ -1068,7 +1268,8 @@ def session_api(t0, dev, smi, frames, cfg, pinned, rgb24_rates):
     launches = dict(_build.LAUNCHES)
     print(f"session API launches: {launches}")
     single = ("sptc_sections_encode", "sptc_sections_encode_colw", "sptc_sections_decode",
-              "sptc_run_walk", "sptc_recon_rows", "sptc_analyze_blocks")
+              "sptc_run_walk", "sptc_recon_rows", "sptc_analyze_blocks",
+              "sptc_rebuild_blocks")
     missing = [k for k in single if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the session API: {missing}")
@@ -1176,7 +1377,8 @@ def sp_mesh(t0, dev, smi, record, frames_1080, cfg_1080, pinned_1080):
     from screenpressor_tpu_torch.synth import synth_screencast
 
     sys.path.insert(0, os.path.join(ROOT, "tests"))  # a `tests` package elsewhere
-    from torch_support import sp_decode, sp_encode, sp_stage_ms  # would shadow ROOT/tests
+    from torch_support import (rebuild_calls, sp_decode, sp_encode,  # would shadow ROOT/tests
+                               sp_stage_ms)
 
     # ---- 9. the sp mesh ----
     with open(NATIVE_DIGESTS_4K) as fh:
@@ -1224,11 +1426,11 @@ def sp_mesh(t0, dev, smi, record, frames_1080, cfg_1080, pinned_1080):
     sp_encode(frames, meshes[4], cfg)
 
     # the counted run: the 8 frames at sp 1, 2 and 4, encode and decode;
-    # its first motion search captured
-    searches = {}
+    # its first motion search and every block rebuild captured
+    searches, rebuilds = {}, []
     _build.reset_counts()
     timed = {}
-    with capture(tm, "analyze_blocks_streams", searches, "K5 sp"):
+    with capture(tm, "analyze_blocks_streams", searches, "K5 sp"), rebuild_calls(rebuilds):
         for sp, mesh in meshes.items():
             got, t_enc = session(sp_encode, frames, mesh, cfg)
             dec, t_dec = session(sp_decode, got, mesh, cfg)
@@ -1236,7 +1438,8 @@ def sp_mesh(t0, dev, smi, record, frames_1080, cfg_1080, pinned_1080):
     launches = dict(_build.LAUNCHES)
     print(f"sp path launches (8 4K frames at sp 1, 2 and 4, encode and decode): {launches}")
     missing = [k for k in ("sptc_sections_encode", "sptc_sections_decode", "sptc_run_walk",
-                           "sptc_recon_rows", "sptc_analyze_blocks") if launches[k] <= 0]
+                           "sptc_recon_rows", "sptc_analyze_blocks",
+                           "sptc_rebuild_blocks") if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the sp path: {missing}")
     for sp, (got, t_enc, dec, t_dec) in timed.items():
@@ -1321,6 +1524,9 @@ def sp_mesh(t0, dev, smi, record, frames_1080, cfg_1080, pinned_1080):
           f"{plain_ms:.1f} ms, equal, equals the keyframe, on {smi}")
     hold_analysis(record, "sptc_analyze_blocks_sp", searches.pop("K5 sp")[0],
                 "sp path, 4K P frame 1 (sp 1)", smi)
+    hold_rebuild(record, "sptc_rebuild_blocks_sp", rebuilds,
+                 "sp path, the 4K P frames at sp 1, 2 and 4", smi)
+    del rebuilds
     phase("sp mesh kernels vs plain", t0)
 
     # the 1080p session at sp 2 (uneven I seams: rows 0-544 and 544-1080)
@@ -1390,9 +1596,13 @@ def capture(module, name, store, key, pick=lambda *a: True, tables_at=None):
 
 
 def window_captures(store, tag):
-    """The captures of K1-K5 launches on a window or split path: the first
+    """The captures of K1-K6 launches on a window or split path: the first
     K1 and K2 launch over at least two streams, the first keyframe walk,
-    data-block walk, K4 launch and motion search."""
+    data-block walk, K4 launch and motion search, and every block
+    rebuild."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))  # a `tests` package elsewhere
+    from torch_support import rebuild_calls  # would shadow ROOT/tests
+
     from screenpressor_tpu_torch import blocks as tb
     from screenpressor_tpu_torch import classify as tcl
     from screenpressor_tpu_torch import coder as tc
@@ -1407,16 +1617,18 @@ def window_captures(store, tag):
     stack.enter_context(capture(tp, "run_walk", store, f"K3 data blocks {tag}"))
     stack.enter_context(capture(tr, "recon_rows", store, f"K4 {tag}"))
     stack.enter_context(capture(tb, "analyze_blocks_streams", store, f"K5 {tag}"))
+    stack.enter_context(rebuild_calls(store.setdefault(f"K6 {tag}", [])))
     return stack
 
 
 def hold_captured(record, store, tag, entries, smi, subset=2):
-    """The captured K1-K5 launches of `tag` against their plain versions on
+    """The captured K1-K6 launches of `tag` against their plain versions on
     the card: K1 / K2 over all their streams (full-table col), timed, and
     the plain version on their first `subset` streams (a stream's bytes,
     starts, records and tables do not depend on the others); K3 whole; K4
-    timed whole, plain on its first `subset` frames; K5 whole. entries:
-    the row names for K1, K2, K3, K4, K5."""
+    timed whole, plain on its first `subset` frames; K5 whole; K6 on every
+    captured call.
+    entries: the row names for K1, K2, K3, K4, K5, K6."""
     import torch
 
     from screenpressor_tpu_torch import classify as tcl
@@ -1428,7 +1640,7 @@ def hold_captured(record, store, tag, entries, smi, subset=2):
         return max(int((a[kd][key][ids].long() - b[kd][key][ids].long()).abs().max())
                    for kd in b for key in b[kd])
 
-    k1, k2, k3, k4, k5 = entries
+    k1, k2, k3, k4, k5, k6 = entries
     (dealt, lens, _, kts, sidx, *_), tabs0 = store[f"K1 {tag}"]
     m = min(subset, len(sidx))
     sidx = [int(i) for i in sidx]
@@ -1495,6 +1707,7 @@ def hold_captured(record, store, tag, entries, smi, subset=2):
           f"{plain_ms:.1f} ms, equal, on {smi}")
 
     hold_analysis(record, k5, store[f"K5 {tag}"][0], k5, smi)
+    hold_rebuild(record, k6, store[f"K6 {tag}"], k6, smi)
 
 
 def payload_counts(p):
@@ -1671,7 +1884,8 @@ def window_serving(t0, dev, smi, record, frames_1080, synth_screencast):
     print(f"window path launches (16 steps in two windows of 8, WindowConfig defaults): "
           f"{counts}")
     missing = [k for k in ("sptc_sections_encode", "sptc_sections_decode", "sptc_run_walk",
-                           "sptc_recon_rows", "sptc_analyze_blocks") if counts[k] <= 0]
+                           "sptc_recon_rows", "sptc_analyze_blocks",
+                           "sptc_rebuild_blocks") if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the window path: {missing}")
     if [outs for outs, _ in got] != [outs for outs, _ in win[1:]]:
@@ -1694,7 +1908,8 @@ def window_serving(t0, dev, smi, record, frames_1080, synth_screencast):
     hold_captured(record, store, "window", ("sptc_sections_encode_window",
                                             "sptc_sections_decode_window",
                                             "sptc_run_walk_window", "sptc_recon_rows_window",
-                                            "sptc_analyze_blocks_window"), smi)
+                                            "sptc_analyze_blocks_window",
+                                            "sptc_rebuild_blocks_window"), smi)
     del store
 
     # a window's host syncs (torch's sync debug mode)
@@ -1794,14 +2009,16 @@ def dp_split(t0, dev, smi, record, synth_screencast):
     counts = dict(_build.LAUNCHES)
     print(f"dp split path launches (2 groups, 5 steps): {counts}")
     missing = [k for k in ("sptc_sections_encode", "sptc_sections_decode", "sptc_run_walk",
-                           "sptc_recon_rows", "sptc_analyze_blocks") if counts[k] <= 0]
+                           "sptc_recon_rows", "sptc_analyze_blocks",
+                           "sptc_rebuild_blocks") if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the dp split path: {missing}")
     if [outs for outs, _ in got] != [outs for outs, _ in first[1]]:
         raise AssertionError("dp split counted run: bytes differ from unsplit")
     hold_captured(record, store, "dp", ("sptc_sections_encode_dp", "sptc_sections_decode_dp",
                                         "sptc_run_walk_dp", "sptc_recon_rows_dp",
-                                        "sptc_analyze_blocks_dp"), smi)
+                                        "sptc_analyze_blocks_dp", "sptc_rebuild_blocks_dp"),
+                  smi)
     phase("dp split: kernels vs plain", t0)
     return counts
 
@@ -2061,7 +2278,8 @@ def main() -> int:
     launches = dict(_build.LAUNCHES)
     print(f"single-stream main path launches: {launches}")
     single = ("sptc_sections_encode", "sptc_sections_encode_colw", "sptc_sections_decode",
-              "sptc_run_walk", "sptc_recon_rows", "sptc_analyze_blocks")
+              "sptc_run_walk", "sptc_recon_rows", "sptc_analyze_blocks",
+              "sptc_rebuild_blocks")
     missing = [k for k in single if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the main path: {missing}")
@@ -2098,7 +2316,8 @@ def main() -> int:
     s_cfg, s_offsets, s_host, s_batches = serving_batches(dev, synth_screencast)
     serving_kernels_vs_plain(t0, dev, smi, record, s_cfg, s_offsets, s_host, s_batches)
     serve = serving_main_path(t0, dev, smi, s_cfg, s_offsets, s_host, s_batches)
-    serving_rebuild(t0, dev, smi, s_cfg, s_offsets, s_batches)
+    serving_rebuild(t0, dev, smi, record, s_cfg, s_offsets, s_batches)
+    session_rebuild(t0, dev, smi, record, payloads, cfg, t_dec)
     serving_encode_front(t0, dev, smi, record, s_cfg, s_offsets, s_batches)
     batch_encode_front(t0, dev, smi, record, frames, cfg)
     damaged_streams(t0, dev, smi)
@@ -2118,6 +2337,10 @@ def main() -> int:
     # XLA fuses them, the search a lax.while_loop)
     search, k5 = ("screenpressor_tpu_torch/csrc/motion_search.cu",
                   "screenpressor_tpu/jx/blocks.py:389")
+    # K6 stands for the jitted reconstruct_blocks (no Pallas site: XLA
+    # compiles it with the motion apply into one program a frame)
+    rebuild, k6 = ("screenpressor_tpu_torch/csrc/block_rebuild.cu",
+                   "screenpressor_tpu/jx/pframe.py:253")
     entries = (  # (entry, its launch count, main path's counts, source, TPU kernel)
         ("sptc_sections_encode", "sptc_sections_encode", launches, sections, k1),
         ("sptc_sections_encode_colw", "sptc_sections_encode_colw", launches, sections, k1),
@@ -2146,6 +2369,11 @@ def main() -> int:
         ("sptc_analyze_blocks_sp", "sptc_analyze_blocks", sp_counts, search, k5),
         ("sptc_analyze_blocks_window", "sptc_analyze_blocks", win_counts, search, k5),
         ("sptc_analyze_blocks_dp", "sptc_analyze_blocks", dp_counts, search, k5),
+        ("sptc_rebuild_blocks", "sptc_rebuild_blocks", launches, rebuild, k6),
+        ("sptc_rebuild_blocks_streams", "sptc_rebuild_blocks", serve, rebuild, k6),
+        ("sptc_rebuild_blocks_sp", "sptc_rebuild_blocks", sp_counts, rebuild, k6),
+        ("sptc_rebuild_blocks_window", "sptc_rebuild_blocks", win_counts, rebuild, k6),
+        ("sptc_rebuild_blocks_dp", "sptc_rebuild_blocks", dp_counts, rebuild, k6),
     )
     kernels = [
         {"name": entry, "route": "cuda", "source": src, "replaces": rep,
@@ -2153,7 +2381,7 @@ def main() -> int:
          "ms": rows[entry]["ms"], "plain_ms": rows[entry]["plain_ms"],
          "bound_ms": rows[entry]["bound_ms"],
          "bound_by": "bytes" if rows[entry]["bytes_ms"] >= rows[entry]["ops_ms"] else "operations",
-         "library_ms": None}  # no single PyTorch call computes K1-K5
+         "library_ms": None}  # no single PyTorch call computes K1-K6
         for entry, count, path, src, rep in entries
     ]
     print(json.dumps({"kernels": kernels}))

@@ -5,7 +5,10 @@
 (change map, sub-rects, flat flags, first-match motion search),
 `csrc/motion_search.cu` (the reference's jitted `jx/blocks.py`
 `analyze_compact` up to its record compaction, which has no Pallas site;
-its plain version is `blocks.analyze_blocks_streams_plain`).
+its plain version is `blocks.analyze_blocks_streams_plain`), and of K6,
+the P decode's data-block rebuild, `csrc/block_rebuild.cu` (the
+reference's `jx/pframe.py` `reconstruct_blocks`, no Pallas site either;
+its plain version is `pframe.reconstruct_blocks_streams_plain`).
 
 Same contracts as the stream loops of the plain coder in `coder.py`
 (`encode_sections_streams_plain`: `model_scan` + `rans_pack`;
@@ -42,6 +45,7 @@ from screenpressor_tpu_torch import _build
 from screenpressor_tpu_torch.coder import pack_cap, upload
 from screenpressor_tpu_torch.substeps import SUBSTEP_CODECS as CODECS
 
+AREA = BLOCK * BLOCK
 KIND_ORDER = ("ptype", "nrun", "color", "bt", "btn", "sxy", "mvflag", "mv")
 MAX_LANES = 512
 MAX_SECTIONS = 8
@@ -217,3 +221,35 @@ def analyze_blocks_streams_kernel(frames: torch.Tensor, prevs: torch.Tensor,
                       cands.data_ptr(), changed.data_ptr(), rects.data_ptr(), choice.data_ptr(),
                       flat.data_ptr(), c, h, w, row0, nby, n_cand, device=dev)
     return changed, rects, choice, flat
+
+
+def rebuild_blocks_streams_kernel(out: torch.Tensor, prev: torch.Tensor, rects: torch.Tensor,
+                                  bsid: torch.Tensor, ptypes: torch.Tensor, rlens: torch.Tensor,
+                                  lits: torch.Tensor) -> torch.Tensor:
+    """K6: every data-block slot of a P decode call rebuilt in one launch,
+    with no host sync. out [C * h * w + 1, 3] uint8, the motion-applied
+    frames, updated in place (its last row, the sink, is not written);
+    prev [C, h, w, 3] uint8, the true previous frames; rects [B, 4] int32
+    absolute exclusive sub-rects; bsid [B] int64 each slot's stream;
+    ptypes, rlens [B, 256] and lits [B, 256, 3] int32, the slots' records.
+    Returns out."""
+    c, h, w = prev.shape[:3]
+    nblk = rects.shape[0]
+    prev = prev.contiguous()
+    rects, ptypes, rlens, lits = (t.to(I32).contiguous() for t in (rects, ptypes, rlens, lits))
+    bsid = bsid.to(torch.int64).contiguous()
+    _build.require_cuda(out, prev, rects, bsid, ptypes, rlens, lits)
+    if (out.dtype != torch.uint8 or prev.dtype != torch.uint8 or prev.dim() != 4
+            or prev.shape[3] != 3 or out.shape != (c * h * w + 1, 3)
+            or rects.shape != (nblk, 4) or bsid.shape != (nblk,)
+            or ptypes.shape != (nblk, AREA) or rlens.shape != (nblk, AREA)
+            or lits.shape != (nblk, AREA, 3)):
+        raise ValueError(f"block rebuild: out {tuple(out.shape)} {out.dtype}, prev "
+                         f"{tuple(prev.shape)} {prev.dtype}, rects {tuple(rects.shape)}, bsid "
+                         f"{tuple(bsid.shape)}, ptypes {tuple(ptypes.shape)}, rlens "
+                         f"{tuple(rlens.shape)}, lits {tuple(lits.shape)}")
+    if nblk:
+        _build.launch("sptc_rebuild_blocks", out.data_ptr(), prev.data_ptr(), rects.data_ptr(),
+                      bsid.data_ptr(), ptypes.data_ptr(), rlens.data_ptr(), lits.data_ptr(),
+                      nblk, c, h, w, device=out.device)
+    return out

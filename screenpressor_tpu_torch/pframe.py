@@ -10,8 +10,9 @@ sequence is the same greedy walk as the I-frame's with one 256-position
 tile per block, so it runs through kernel K3 (`classify.run_walk`), one
 launch over all the blocks. The five sections go through the section coder
 (`coder.encode_sections` / `decode_sections`, kernels K1/K2 on the card).
-Block resolution, the motion apply (one gather) and the block rebuild are
-plain tensor ops over all the coded P streams of a step at once
+Block resolution and the motion apply (one gather) are plain tensor ops
+over all the coded P streams of a step at once, and the data-block rebuild
+is one launch of kernel K6 over all their data blocks on the card
 (`rebuild_p_streams`; one frame is its case of one stream).
 """
 
@@ -42,6 +43,7 @@ from screenpressor_tpu_torch.config import (
 from screenpressor_tpu_torch import coder as tc
 from screenpressor_tpu_torch.classify import fits_bits, run_walk
 from screenpressor_tpu_torch.iframe import section_bytes, varint_len
+from screenpressor_tpu_torch.kernels import rebuild_blocks_streams_kernel
 from screenpressor_tpu_torch.tables import renew_tables_cached, select_tables
 
 AREA = BLOCK * BLOCK
@@ -668,10 +670,25 @@ def reconstruct_blocks_streams(out: torch.Tensor, prev: torch.Tensor, rects: tor
                                bsid: torch.Tensor, ptypes: torch.Tensor,
                                rlens: torch.Tensor, lits: torch.Tensor) -> torch.Tensor:
     """Rebuild the data-block slots (rects [B, 4] of the streams bsid [B])
-    into out [C * h * w + 1, 3], the motion-applied frames. Out-of-sub-rect
-    neighbour reads (left edge, above row at ry = 0, aboveleft column,
-    PT_PREVFRAME) come from `prev` [C, h, w, 3], the true previous frames.
-    Empty slots (x2 <= x1) write nothing."""
+    into out [C * h * w + 1, 3], the motion-applied frames, in place.
+    Out-of-sub-rect neighbour reads (left edge, above row at ry = 0,
+    aboveleft column, PT_PREVFRAME) come from `prev` [C, h, w, 3], the
+    true previous frames. Empty slots (x2 <= x1) write nothing; the sink
+    row is garbage. K6 on CUDA tensors (one launch, no host sync; raises if
+    the launch fails), the plain version on CPU tensors."""
+    if not out.is_cuda:
+        return reconstruct_blocks_streams_plain(out, prev, rects, bsid, ptypes, rlens, lits)
+    return rebuild_blocks_streams_kernel(out, prev, rects, bsid, ptypes, rlens, lits)
+
+
+def reconstruct_blocks_streams_plain(out: torch.Tensor, prev: torch.Tensor,
+                                     rects: torch.Tensor, bsid: torch.Tensor,
+                                     ptypes: torch.Tensor, rlens: torch.Tensor,
+                                     lits: torch.Tensor) -> torch.Tensor:
+    """The plain version of K6 (reconstruct_blocks_streams' contract): the
+    records expanded to the sequence positions and laid out on a 16 x 16
+    grid, then the 16 rows in a Python loop, each row a chain of masked
+    selects and an affine scan (_row_affine) over every slot at once."""
     c, h, w, _ = prev.shape
     nblk = rects.shape[0]
     dev = prev.device

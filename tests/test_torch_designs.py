@@ -1,5 +1,5 @@
-"""The facts the Hopper designs of K1, K3 and K4 rest on, pinned on the CPU
-against the plain versions and, through them, against jx. Tolerance 0.
+"""The facts the Hopper designs of K1, K3, K4 and K6 rest on, pinned on the
+CPU against the plain versions and, through them, against jx. Tolerance 0.
 
 K1 (csrc/sections.cu, encode_kernel) takes the lookups of all substeps of a
 step before any update of that step (rec, bt, sxy, mv), and for col computes
@@ -8,7 +8,10 @@ row. K3 (csrc/run_walk.cu) takes the start mask as the orbit of each tile's
 position 0 under next(p). K4 (csrc/recon.cu) runs the row recurrence mod
 256 per channel in 10-bit fields of one word, as a scan of affine maps over
 thread chunks, warps and warp totals, with the row before kept per thread.
-Inputs are made from a seed with numpy.
+K6 (csrc/block_rebuild.cu) expands a block's records by two warp prefix
+sums (run lengths, then marks) and runs each row in 8-bit lanes of one word
+a pixel, as a scan of (reset, add) maps over 16 lanes. Inputs are made from
+a seed with numpy.
 """
 
 import jax
@@ -19,17 +22,21 @@ import torch
 
 from screenpressor_tpu.jx import classify as jcl
 from screenpressor_tpu.jx import coder as jc
+from screenpressor_tpu.jx import pframe as jp
 from screenpressor_tpu.jx import recon as jr
 from screenpressor_tpu.jx.tables import renew_tables as jx_renew
 from screenpressor_tpu_torch import classify as tcl
 from screenpressor_tpu_torch import coder as tc
+from screenpressor_tpu_torch import pframe as tp
 from screenpressor_tpu_torch import recon as tr
 from screenpressor_tpu_torch.config import (
     MAX_RUN,
     PT_ABOVE,
     PT_ABOVELEFT,
     PT_GRADIENT,
+    PT_LEFT,
     PT_LITERAL,
+    PT_PREVFRAME,
     kind_gstep,
     kind_step,
 )
@@ -38,6 +45,7 @@ from screenpressor_tpu_torch.tables import effective_rows, renew_tables, update_
 
 from tests.test_jx_coder import _spec_records
 from tests.torch_support import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_support import rebuild_fixtures
 
 I32 = torch.int32
 
@@ -231,3 +239,120 @@ def test_k4_packed_recurrence_matches_plain_and_jx(h, w, per, grad0, resets):
     got = k4_emulation(words.numpy().view(np.uint32), w, per)
     np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(tr.recon_rows_plain(words, w).numpy(), ref)
+
+
+def _bytewise(op, a, b):
+    a1, b1 = (np.atleast_1d(np.asarray(x, np.uint32)) for x in (a, b))
+    out = op(a1.view(np.uint8), b1.view(np.uint8)).view(np.uint32)
+    return out if np.ndim(a) or np.ndim(b) else out[0]
+
+
+def vadd4(a, b):
+    """__vadd4: per-byte add mod 256 of uint32 words."""
+    return _bytewise(np.add, a, b)
+
+
+def vsub4(a, b):
+    """__vsub4: per-byte subtract mod 256."""
+    return _bytewise(np.subtract, a, b)
+
+
+def k6_emulation(base, prev, rects, bsid, pt, rl, lt):
+    """K6's arithmetic and schedule in numpy, a warp (32 lanes) a slot:
+    lane l's 8 run lengths summed, a warp prefix sum places the marks, a
+    second one over the marks gives each position its record (only
+    positions < bw * bh); then per row each lane's (reset, a) map from the
+    row before (kept per lane: above its own, aboveleft its left
+    neighbour's) and prev's apron, a Hillis-Steele scan over the lanes by
+    offsets 1, 2, 4, 8, the row's words written where they lie in the
+    frame. -> frames [C, h, w, 3]."""
+    c, h, w, _ = prev.shape
+    out = base.copy()
+
+    def pixel(s, y, x):
+        if 0 <= y < h and 0 <= x < w:
+            return np.uint32(int(prev[s, y, x, 0]) | int(prev[s, y, x, 1]) << 8
+                             | int(prev[s, y, x, 2]) << 16)
+        return np.uint32(0)
+
+    lanes = np.arange(32)
+    for b in range(len(rects)):
+        x1, y1, x2, y2 = (int(v) for v in rects[b])
+        bw, bh, s = min(max(x2 - x1, 0), 16), min(max(y2 - y1, 0), 16), int(bsid[b])
+        if bw == 0 or bh == 0 or not 0 <= s < c:
+            continue
+        own = rl[b].astype(np.int64).reshape(32, 8)
+        start = np.cumsum(own.sum(1)) - own.sum(1)
+        mark = np.zeros(256, np.int64)
+        for lane in lanes:
+            st = start[lane]
+            for j in range(8):
+                if own[lane, j] > 0 and 0 <= st < 256:
+                    mark[st] += 1
+                st += own[lane, j]
+        cnt = np.cumsum(mark.reshape(32, 8), axis=1)
+        rid = np.clip((np.cumsum(cnt[:, -1]) - cnt[:, -1])[:, None] + cnt - 1, 0, 255).reshape(-1)
+        n_pos = bw * bh
+        spt = np.where((pt[b][rid] >= 0) & (pt[b][rid] <= 5), pt[b][rid], 6)[:n_pos]
+        lw = lt[b][rid].astype(np.int64) & 0xFF
+        slit = (lw[:, 0] | lw[:, 1] << 8 | lw[:, 2] << 16).astype(np.uint32)[:n_pos]
+        v = np.zeros(32, np.uint32)
+        for r in range(bh):
+            left_of = np.concatenate([v[:1], v[:-1]])  # __shfl_up by 1
+            a = np.zeros(32, np.uint32)
+            rs = np.ones(32, bool)
+            for x in range(bw):
+                y, xx = y1 + r, x1 + x
+                t = spt[r * bw + x]
+                above = pixel(s, y - 1, xx) if r == 0 else v[x]
+                tl = pixel(s, y - 1, xx - 1) if r == 0 or x == 0 else left_of[x]
+                if t == PT_LITERAL:
+                    a[x] = slit[r * bw + x]
+                elif t == PT_ABOVE:
+                    a[x] = above
+                elif t == PT_PREVFRAME:
+                    a[x] = pixel(s, y, xx)
+                elif t == PT_ABOVELEFT:
+                    a[x] = tl
+                elif t == PT_LEFT and x == 0:
+                    a[x] = pixel(s, y, xx - 1)
+                elif t == PT_GRADIENT and x == 0:
+                    a[x] = vsub4(vadd4(pixel(s, y, xx - 1), above), tl)
+                else:
+                    rs[x] = False
+                    a[x] = vsub4(above, tl) if t == PT_GRADIENT else 0
+            o = 1
+            while o < 16:
+                pa, prs = np.roll(a, o), np.roll(rs, o)
+                take = (lanes >= o) & ~rs
+                a = np.where(take, vadd4(pa, a), a)
+                rs = np.where(take, prs, rs)
+                o *= 2
+            v = a
+            for x in range(bw):
+                y, xx = y1 + r, x1 + x
+                if 0 <= y < h and 0 <= xx < w:
+                    out[s, y, xx] = [(int(v[x]) >> sh) & 0xFF for sh in (0, 8, 16)]
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(rebuild_fixtures()))
+def test_k6_byte_lane_rows_match_plain_and_jx(name):
+    """K6's schedule in 8-bit lanes equals the plain int32 rows masked at
+    the scatter (the wrap fixture's rows leave 0..255), on every stream,
+    and jx's reconstruct_blocks on the streams the reference defines
+    alike."""
+    base, prev, rects, bsid, pt, rl, lt, ref_streams = rebuild_fixtures()[name]
+    got = k6_emulation(base, prev, rects, bsid, pt, rl, lt)
+    c, h, w, _ = prev.shape
+    out = torch.cat([torch.as_tensor(base).reshape(-1, 3), torch.zeros((1, 3), dtype=torch.uint8)])
+    tp.reconstruct_blocks_streams_plain(out, torch.as_tensor(prev),
+                                        *(torch.as_tensor(a) for a in (rects, bsid, pt, rl, lt)))
+    np.testing.assert_array_equal(got, out[:-1].view(c, h, w, 3).numpy())
+    for s in ref_streams:
+        sel = bsid == s
+        if sel.any():
+            ref = jp.reconstruct_blocks(jnp.asarray(base[s]), jnp.asarray(prev[s]),
+                                        *(jnp.asarray(a[sel]) for a in (rects, pt, rl, lt)),
+                                        h, w, int(sel.sum()))
+            np.testing.assert_array_equal(got[s], np.asarray(ref))

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1-K4, their stream-batched launches and K1's
-colw variant; K5, the P analysis's block front end) against their plain
-PyTorch versions, on the card. Skips where there is no CUDA device.
+colw variant; K5, the P analysis's block front end; K6, the P decode's
+data-block rebuild) against their plain PyTorch versions, on the card. Skips where there is no CUDA device.
 
 This file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
@@ -1130,3 +1130,227 @@ def test_sp_shard_analysis_one_launch_no_sync(cuda, monkeypatch, sp):
         assert _build.LAUNCHES["sptc_analyze_blocks"] - n0 == 1
         for g, w in zip(got, want[i]):
             assert torch.equal(g.cpu(), w), i
+
+
+def _k6_vs_plain(args, check=None):
+    """K6 (reconstruct_blocks_streams on the card) and the plain version on
+    the same inputs (out, prev, rects, bsid, ptypes, rlens, lits; out is
+    not written) -> (K6's frames, plain's, both [C * h * w, 3] without the
+    sink row, K6's launches). check: a callable run on K6's call alone
+    (the launch counted inside it)."""
+    from screenpressor_tpu_torch import pframe as tp
+
+    out, rest = args[0], args[1:]
+    got, want = out.clone(), out.clone()
+    n0 = _build.LAUNCHES["sptc_rebuild_blocks"]
+    (check or (lambda fn: fn()))(lambda: tp.reconstruct_blocks_streams(got, *rest))
+    launches = _build.LAUNCHES["sptc_rebuild_blocks"] - n0
+    tp.reconstruct_blocks_streams_plain(want, *rest)
+    return got[:-1], want[:-1], launches
+
+
+def _fixture_args(name, dev):
+    from torch_support import rebuild_fixtures  # tests/ is on the path
+
+    base, prev, rects, bsid, pt, rl, lt, _ = rebuild_fixtures()[name]
+    out = torch.cat([torch.as_tensor(base).reshape(-1, 3), torch.zeros((1, 3), dtype=torch.uint8)])
+    return [t.to(dev) for t in (out, *(torch.as_tensor(a) for a in (prev, rects, bsid, pt, rl,
+                                                                   lt)))]
+
+
+@pytest.mark.parametrize("name", ["damaged", "edges", "empty", "motion", "partial", "streams",
+                                  "types", "wrap"])
+def test_block_rebuild_kernel_matches_plain(cuda, name):
+    """K6 equals the plain version on the card and on the CPU on the
+    rebuild fixtures (every predictor type, wrapping gradients, frame
+    edges, partial blocks of a 37 x 53 frame, neighbours from prev beside
+    motion, empty slots, three streams, damaged rects and runs whose slots
+    do not overlap), in one launch."""
+    args = _fixture_args(name, cuda)
+    got, want, launches = _k6_vs_plain(args)
+    assert launches == 1 and torch.equal(got, want), name
+    cpu, _, _ = _k6_vs_plain([a.cpu() for a in args])
+    assert torch.equal(got.cpu(), cpu), f"{name} against the CPU"
+
+
+def _decode_rebuild_calls(run):
+    """The inputs of the reconstruct_blocks_streams calls run() makes."""
+    from torch_support import rebuild_calls  # tests/ is on the path
+
+    store = []
+    with rebuild_calls(store):
+        run()
+    return store
+
+
+def test_block_rebuild_kernel_on_serving_steps(cuda):
+    """K6 equals the plain version on the serving session's scroll and
+    typing steps (64 streams of 360x640, as BatchedDecoder hands them)."""
+    from screenpressor_tpu_torch.parallel.serving import BatchedDecoder, BatchedEncoder
+
+    steps = _serving_steps(3)
+    cfg = CodecConfig(width=640, height=360, k_fixed=64, msr_x=256, msr_y=256)
+    enc = BatchedEncoder(64, cfg, cuda)
+    payloads = [[p for p, _ in enc.encode(torch.as_tensor(f, device=cuda))] for f in steps]
+
+    def run():
+        dec = BatchedDecoder(64, cfg, cuda)
+        for step, f in zip(payloads, steps):
+            assert np.array_equal(dec.decode(step), f)
+
+    calls = _decode_rebuild_calls(run)
+    assert len(calls) == 2
+    for args in calls:
+        got, want, launches = _k6_vs_plain(args)
+        assert launches == 1 and torch.equal(got, want)
+    assert int((calls[1][2][:, 2] > calls[1][2][:, 0]).sum()) > 0  # typing: data blocks
+
+
+def test_block_rebuild_kernel_on_1080p_session(cuda):
+    """K6 equals the plain version on every coded P frame of the 1080p
+    session's decode (one call a frame, C = 1)."""
+    from screenpressor_tpu_torch.synth import synth_screencast
+
+    frames = synth_screencast(1080, 1920, 64)
+    cfg = CodecConfig(width=1920, height=1080)
+    payloads = [p for p, _ in TorchEncoder(cfg, cuda).encode_batch(frames)]
+    calls = _decode_rebuild_calls(lambda: TorchDecoder(cfg, cuda).decode_batch(payloads))
+    assert len(calls) == 32
+    for j, args in enumerate(calls):
+        got, want, launches = _k6_vs_plain(args)
+        assert launches == 1 and torch.equal(got, want), j
+
+
+def test_block_rebuild_kernel_past_2_31_bytes(cuda):
+    """A call of 700 streams of 1024 x 1024 (C * h * w * 3 > 2^31): slots of
+    the last stream, whose byte offsets pass 2^31, give the plain version's
+    pixels on that stream alone; the other streams are not written."""
+    from screenpressor_tpu_torch import pframe as tp
+
+    _, _, rects, _, pt, rl, lt = _fixture_args("types", "cpu")
+    c, h, w = 700, 1024, 1024
+    rng = np.random.default_rng(75)
+    one_prev = torch.as_tensor(rng.integers(0, 256, (1, h, w, 3), dtype=np.uint8), device=cuda)
+    one_out = torch.as_tensor(rng.integers(0, 256, (h * w + 1, 3), dtype=np.uint8), device=cuda)
+    rects = torch.cat([rects, torch.tensor([[1008, 1008, 1024, 1024], [512, 40, 520, 48]],
+                                           dtype=torch.int32)]).to(cuda)
+    pt, rl, lt = (torch.cat([a, a[:2]]).to(cuda) for a in (pt, rl, lt))
+    want = one_out.clone()
+    tp.reconstruct_blocks_streams_plain(want, one_prev, rects,
+                                        torch.zeros(rects.shape[0], dtype=torch.int64,
+                                                    device=cuda), pt, rl, lt)
+    prev = torch.zeros((c, h, w, 3), dtype=torch.uint8, device=cuda)
+    prev[-1] = one_prev[0]
+    out = torch.zeros((c * h * w + 1, 3), dtype=torch.uint8, device=cuda)
+    out[(c - 1) * h * w:] = one_out
+    del one_prev
+    sid = torch.full((rects.shape[0],), c - 1, dtype=torch.int64, device=cuda)
+    n0 = _build.LAUNCHES["sptc_rebuild_blocks"]
+    tp.reconstruct_blocks_streams(out, prev, rects, sid, pt, rl, lt)
+    assert _build.LAUNCHES["sptc_rebuild_blocks"] - n0 == 1
+    assert torch.equal(out[(c - 1) * h * w:-1], want[:-1])
+    assert not bool(out[:(c - 1) * h * w].any())
+    assert not torch.equal(want[:-1], one_out[:-1])
+
+
+def test_block_rebuild_one_launch_no_sync(cuda, monkeypatch):
+    """reconstruct_blocks_streams on the card makes no host sync (torch's
+    sync debug mode set to raise) and never runs the plain row loop; a
+    rebuild_p_streams call (the serving typing step, then a 1080p P frame)
+    makes exactly one K6 launch, and its frames equal the CPU port's."""
+    from screenpressor_tpu_torch import pframe as tp
+    from screenpressor_tpu_torch.parallel import serving as ts
+    from screenpressor_tpu_torch.synth import synth_screencast
+
+    captured = []
+    real = ts.rebuild_p_streams
+
+    def spy(recs, lay, prev, cfg_):
+        captured.append((recs, lay, prev, cfg_))
+        return real(recs, lay, prev, cfg_)
+
+    steps = _serving_steps(3)
+    cfg = CodecConfig(width=640, height=360, k_fixed=64, msr_x=256, msr_y=256)
+    enc = ts.BatchedEncoder(64, cfg, cuda)
+    payloads = [[p for p, _ in enc.encode(torch.as_tensor(f, device=cuda))] for f in steps]
+    frames = synth_screencast(1080, 1920, 3)
+    big = CodecConfig(width=1920, height=1080)
+    single = [p for p, _ in TorchEncoder(big, cuda).encode_batch(frames)]
+    with monkeypatch.context() as mp:
+        mp.setattr(ts, "rebuild_p_streams", spy)
+        mp.setattr(tp, "rebuild_p_streams", spy)
+        dec = ts.BatchedDecoder(64, cfg, cuda)
+        for step in payloads:
+            dec.decode(step)
+        TorchDecoder(big, cuda).decode_batch(single[:3])
+    assert len(captured) == 4
+    calls = _decode_rebuild_calls(lambda: [real(*a) for a in captured])
+
+    def no_sync(fn):
+        torch.cuda.synchronize()
+        with monkeypatch.context() as mp:
+            mp.setattr(tp, "_row_affine", None)  # the plain row loop's scan
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+    for args in calls:
+        got, want, launches = _k6_vs_plain(args, no_sync)
+        assert launches == 1 and torch.equal(got, want)
+    for recs, lay, prev, cfg_ in (captured[1], captured[3]):
+        n0 = _build.LAUNCHES["sptc_rebuild_blocks"]
+        fr, err = real(recs, lay, prev, cfg_)
+        assert _build.LAUNCHES["sptc_rebuild_blocks"] - n0 == 1
+        cpu = lambda t: t.cpu() if isinstance(t, torch.Tensor) else t  # noqa: E731
+        lay_cpu = type(lay)(*(cpu(f) for f in lay))
+        fr_c, err_c = real({k: v.cpu() for k, v in recs.items()}, lay_cpu, prev.cpu(), cfg_)
+        assert torch.equal(fr.cpu(), fr_c) and torch.equal(err.cpu(), err_c)
+
+
+def test_block_rebuild_kernel_on_damaged_streams(cuda):
+    """The damaged payloads of tests/test_torch_corrupt.py and the
+    damaged serving steps (torch_support.damaged_serving_steps), decoded on
+    the card: every rebuild call's K6 output equals the plain version's
+    wherever the plain version is deterministic (pixels that at most one
+    slot writes); the verdicts and clean streams' frames are held to the
+    CPU port's by test_corrupt_p_frames_on_card and chip_smoke.py phase 7."""
+    from screenpressor_tpu_torch import bitstream as bs
+    from screenpressor_tpu_torch.parallel.serving import BatchedDecoder
+
+    from torch_support import (corrupt_payloads, damaged_serving_steps,  # tests/ is on the path
+                               rebuild_single_writer)
+
+    cfg, _, payloads, damaged = corrupt_payloads()
+    runs = []
+    for i, data in damaged:
+        def one(i=i, data=data):
+            dec = TorchDecoder(cfg, cuda)
+            dec.decode_batch(payloads[:i])
+            try:
+                dec.decode_batch([data])
+            except bs.CorruptStreamError:
+                pass
+        runs.append(one)
+    s_cfg, steps, _, cases = damaged_serving_steps(cuda)
+    for i, data in cases:
+        def step(i=i, data=data):
+            dec = BatchedDecoder(len(steps[0]), s_cfg, cuda)
+            for st in steps[:i]:
+                dec.decode(st)
+            pays = list(steps[i])
+            pays[1] = data
+            try:
+                dec.decode(pays)
+            except bs.CorruptStreamError:
+                pass
+        runs.append(step)
+    n_calls = 0
+    for run in runs:
+        for args in _decode_rebuild_calls(run):
+            got, want, launches = _k6_vs_plain(args)
+            keep = rebuild_single_writer(args[1], args[2], args[3])
+            assert launches == 1 and torch.equal(got[keep], want[keep])
+            n_calls += 1
+    assert n_calls >= len(runs) // 2

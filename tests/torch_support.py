@@ -1,5 +1,6 @@
 """Shared fixture of the port's CPU tests (tests/test_torch_*.py)."""
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -348,3 +349,148 @@ def motion_search_fixtures(seed=70):
     cur[2, h - 1, w - 1] = (17, 99, 231)  # the last (partial) block, not flat
     out["flat"] = (cur, prevs, {})
     return out
+
+
+# ---------------------------------------------------------------------------
+# The P decode's data-block rebuild (pframe.reconstruct_blocks_streams, K6)
+# ---------------------------------------------------------------------------
+
+def _rb_records(rng, area, weights=None, max_run=12):
+    """Runs of random predictor types covering `area` sequence positions, as
+    decode_p_resolve_streams' to_grid lays them out: (ptypes [256], rlens
+    [256], lits [256, 3]) int32, a literal's value only on literal
+    records."""
+    pt = np.zeros(256, np.int32)
+    rl = np.zeros(256, np.int32)
+    lt = np.zeros((256, 3), np.int32)
+    i = pos = 0
+    while pos < area:
+        n = min(int(rng.integers(1, max_run + 1)), area - pos)
+        pt[i], rl[i] = int(rng.choice(6, p=weights)), n
+        if pt[i] == 0:
+            lt[i] = rng.integers(0, 256, 3)
+        i, pos = i + 1, pos + n
+    return pt, rl, lt
+
+
+def rebuild_fixtures(seed=90):
+    """The block rebuild's fixtures: name -> (base, prev [C, h, w, 3] uint8,
+    rects [B, 4] int32, bsid [B] int64, ptypes, rlens [B, 256] int32, lits
+    [B, 256, 3] int32, ref_streams): numpy arrays. base stands for the
+    motion-applied frames (the rebuild's output before it writes), prev
+    for the true previous frames; ref_streams lists the streams whose
+    pixels the reference (jx/pframe.py reconstruct_blocks) defines as the
+    port does (all but a stream with a rect wider than a block or past
+    the frame, whose error word decides its verdict).
+
+    types: full blocks and a partial one, every predictor type;
+    wrap: gradient chains over a prev of 0s and 255s (the int32 rows leave
+      0..255; only their low byte reaches the frame);
+    edges: sub-rects at the frame's top and left edges (the apron reads 0);
+    partial: a 37 x 53 frame, sub-rects in the partial blocks at the right
+      and bottom edges;
+    motion: base differs from prev in the blocks left of, above and
+      above-left of a data block that reads its neighbours (they must come
+      from prev);
+    empty: slots with x2 <= x1 or y2 <= y1 among real ones;
+    streams: three streams in one call, slots interleaved;
+    damaged: stream 0 with runs that overrun the block, zero-length runs
+      and an inverted rect; stream 1 with a rect wider than a block and one
+      that starts above and left of the frame."""
+    rng = np.random.default_rng(seed)
+    out = {}
+
+    def make(name, c, h, w, slots, base=None, prev=None, ref_streams=None):
+        prev = rng.integers(0, 256, (c, h, w, 3), dtype=np.uint8) if prev is None else prev
+        base = rng.integers(0, 256, (c, h, w, 3), dtype=np.uint8) if base is None else base
+        recs = [r for _, _, r in slots]
+        out[name] = (base, prev, np.asarray([r for _, r, _ in slots], np.int32).reshape(-1, 4),
+                     np.asarray([s for s, _, _ in slots], np.int64),
+                     np.stack([r[0] for r in recs]), np.stack([r[1] for r in recs]),
+                     np.stack([r[2] for r in recs]),
+                     list(range(c)) if ref_streams is None else ref_streams)
+
+    def area(rect):
+        return max(rect[2] - rect[0], 0) * max(rect[3] - rect[1], 0)
+
+    def slot(s, rect, **kw):
+        return (s, rect, _rb_records(rng, area(rect), **kw))
+
+    make("types", 1, 40, 56, [slot(0, r) for r in ((16, 16, 32, 32), (32, 0, 48, 16),
+                                                   (0, 16, 16, 32), (20, 3, 29, 14))])
+    grad = [0.05, 0.05, 0.05, 0.05, 0.75, 0.05]
+    prev = (rng.integers(0, 2, (1, 40, 56, 3)) * 255).astype(np.uint8)
+    make("wrap", 1, 40, 56, [slot(0, r, weights=grad, max_run=16)
+                             for r in ((16, 16, 32, 32), (0, 0, 16, 16), (35, 18, 47, 29))],
+         prev=prev)
+    make("edges", 1, 40, 56, [slot(0, r) for r in ((0, 0, 16, 16), (16, 0, 25, 7),
+                                                   (0, 16, 6, 30), (32, 0, 48, 1))])
+    make("partial", 1, 37, 53, [slot(0, r) for r in ((48, 0, 53, 16), (0, 32, 16, 37),
+                                                     (48, 32, 53, 37), (33, 33, 35, 36),
+                                                     (50, 17, 52, 31))])
+    prev = rng.integers(0, 256, (1, 40, 56, 3), dtype=np.uint8)
+    base = prev.copy()
+    base[0, 0:32, 0:16] = prev[0, 2:34, 1:17]    # motion blocks left and above-left
+    base[0, 0:16, 16:32] = prev[0, 3:19, 18:34]  # the motion block above
+    near = [0.1, 0.2, 0.2, 0.1, 0.2, 0.2]
+    make("motion", 1, 40, 56, [slot(0, (16, 16, 32, 32), weights=near),
+                               slot(0, (32, 16, 40, 30), weights=near)], base=base, prev=prev)
+    make("empty", 1, 40, 56, [slot(0, (0, 0, 0, 0)), slot(0, (16, 0, 32, 16)),
+                              slot(0, (16, 16, 16, 32)), slot(0, (5, 5, 3, 9)),
+                              slot(0, (33, 20, 40, 20)), slot(0, (0, 16, 9, 27)),
+                              slot(0, (0, 0, 0, 0))])
+    make("streams", 3, 40, 56, [slot(1, (0, 0, 16, 16)), slot(0, (16, 16, 32, 32)),
+                                slot(2, (48, 32, 56, 40)), slot(1, (32, 16, 41, 23)),
+                                slot(0, (0, 0, 0, 0)), slot(2, (0, 32, 16, 40)),
+                                slot(0, (48, 0, 56, 16))])
+    over = _rb_records(rng, 256)
+    over[1][:3] = (200, 100, 90)  # starts 0, 200, 300: the third is past the block
+    zero = _rb_records(rng, 200, max_run=4)
+    zero[1][[2, 5, 6]] = 0  # records that mark no position
+    make("damaged", 2, 40, 56, [(0, (16, 16, 32, 32), over), (0, (0, 16, 16, 29), zero),
+                                slot(0, (40, 20, 35, 18)), slot(0, (32, 0, 48, 16)),
+                                slot(1, (20, 16, 44, 32)), slot(1, (-5, -3, 8, 10)),
+                                slot(1, (40, 0, 56, 12))], ref_streams=[0])
+    return out
+
+
+@contextlib.contextmanager
+def rebuild_calls(store):
+    """While the block runs, append to `store` the inputs of each
+    pframe.reconstruct_blocks_streams call (out, prev, rects, bsid, ptypes,
+    rlens, lits), out cloned before the call writes it."""
+    from screenpressor_tpu_torch import pframe
+
+    real = pframe.reconstruct_blocks_streams
+
+    def spy(out, *args):
+        store.append((out.clone(), *args))
+        return real(out, *args)
+
+    pframe.reconstruct_blocks_streams = spy
+    try:
+        yield store
+    finally:
+        pframe.reconstruct_blocks_streams = real
+
+
+def rebuild_single_writer(prev, rects, bsid):
+    """[C * h * w] bool: the pixels of the frames prev [C, h, w, 3] that at
+    most one slot of a rebuild call writes (each slot's rect clamped as the
+    rebuild clamps it, inside its own stream's frame). Where two slots
+    overlap (a damaged stream) the plain version's scatter picks no order;
+    everywhere else it is deterministic."""
+    c, h, w, _ = prev.shape
+    dev = prev.device
+    ar = torch.arange(16, device=dev)
+    x1, y1 = rects[:, 0].long(), rects[:, 1].long()
+    bw = (rects[:, 2] - rects[:, 0]).long().clamp(0, 16)
+    bh = (rects[:, 3] - rects[:, 1]).long().clamp(0, 16)
+    ys = y1[:, None, None] + ar[None, :, None]
+    xs = x1[:, None, None] + ar[None, None, :]
+    inside = ((ar[None, :, None] < bh[:, None, None]) & (ar[None, None, :] < bw[:, None, None])
+              & (ys >= 0) & (ys < h) & (xs >= 0) & (xs < w))
+    idx = torch.where(inside, bsid.long()[:, None, None] * h * w + ys * w + xs, c * h * w)
+    hits = torch.zeros(c * h * w + 1, dtype=torch.int32, device=dev)
+    hits.index_add_(0, idx.reshape(-1), torch.ones(idx.numel(), dtype=torch.int32, device=dev))
+    return hits[:-1] <= 1

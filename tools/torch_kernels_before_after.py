@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """K1 (section encode), K3 (run walk), K4 (row reconstruction), the
-serving session, the 1080p session and the P analysis of two checkouts of
-the PyTorch / CUDA port on one card, in one process tree: before / after numbers that
-may stand side by side.
+serving session, the 1080p session, the P analysis and the P rebuild of
+two checkouts of the PyTorch / CUDA port on one card, in one process tree:
+before / after numbers that may stand side by side.
 
-    python3 tools/torch_kernels_before_after.py --parent DIR [--kernels serving,analysis]
+    python3 tools/torch_kernels_before_after.py --parent DIR [--kernels serving,rebuild]
 
 DIR is a checkout of the commit to compare with (for example `git archive
 <commit> | tar -x -C DIR`); the change is the checkout this script lies in.
@@ -45,8 +45,16 @@ phases). Every run works on the same inputs, made from seeds:
     one profiled with each stage's device ms (change map, each
     pack_pixels, K5, block types, compaction, the rest), the parent's
     flat test alone, and the 1080p session encode's peak device memory.
---kernels picks the groups to run (k1, k3, k4, serving, session, analysis;
-default k1,k3,k4).
+  - rebuild: the P rebuild (pframe.rebuild_p_streams) on the calls the
+    decoders make: the 1080p session's scroll and typing frames (its first
+    two coded P frames, C = 1) and the serving session's scroll and typing
+    steps (64 streams), each call timed by CUDA events and by the
+    synchronised host clock, with the device kernels and copies it
+    launches (torch.profiler); all 32 calls of the 1080p decode in
+    sequence beside the decode; the 1080p session decode's Mpix/s and the
+    serving session's decode time (three runs each after a warm-up).
+--kernels picks the groups to run (k1, k3, k4, serving, session, analysis,
+rebuild; default k1,k3,k4).
 Kernel times are CUDA events, the mean of 5 launches after a warm-up. Prints one
 JSON line per run, then a table, with the card's nvidia-smi name and power
 limit. Needs a CUDA device and nvcc; imports nothing of JAX.
@@ -112,7 +120,9 @@ def measure(root: str, kernels) -> dict:
         out["k4"][f"{label}: reconstruct_i with expand and pad"] = whole
 
     out = {"k1": {}, "k1_probe": {}, "k3": {}, "k4": {}, "serving": {}, "session": {},
-           "analysis": {}}
+           "analysis": {}, "rebuild": {}}
+    if "rebuild" in kernels:
+        rebuild(out["rebuild"], dev, synth_screencast)
     if "analysis" in kernels:
         analysis(out["analysis"], dev, synth_screencast)
     if "serving" in kernels:
@@ -328,6 +338,114 @@ def analysis(out: dict, dev, synth_screencast):
     torch.cuda.synchronize()
     out["1080p session encode: peak device memory MiB"] = (
         torch.cuda.max_memory_allocated() - held) / 2**20
+
+
+def rebuild(out: dict, dev, synth_screencast):
+    """The P rebuild (pframe.rebuild_p_streams) on the calls the 1080p
+    session decode and the serving decode make: the first two coded P
+    frames of the 1080p batch (scroll, typing) and the serving session's
+    scroll and typing steps, each call's time (CUDA events, the mean of
+    REPS calls after a warm-up; the synchronised host clock, the same) and
+    the device kernels and copies it launches (torch.profiler); the 1080p
+    decode's 32 calls in sequence; the 1080p session decode's Mpix/s and
+    the serving decode's time, three runs each after a warm-up."""
+    import time
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from screenpressor_tpu_torch import TorchDecoder, TorchEncoder
+    from screenpressor_tpu_torch import pframe as tp
+    from screenpressor_tpu_torch.config import CodecConfig
+    from screenpressor_tpu_torch.parallel import serving as ts
+
+    def captured(run):
+        calls = []
+        real = tp.rebuild_p_streams
+
+        def spy(recs, lay, prev, cfg):
+            calls.append((recs, lay, prev.clone(), cfg))
+            return real(recs, lay, prev, cfg)
+
+        tp.rebuild_p_streams = ts.rebuild_p_streams = spy
+        try:
+            run()
+        finally:
+            tp.rebuild_p_streams = ts.rebuild_p_streams = real
+        torch.cuda.synchronize()
+        return calls
+
+    def host_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def one_call(label, args):
+        call = lambda: tp.rebuild_p_streams(*args)  # noqa: E731
+        call()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(REPS):
+            call()
+        b.record()
+        torch.cuda.synchronize()
+        out[f"{label}: rebuild_p_streams ms (CUDA events)"] = a.elapsed_time(b) / REPS
+        out[f"{label}: rebuild_p_streams ms (host, synchronised)"] = (
+            1e3 * host_s(lambda: [call() for _ in range(REPS)]) / REPS)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        dev_events = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        copies = sum(nm.startswith(("Memcpy", "Memset")) for nm in dev_events)
+        out[f"{label}: device kernels launched a call"] = len(dev_events) - copies
+        out[f"{label}: device copies and sets a call"] = copies
+
+    h, w = 1080, 1920
+    cfg = CodecConfig(width=w, height=h)
+    frames = synth_screencast(h, w, 64)
+    payloads = [p for p, _ in TorchEncoder(cfg, dev).encode_batch(frames)]
+    decode = lambda: TorchDecoder(cfg, dev).decode_batch(payloads, device_out=True)  # noqa: E731
+    calls = captured(decode)
+    one_call("1080p frame 1 (scroll)", calls[0])
+    one_call("1080p frame 2 (typing)", calls[1])
+    out[f"1080p decode's {len(calls)} rebuild_p_streams calls in sequence, ms (host, "
+        "synchronised)"] = 1e3 * host_s(lambda: [tp.rebuild_p_streams(*c) for c in calls])
+    del calls
+    decode()
+    for r in range(1, 4):
+        dt = host_s(decode)
+        out[f"1080p session decode {r}, s"] = dt
+        out[f"1080p session decode {r}, Mpix/s"] = h * w * len(frames) / 1e6 / dt
+
+    n, s_h, s_w, kf, steps = 64, 360, 640, 150, 5
+    s_cfg = CodecConfig(width=s_w, height=s_h, kf_interval=kf, k_fixed=64, msr_x=256,
+                        msr_y=256)
+    offsets = (np.arange(n) * kf) // n
+    base = synth_screencast(s_h, s_w, steps, seed=3)
+    batches = [torch.as_tensor(np.stack([np.roll(base[t], 3 * i, axis=1) for i in range(n)]),
+                               device=dev) for t in range(steps)]
+    enc = ts.BatchedEncoder(n, s_cfg, dev, kf_offsets=offsets)
+    s_payloads = [[p for p, _ in enc.encode(f)] for f in batches]
+    del enc
+
+    def serve_decode():
+        dec = ts.BatchedDecoder(n, s_cfg, dev)
+        for step in s_payloads:
+            dec.decode(step, device_out=True)
+        dec.validate()
+
+    calls = captured(serve_decode)
+    one_call("serving scroll step", calls[0])
+    one_call("serving typing step", calls[1])
+    del calls
+    serve_decode()
+    for r in range(1, 4):
+        out[f"serving session decode {r} (5 steps), ms"] = 1e3 * host_s(serve_decode)
 
 
 def serving(out: dict, dev, synth_screencast):
@@ -560,7 +678,7 @@ def main() -> int:
         print(json.dumps({"run": tag, "card": smi, **res}), flush=True)
     print(f"\nms (us or stream-frames/s where the name says so) on {smi}; columns: "
           + " | ".join(tag for tag, _ in results))
-    for group in ("k1", "k1_probe", "k3", "k4", "serving", "session", "analysis"):
+    for group in ("k1", "k1_probe", "k3", "k4", "serving", "session", "analysis", "rebuild"):
         names = []
         for _, res in results:
             names += [nm for nm in res[group] if nm not in names]
