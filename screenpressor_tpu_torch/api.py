@@ -24,6 +24,7 @@ import torch
 
 from screenpressor_tpu_torch import bitstream as bs
 from screenpressor_tpu_torch import colorspace as cs
+from screenpressor_tpu_torch import telemetry
 from screenpressor_tpu_torch.codec import TorchDecoder, TorchEncoder
 from screenpressor_tpu_torch.config import ALG_P, SPTC_VERSION_NIBBLE, CodecConfig
 
@@ -166,9 +167,11 @@ class Encoder:
             if loss != self.cfg.loss:
                 self.cfg = dataclasses.replace(self.cfg, loss=loss)
                 self._session.cfg = self.cfg
-        internal = self._adapter.to_internal(frame)
-        data, ftype = self._session.encode(internal, force_key=force_key)
-        data = self._with_format_prefix(data, ftype)
+        with telemetry.span("sptc.api.encode", unit=self.frames_encoded):
+            with telemetry.span("sptc.api.encode.convert"):
+                internal = self._adapter.to_internal(frame)
+            data, ftype = self._session.encode(internal, force_key=force_key)
+            data = self._with_format_prefix(data, ftype)
         self.frames_encoded += 1
         self.bytes_out += len(data)
         return data, ftype
@@ -189,10 +192,12 @@ class Encoder:
         """Encode a list of frames through the session's batched path (a
         fixed number of device-to-host copies per batch). Returns a list of
         (payload, ftype)."""
-        internals = [self._adapter.to_internal(f) for f in frames]
-        results = self._session.encode_batch(internals, force_key=force_key)
-        if self.fmt.pixel_format is not PixelFormat.RGB24:
-            results = [(self._with_format_prefix(d, t), t) for d, t in results]
+        with telemetry.span("sptc.api.encode", unit=self.frames_encoded):
+            with telemetry.span("sptc.api.encode.convert"):
+                internals = [self._adapter.to_internal(f) for f in frames]
+            results = self._session.encode_batch(internals, force_key=force_key)
+            if self.fmt.pixel_format is not PixelFormat.RGB24:
+                results = [(self._with_format_prefix(d, t), t) for d, t in results]
         for data, _ in results:
             self.frames_encoded += 1
             self.bytes_out += len(data)
@@ -237,6 +242,7 @@ class Decoder:
         # crash latch: a failed decode poisons the instance until the next
         # keyframe (reference `crashed`, `screencap.cpp:1621-1710`)
         self.crashed = False
+        self.frames_decoded = 0
 
     def _strip_format_prefix(self, data: bytes) -> bytes:
         """Consume a leading format-extension chunk, reconfiguring this
@@ -274,20 +280,27 @@ class Decoder:
         return self._legacy.decode(data)
 
     def decode(self, data: bytes):
-        if self.crashed and (not data or (data[0] & 0x0F) == ALG_P):
-            raise bs.CorruptStreamError("decoder poisoned; keyframe required")
-        try:
-            frame = self._decode_one(data)
-        except Exception:
-            self.crashed = True
-            raise
-        self.crashed = False
-        return self._adapter.from_internal(frame)
+        with telemetry.span("sptc.api.decode", unit=self.frames_decoded):
+            if self.crashed and (not data or (data[0] & 0x0F) == ALG_P):
+                raise bs.CorruptStreamError("decoder poisoned; keyframe required")
+            try:
+                frame = self._decode_one(data)
+            except Exception:
+                self.crashed = True
+                raise
+            self.crashed = False
+            self.frames_decoded += 1
+            with telemetry.span("sptc.api.decode.convert"):
+                return self._adapter.from_internal(frame)
 
     def decode_batch(self, datas, device_out: bool = False):
         """Decode a list of payloads with one deferred validity copy per
         batch. device_out=True returns device-resident frames (RGB24 only)
         without pulling them to the host."""
+        with telemetry.span("sptc.api.decode", unit=self.frames_decoded):
+            return self._decode_batch(datas, device_out)
+
+    def _decode_batch(self, datas, device_out):
         if device_out and self.fmt.pixel_format is not PixelFormat.RGB24:
             raise ValueError("device_out requires RGB24")
         if self.crashed and datas and (not datas[0] or (datas[0][0] & 0x0F) == ALG_P):
@@ -323,13 +336,15 @@ class Decoder:
             self.crashed = True
             raise
         self.crashed = False
+        self.frames_decoded += len(datas)
         if fmts and fmts[-1] != self.fmt:
             self.fmt = fmts[-1]
             self._adapter = _FormatAdapter(fmts[-1])
         if device_out:
             return frames
-        return [
-            (_FormatAdapter(f).from_internal(fr) if f != self.fmt
-             else self._adapter.from_internal(fr))
-            for f, fr in zip(fmts, frames)
-        ]
+        with telemetry.span("sptc.api.decode.convert"):
+            return [
+                (_FormatAdapter(f).from_internal(fr) if f != self.fmt
+                 else self._adapter.from_internal(fr))
+                for f, fr in zip(fmts, frames)
+            ]

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from screenpressor_tpu_torch import telemetry
 from screenpressor_tpu_torch.config import (
     BLOCK,
     BT_FULL_DATA,
@@ -310,17 +311,19 @@ def analyze_compact_streams(frames: torch.Tensor, prevs: torch.Tensor,
     of pixel (0, 0)."""
     _, h, w, _ = frames.shape
     nbx, nby = cfg.nbx, cfg.nby
-    changed, rects, choice, flat_blk = analyze_blocks_streams(frames, prevs, cands, 0, nby)
-    n_cand = cands.shape[0]
-    found = changed & (choice < n_cand)
-    if n_cand:
-        mvs = cands[choice.clamp(0, n_cand - 1).long()]
-    else:
-        mvs = torch.zeros(changed.shape + (2,), dtype=I32, device=frames.device)
-    bts = block_types_from(changed, found, rects, nbx, h, w)
-    bt, sxy, mv, data_rects, counts = compact_block_records(
-        bts, rects, mvs, nbx, next_pow2(nbx * nby))
-    flat = torch.cat([flat_blk.all(dim=1).to(I32)[:, None], frames[:, 0, 0].to(I32)], dim=1)
+    with telemetry.span("sptc.blocks.analysis"):
+        changed, rects, choice, flat_blk = analyze_blocks_streams(frames, prevs, cands, 0, nby)
+        n_cand = cands.shape[0]
+        found = changed & (choice < n_cand)
+        if n_cand:
+            mvs = cands[choice.clamp(0, n_cand - 1).long()]
+        else:
+            mvs = torch.zeros(changed.shape + (2,), dtype=I32, device=frames.device)
+        bts = block_types_from(changed, found, rects, nbx, h, w)
+        with telemetry.span("sptc.blocks.compact"):
+            bt, sxy, mv, data_rects, counts = compact_block_records(
+                bts, rects, mvs, nbx, next_pow2(nbx * nby))
+        flat = torch.cat([flat_blk.all(dim=1).to(I32)[:, None], frames[:, 0, 0].to(I32)], dim=1)
     arrs = {"bt": bt, "sxy": sxy, "mv": mv, "data_rects": data_rects}
     return arrs, counts, flat
 

@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from screenpressor_tpu_torch import telemetry
 from screenpressor_tpu_torch.config import (
     COL_COMPACT_BUCKETS,
     COLOR_CTX_ROWS,
@@ -531,7 +532,8 @@ def color_compact_streams(recs: torch.Tensor, lens: torch.Tensor, bm: torch.Tens
     rows = _col_rows_exact(recs, lens)
     slots = lut.gather(1, rows.reshape(c, -1).long()).reshape(rows.shape)
     recs_c = torch.cat([recs.to(I32), slots], dim=-1)
-    st = torch.as_tensor(sidx, device=dev).long()
+    with telemetry.sync("coder.color_compact"):
+        st = torch.as_tensor(sidx, device=dev).long()
     src = torch.where(valid, perm, 0)  # filler reads row 0 (never indexed)
     ctab_c = {"cnt": ctab_b["cnt"][st[:, None], src],
               "cntsum": ctab_b["cntsum"][st[:, None], src]}

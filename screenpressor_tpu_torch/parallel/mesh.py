@@ -38,6 +38,7 @@ import torch
 
 from screenpressor_tpu_torch import bitstream as bs
 from screenpressor_tpu_torch import coder as tc
+from screenpressor_tpu_torch import telemetry
 from screenpressor_tpu_torch.blocks import (
     analyze_blocks_streams,
     block_types_from,
@@ -157,10 +158,9 @@ def _on(device):
 
 
 def _stage(name: str):
-    """A profiler range labelling one stage of the sp pipelines ("sp " +
-    name): free when no profiler is attached; a trace's device time under
-    it is the stage's."""
-    return torch.profiler.record_function("sp " + name)
+    """The span of one stage of the sp pipelines ("sptc.sp." + name,
+    `telemetry.span`): recorded only while a profiler collects."""
+    return telemetry.span("sptc.sp." + name)
 
 
 def _part(x, index, device) -> torch.Tensor:
@@ -182,7 +182,8 @@ def _rows(frame, r0: int, r1: int, rows: int, device) -> torch.Tensor:
 
 def _host_bytes(frame) -> bytes:
     if isinstance(frame, torch.Tensor):
-        frame = frame.cpu().numpy()
+        with telemetry.sync("mesh.host_bytes"):
+            frame = frame.cpu().numpy()
     return np.ascontiguousarray(frame, np.uint8).tobytes()
 
 
@@ -448,7 +449,8 @@ def decode_i_sp(data: bytes, mesh: Mesh, cfg: CodecConfig, tables=None):
     if alg == ALG_FLAT:
         if len(data) < 4:
             raise bs.CorruptStreamError("truncated flat frame")
-        color = torch.tensor(list(data[1:4]), dtype=torch.uint8, device=home)
+        with telemetry.sync("mesh.decode_i.flat"):
+            color = torch.tensor(list(data[1:4]), dtype=torch.uint8, device=home)
         return color.expand(h, w, 3).contiguous(), tables
     if alg != ALG_I:
         raise bs.CorruptStreamError("decode_i_sp expects a coded I frame")
@@ -457,7 +459,9 @@ def decode_i_sp(data: bytes, mesh: Mesh, cfg: CodecConfig, tables=None):
         frame, total, tables = decode_i_device(
             tc.upload(pay_rec, home), tc.upload(pay_col, home), n_rec, n_lit,
             renew_tables_cached(home), cfg)
-        if int(total) != w * h:
+        with telemetry.sync("mesh.decode_i.check"):
+            tiled = int(total) == w * h
+        if not tiled:
             raise bs.CorruptStreamError("records do not tile frame")
     return frame, tables
 
@@ -468,7 +472,8 @@ def decode_i_sp(data: bytes, mesh: Mesh, cfg: CodecConfig, tables=None):
 
 
 def _cands(cfg: CodecConfig, device) -> torch.Tensor:
-    return torch.tensor(mv_candidates(cfg), dtype=I32, device=device).reshape(-1, 2)
+    with telemetry.sync("mesh.cands"):
+        return torch.tensor(mv_candidates(cfg), dtype=I32, device=device).reshape(-1, 2)
 
 
 def _analyze_shard(full_f, full_p, cands, i: int, h_loc: int, cfg: CodecConfig):
@@ -561,8 +566,10 @@ def encode_p_sp(frame, prev, mesh: Mesh, cfg: CodecConfig, tables: dict):
                 if i:
                     f_loc = torch.cat([halos_f[i][None], f_loc])
                     p_loc = torch.cat([halos_p[i][None], p_loc])
-                    r = r - torch.tensor([0, i * h_loc - 1, 0, i * h_loc - 1], dtype=I32,
-                                         device=dev)
+                    with telemetry.sync("mesh.rect_shift"):
+                        shift = torch.tensor([0, i * h_loc - 1, 0, i * h_loc - 1], dtype=I32,
+                                             device=dev)
+                    r = r - shift
                 pix, lit, cnt, _bm, _off = classify_assemble_streams(
                     f_loc[None], p_loc[None], r[None], [nd])
             pix_ch.append(pix)
@@ -609,7 +616,8 @@ def decode_p_sp(data: bytes, prev, mesh: Mesh, cfg: CodecConfig, tables: dict):
     with _on(home), _stage("decode"):
         frame, err, tables = decode_p_device(payloads_to_device(payloads, home), ns, kts,
                                              xx1, xx2, n_data, prev, tables, cfg)
-        err = int(err)
+        with telemetry.sync("mesh.decode_p.check"):
+            err = int(err)
     if err:
         raise_p_error(err)
     return frame, tables

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from screenpressor_tpu_torch import bitstream as bs
+from screenpressor_tpu_torch import telemetry
 from screenpressor_tpu_torch.config import ALG_FLAT, ALG_I, ALG_P, ALG_RAW, CodecConfig
 from screenpressor_tpu_torch import coder as tc
 from screenpressor_tpu_torch.blocks import analyze_compact_streams, mv_candidates
@@ -53,6 +54,7 @@ from screenpressor_tpu_torch.codec import (
     apply_loss,
     gather_segments_device,
     owned_frames,
+    to_host,
 )
 from screenpressor_tpu_torch.iframe import parse_i_header
 from screenpressor_tpu_torch.pframe import (
@@ -80,8 +82,8 @@ def pull(groups):
     flat = [t for g in groups for t in g]
     if not flat:
         return [[] for _ in groups]
-    raw = torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8)
-                     for t in flat]).cpu().numpy()
+    raw = to_host(torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8)
+                             for t in flat]), "serving.pull")
     out, pos = [], 0
     for g in groups:
         got = []
@@ -228,8 +230,9 @@ class BatchedEncoder:
         if self.groups is not None:
             return
         self.tables_b = renew_tables_streams(n_streams, self.device)
-        self.cands = torch.tensor(mv_candidates(self.cfg), dtype=I32,
-                                  device=self.device).reshape(-1, 2)
+        with telemetry.sync("serving.cands"):
+            self.cands = torch.tensor(mv_candidates(self.cfg), dtype=I32,
+                                      device=self.device).reshape(-1, 2)
 
     def has_prev(self) -> bool:
         """Whether a step has been encoded (P frames can follow)."""
@@ -244,12 +247,17 @@ class BatchedEncoder:
         """Queue the table-free front half of a step (the analysis of the P
         streams, the classification of the I streams) and return a pending
         handle for encode_finish. At most one encode may be pending."""
+        step = self.fn
+        with telemetry.span("sptc.serve.encode_begin", unit=step):
+            return step, self._begin(frames, force_key)
+
+    def _begin(self, frames, force_key):
         if self.groups is not None:
             self.fn += 1
             pend = []
             for g, sl in self.groups:
                 with on_device(g.device):
-                    pend.append(g.encode_begin(_to_group(frames, g.device, sl), force_key))
+                    pend.append(g._begin(_to_group(frames, g.device, sl), force_key))
             return pend
         self.take_flat()
         cfg = self.cfg
@@ -266,9 +274,10 @@ class BatchedEncoder:
         # the P stage first: each round resumes the stages in this order
         stages = []
         if (~key_mask).any() and self.prev is not None:
-            stages.append(self._p_stages(frames, self.prev, np.nonzero(~key_mask)[0]))
+            stages.append(("sptc.serve.encode.p",
+                           self._p_stages(frames, self.prev, np.nonzero(~key_mask)[0])))
         if key_mask.any():
-            stages.append(self._i_stages(frames, np.nonzero(key_mask)[0]))
+            stages.append(("sptc.serve.encode.i", self._i_stages(frames, np.nonzero(key_mask)[0])))
         pend = self._prime(stages)
         self.prev = frames
         return pend
@@ -276,11 +285,16 @@ class BatchedEncoder:
     def encode_finish(self, pend):
         """Run a pending step to the end: the host copies, the section
         launches and the container assembly. Returns the encode() list."""
+        step, pend = pend
+        with telemetry.span("sptc.serve.encode_finish", unit=step):
+            return self._finish(pend)
+
+    def _finish(self, pend):
         if self.groups is not None:
             outs = []
             for (g, _), p in zip(self.groups, pend):
                 with on_device(g.device):
-                    outs += g.encode_finish(p)
+                    outs += g._finish(p)
             return outs
         outs = self._drain(*pend)
         return [next((o[i] for o in outs if o[i] is not None), None)
@@ -296,18 +310,21 @@ class BatchedEncoder:
 
     @staticmethod
     def _prime(stages):
-        """Run each stage to its first request (device work only)."""
-        stages = list(stages)
+        """Run each stage (span name, generator) to its first request
+        (device work only)."""
+        names = [name for name, _ in stages]
+        stages = [st for _, st in stages]
         outs, reqs = [None] * len(stages), [[] for _ in stages]
         for j, st in enumerate(stages):
             try:
-                reqs[j] = st.send(None)
+                with telemetry.span(names[j]):
+                    reqs[j] = st.send(None)
             except StopIteration as e:
                 outs[j], stages[j] = e.value, None
-        return stages, reqs, outs
+        return names, stages, reqs, outs
 
     @staticmethod
-    def _drain(stages, reqs, outs):
+    def _drain(names, stages, reqs, outs):
         """Advance primed stages to the end, one host copy per round."""
         while any(st is not None for st in stages):
             got = pull([r if st is not None else [] for st, r in zip(stages, reqs)])
@@ -315,7 +332,8 @@ class BatchedEncoder:
                 if st is None:
                     continue
                 try:
-                    reqs[j] = st.send(got[j])
+                    with telemetry.span(names[j]):
+                        reqs[j] = st.send(got[j])
                 except StopIteration as e:
                     outs[j], stages[j], reqs[j] = e.value, None, []
         return outs
@@ -335,7 +353,8 @@ class BatchedEncoder:
         """I-encode the streams `own`; other entries stay None and their
         state is untouched."""
         cfg, k = self.cfg, self.cfg.k_fixed
-        own_t = torch.as_tensor(own, device=self.device)
+        with telemetry.sync("serving.i_ids"):
+            own_t = torch.as_tensor(own, device=self.device)
         fr = frames[own_t]
         cls = classify_i_streams(fr)
         bms = [tc.color_touched_bitmap(lits, n_lit) for _, _, lits, n_lit in cls]
@@ -352,6 +371,7 @@ class BatchedEncoder:
         for j, i in enumerate(own):
             if ch[j, 2]:
                 out[i], renew[i] = self._flat(i, ch[j, 3:6])
+                telemetry.count("frames.flat")
             else:
                 self.last_flat[i] = False
                 coded.append(j)
@@ -360,6 +380,7 @@ class BatchedEncoder:
         if not coded:
             return out
         ids = [int(own[j]) for j in coded]
+        telemetry.count("frames.I", len(ids))
         n_rec = [int(ch[j, 0]) for j in coded]
         n_lit = [int(ch[j, 1]) for j in coded]
         npx = cfg.height * cfg.width
@@ -414,10 +435,12 @@ class BatchedEncoder:
         for j, i in enumerate(own):
             if ch[j, 7]:
                 out[i], renew[i] = self._flat(i, ch[j, 8:11])
+                telemetry.count("frames.flat")
                 continue
             self.last_flat[i] = False
             if not ch[j, 0]:
                 out[i] = (bytes([bs.header_byte(ALG_P), 0]), FTYPE_P)
+                telemetry.count("frames.unchanged")
                 continue
             active.append(j)
         renew_rows(self.tables_b, renew)
@@ -427,6 +450,8 @@ class BatchedEncoder:
         # data blocks of the active streams: one classification + touched rows
         n_data = np.zeros(len(own), np.int64)
         n_data[active] = ch[active, 6]
+        telemetry.count("blocks.data", n_data.sum())
+        telemetry.count("blocks.motion", ch[active, 5].sum())
         if n_data.any():
             pix, lit, plc_d, bms, roff = classify_assemble_streams(
                 frames_o, prevs_o, arrs["data_rects"], n_data)
@@ -469,6 +494,8 @@ class BatchedEncoder:
                                 + int(sz[r].sum()) for sz in sizes)
                   for r, hd in enumerate(hdrs)]
         is_raw = [t >= 1 + w * h * 3 for t in totals]
+        telemetry.count("frames.raw", sum(is_raw))
+        telemetry.count("frames.P", len(is_raw) - sum(is_raw))
         raw_mask = np.zeros(self.s, bool)
         raw_mask[[i for i, raw in zip(ids, is_raw) if raw]] = True
         renew_rows(self.tables_b, raw_mask)
@@ -527,6 +554,7 @@ class BatchedDecoder:
         self.last_flat = np.zeros(n_streams, bool)
         self.flat_color = np.zeros((n_streams, 3), np.uint8)
         self._pending_err = None  # (device error words [S] or [F, S], P mask)
+        self.fn = 0  # steps decoded
         if split is None:
             self.tables_b = renew_tables_streams(n_streams, self.device)
 
@@ -534,28 +562,37 @@ class BatchedDecoder:
         """payloads: S frame byte strings -> [S, H, W, 3] frames (numpy, or
         the device tensor with device_out, whose stream check is then
         deferred to the next decode() / validate())."""
+        step, self.fn = self.fn, self.fn + 1
+        with telemetry.span("sptc.serve.decode", unit=step):
+            return self._decode(payloads, device_out)
+
+    def _decode(self, payloads, device_out):
         self.validate()
         assert len(payloads) == self.s
         if self.groups is not None:
             outs = []
             for g, sl in self.groups:
                 with on_device(g.device):
-                    outs.append(g.decode(payloads[sl], device_out=True))
+                    outs.append(g._decode(payloads[sl], device_out=True))
             if device_out:
                 return torch.cat([o.to(self.device) for o in outs])
             self.validate()
-            return np.concatenate([o.cpu().numpy() for o in outs])
-        plan, host = self._parse(payloads, lambda i: f"stream {self.base + i}")
-        frames, err = self._run(plan, upload_all(host, self.device))
+            return np.concatenate([to_host(o, "serving.decode.pull") for o in outs])
+        with telemetry.span("sptc.serve.decode.parse"):
+            plan, host = self._parse(payloads, lambda i: f"stream {self.base + i}")
+        with telemetry.span("sptc.serve.decode.upload"):
+            dev = upload_all(host, self.device)
+        with telemetry.span("sptc.serve.decode.run"):
+            frames, err = self._run(plan, dev)
         if plan["checked"]:
             if device_out:
                 self._pending_err = (err, plan["p_mask"])
             else:
-                self._raise_errs(err.cpu().numpy(), plan["p_mask"])
+                self._raise_errs(to_host(err, "serving.decode.check"), plan["p_mask"])
         # the caller may write into what it gets: never hand out prev itself
         # (.cpu() of a CUDA tensor is a copy already)
         out = frames.clone() if device_out or not frames.is_cuda else frames
-        return out if device_out else out.cpu().numpy()
+        return out if device_out else to_host(out, "serving.decode.pull")
 
     def _parse(self, payloads, where, have_prev=None):
         """The host half of a step: parse and check every payload (a
@@ -698,7 +735,7 @@ class BatchedDecoder:
             g.validate()
         pend, self._pending_err = self._pending_err, None
         if pend is not None:
-            self._raise_errs(pend[0].cpu().numpy(), pend[1])
+            self._raise_errs(to_host(pend[0], "serving.validate"), pend[1])
 
 
 def _stack_payloads(pays) -> np.ndarray:

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from screenpressor_tpu_torch import bitstream as bs
+from screenpressor_tpu_torch import telemetry
 from screenpressor_tpu_torch.config import (
     ALG_P,
     BLOCK,
@@ -461,7 +462,8 @@ def step_layout_from(dev: torch.Tensor, rest) -> StepLayout:
 def step_layout(rows, device) -> StepLayout:
     """rows: C header rows (header_row) -> StepLayout, in one upload."""
     host, rest = step_layout_host(rows)
-    return step_layout_from(torch.as_tensor(host, device=device), rest)
+    with telemetry.sync("pframe.step_layout"):
+        return step_layout_from(torch.as_tensor(host, device=device), rest)
 
 
 def undeal_sections_streams(recs_l, lay: StepLayout, kts) -> dict:
@@ -758,7 +760,8 @@ def rebuild_p_streams(recs: dict, lay: StepLayout, prev: torch.Tensor, cfg: Code
     W]}) against their previous frames prev [C, h, w, 3] -> (frames
     [C, h, w, 3] uint8, err [C] int32)."""
     c, h, w, _ = prev.shape
-    parts, err = decode_p_resolve_streams(recs, lay, cfg)
+    with telemetry.span("sptc.pframe.resolve"):
+        parts, err = decode_p_resolve_streams(recs, lay, cfg)
     mo_rects, mo_mvs, d_rects, pt, rlg, lt = parts
     out = apply_motion_streams(prev, mo_rects, mo_mvs, lay.msid)
     out = reconstruct_blocks_streams(out, prev, d_rects, lay.bsid, pt, rlg, lt)
@@ -808,5 +811,9 @@ def raise_p_error(err: int):
 
 
 def payloads_to_device(payloads: dict, device) -> dict:
-    return {name: torch.as_tensor(np.ascontiguousarray(p), device=device)
-            for name, p in payloads.items()}
+    """A P frame's section payloads on `device`: one blocking upload each."""
+    out = {}
+    for name, p in payloads.items():
+        with telemetry.sync("pframe.payloads_to_device"):
+            out[name] = torch.as_tensor(np.ascontiguousarray(p), device=device)
+    return out

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from screenpressor_tpu_torch import telemetry
 from screenpressor_tpu_torch.config import (
     MIX_ESC_C,
     PROB_SCALE,
@@ -164,7 +165,8 @@ def renew_rows(tables_b: dict, mask) -> None:
     fresh = renew_tables_cached(next(iter(tables_b["color"].values())).device)
     for kd, tab in tables_b.items():
         for key, v in tab.items():
-            v[idx] = fresh[kd][key]
+            with telemetry.sync("tables.renew_rows"):  # the index list goes up
+                v[idx] = fresh[kd][key]
 
 
 def renew_rows_at(tables_b: dict, idx: torch.Tensor, mask=None) -> None:

@@ -362,9 +362,10 @@ def test_encode_p_sp_flat_frame_over_padded_rows(sp):
 
 
 def test_sp_stages_are_labelled():
-    """Each stage of the sp pipelines runs under its own profiler range
-    ("sp <stage>"), which sp_stage_ms reads (device times there: 0 on the
-    CPU); the sessions' bytes and frames are those of the unprofiled run."""
+    """Each stage of the sp pipelines runs under its own program span
+    ("sptc.sp.<stage>", recorded under torch.profiler), which sp_stage_ms
+    reads (device times there: 0 on the CPU); the sessions' bytes and
+    frames are those of the unprofiled run."""
     from screenpressor_tpu_torch.config import CodecConfig
 
     cfg = CodecConfig(width=64, height=64, k_fixed=8, msr_x=16, msr_y=16)

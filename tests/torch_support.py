@@ -172,41 +172,49 @@ def sp_decode(payloads, mesh, cfg):
 
 def sp_stage_ms(fn):
     """(fn(), {stage: ms}): stage_ms over the stages that
-    screenpressor_tpu_torch.parallel.mesh labels ("sp <stage>")."""
-    return stage_ms(fn, "sp ")
+    screenpressor_tpu_torch.parallel.mesh records as program spans
+    ("sptc.sp.<stage>")."""
+    return stage_ms(fn, "sptc.sp.")
 
 
 def stage_ms(fn, prefix):
-    """(fn(), {stage: ms}): fn run under torch.profiler; for each
-    record_function range named `prefix + stage`, the device time of the
-    kernels and copies launched while its range was open on the host,
-    summed over its calls. A device event belongs to the host launch call
-    (cudaLaunchKernel, cudaMemcpyAsync, ...) with its correlation id; the
-    launch's host time places it in a range. The kernels of ctypes
-    launches are joined to no PyTorch op, so the ranges' own device totals
-    miss them. Without a CUDA device the times are 0."""
+    """(fn(), {stage: ms}): fn run under torch.profiler; for each stage, a
+    record_function range or a program span (`telemetry.span`) named
+    `prefix + stage`, the device time of the kernels and copies launched
+    while it was open on the host, summed over its calls. A device event
+    belongs to the host launch call (cudaLaunchKernel, cudaMemcpyAsync,
+    ...) with its correlation id; the launch's host time places it in a
+    range (program spans keep the clock of the profiler's host events).
+    The kernels of ctypes launches are joined to no PyTorch op, so the
+    ranges' own device totals miss them. Without a CUDA device the times
+    are 0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from screenpressor_tpu_torch import telemetry
+
     cuda = torch.cuda.is_available()
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    first = len(telemetry.spans())
     with profile(activities=acts) as prof:
         out = fn()
         for i in range(torch.cuda.device_count() if cuda else 0):
             torch.cuda.synchronize(i)
-    events = prof.events()
-    ranges = [(e.time_range.start, e.time_range.end, e.name[len(prefix):]) for e in events
-              if e.device_type == DeviceType.CPU and e.name.startswith(prefix)]
-    launched = {e.id: e.time_range.start for e in events
-                if e.device_type == DeviceType.CPU and e.name.startswith("cu")}
+    events = list(prof.profiler.kineto_results.events())
+    cpu = [e for e in events if e.device_type() == DeviceType.CPU]
+    ranges = [(e.start_ns(), e.end_ns(), e.name()[len(prefix):]) for e in cpu
+              if e.name().startswith(prefix)]
+    ranges += [(s.start_ns, s.end_ns, s.name[len(prefix):]) for s in telemetry.spans()[first:]
+               if s.name.startswith(prefix)]
+    launched = {e.correlation_id(): e.start_ns() for e in cpu if e.name().startswith("cu")}
     ms = {name: 0.0 for _, _, name in ranges}
     for e in events:
-        at = launched.get(e.id)
-        if e.device_type != DeviceType.CUDA or e.is_user_annotation or at is None:
+        at = launched.get(e.correlation_id())
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation() or at is None:
             continue
         for lo, hi, name in ranges:
             if lo <= at <= hi:
-                ms[name] += (e.time_range.end - e.time_range.start) / 1e3
+                ms[name] += e.duration_ns() / 1e6
     return out, ms
 
 
