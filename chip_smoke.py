@@ -80,10 +80,11 @@ Phases, each printed with its seconds:
      channel cut to its mask), device and host frames again, whose bytes
      must equal TorchEncoder's over the port's numpy rgb16_to_rgb24 (with
      the prefix on keyframes), decoded back to the uint16 frames. Every
-     single-stream kernel must appear in the phase's launch counts; its
-     Mpix/s print beside phase 4's RGB24 session, then (not counted) the
-     host numpy and the card's torch conversions over the 64 frames and an
-     RGB24 API session with host frames in and out;
+     single-stream kernel must appear in the phase's launch counts, K7
+     once a RGB32 batch and direction; its Mpix/s print beside phase 4's
+     RGB24 session, then (not counted) the host numpy and the card's torch
+     conversions over the 64 frames, K7 both ways over them against its
+     bound, and an RGB24 API session with host frames in and out;
   9. the sp mesh (screenpressor_tpu_torch.parallel.mesh) with its shards
      on the one card (devices=[cuda] * sp, printed as such): the 8-frame
      4K synth_screencast session through encode_i_sp / encode_p_sp at sp
@@ -1269,10 +1270,14 @@ def session_api(t0, dev, smi, frames, cfg, pinned, rgb24_rates):
     print(f"session API launches: {launches}")
     single = ("sptc_sections_encode", "sptc_sections_encode_colw", "sptc_sections_decode",
               "sptc_run_walk", "sptc_recon_rows", "sptc_analyze_blocks",
-              "sptc_rebuild_blocks")
+              "sptc_rebuild_blocks", "sptc_rgb32_to_rgb24", "sptc_rgb24_to_rgb32")
     missing = [k for k in single if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the session API: {missing}")
+    # K7: one launch a batch and direction (host and device RGB32 frames
+    # in, the RGB32 decode out)
+    if (launches["sptc_rgb32_to_rgb24"], launches["sptc_rgb24_to_rgb32"]) != (2, 1):
+        raise AssertionError(f"K7 launches {launches}: 2 encode batches and 1 decode expected")
     phase("session API", t0)
 
     if p32d != p32h:
@@ -1345,6 +1350,38 @@ def session_api(t0, dev, smi, frames, cfg, pinned, rgb24_rates):
         conv.append(f"{tag} {ms:.3f} ms")
     print(f"torch conversions on the card over {len(frames)} frames (CUDA events, mean of 3): "
           f"{', '.join(conv)} on {smi}")
+    # K7 at the main path's shapes: the 64 frames one way and back, 7 B a
+    # pixel moved. The kernel: its C launches alone on outputs made and
+    # frame pointers uploaded beforehand, device time from a CUDA graph
+    # (graph_ms); the wrapper (outputs made and pointers uploaded a call):
+    # CUDA events over 20 queued calls after a warm-up.
+    batch32 = torch.stack(d32)
+    outs24 = [torch.empty_like(f) for f in d24]
+    out32 = torch.empty_like(batch32)
+    ptrs24 = torch.tensor([f.data_ptr() for f in outs24], dtype=torch.int64, device=dev)
+    ptrs_in = torch.tensor([f.data_ptr() for f in d24], dtype=torch.int64, device=dev)
+    n = len(frames)
+    k7 = []
+    for tag, launch, wrapper in (
+            ("rgb32_to_rgb24",
+             lambda: _build.launch("sptc_rgb32_to_rgb24", batch32.data_ptr(), ptrs24.data_ptr(),
+                                   H * W, n, device=dev),
+             lambda: cs.rgb32_to_rgb24_batch(batch32)),
+            ("rgb24_to_rgb32",
+             lambda: _build.launch("sptc_rgb24_to_rgb32", ptrs_in.data_ptr(), out32.data_ptr(),
+                                   H * W, n, device=dev),
+             lambda: cs.rgb24_to_rgb32_batch(d24))):
+        ms = graph_ms(launch, 5)
+        wms, _ = cuda_ms(wrapper, 20)
+        bms, by = bound(7 * H * W * n, 0)
+        k7.append(f"{tag} {ms:.4f} ms (bound {bms:.4f} ms by {by}, {100 * bms / ms:.1f} % of "
+                  f"it; wrapper {wms:.4f} ms)")
+    if not all(torch.equal(a, b) for a, b in zip(outs24, cs.rgb32_to_rgb24_batch(batch32))):
+        raise AssertionError("K7 rgb32_to_rgb24: the timed launches' frames differ")
+    if not torch.equal(out32, cs.rgb24_to_rgb32_batch(d24)):
+        raise AssertionError("K7 rgb24_to_rgb32: the timed launches' batch differs")
+    print(f"K7 over {n} frames at {W}x{H}: {'; '.join(k7)} on {smi}")
+    del batch32, outs24, out32
     enc24, dec24 = Encoder(cfg, device=dev), Decoder(cfg, device=dev)
     p24, te24 = timed(enc24.encode_batch, frames)
     _, td24 = timed(dec24.decode_batch, [p for p, _ in p24])

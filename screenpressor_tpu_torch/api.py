@@ -6,9 +6,15 @@ quality->loss mapping, `screenpressor.cpp:392-439`). Pixel formats RGB16
 (arbitrary masks), RGB24, RGB32 are converted to/from internal RGB24 planes.
 
 The sessions run on `TorchEncoder` / `TorchDecoder` on `device` ("cuda"
-unless the caller asks for the CPU). A torch frame stays on its device: its
-format conversion runs as torch ops there; a numpy frame is converted in
-numpy and uploaded once. The encoder writes SPTC only. The decoder routes
+unless the caller asks for the CPU). RGB32 frames are converted a batch at
+a time where the session runs: a batch's frames go as they are into one
+staging buffer there (host frames through the session's page-locked
+buffer when that is a card) and one conversion (K7 on a card) drops alpha
+into the session's own RGB24 frames; a decoded batch gets alpha from one
+conversion into one buffer, which leaves a card in one copy, and the
+caller gets an array of its own a frame. An RGB16 torch frame stays on its
+device and is converted by torch ops there, a numpy one in numpy. The
+encoder writes SPTC only. The decoder routes
 frames of the reference's SCPR v2/v3/v4 formats (another version nibble) to
 an injected `legacy` factory, `version -> session` with `.decode(bytes) ->
 [H, W, 3] uint8`; without one such a frame raises `BadVersionError`.
@@ -25,7 +31,7 @@ import torch
 from screenpressor_tpu_torch import bitstream as bs
 from screenpressor_tpu_torch import colorspace as cs
 from screenpressor_tpu_torch import telemetry
-from screenpressor_tpu_torch.codec import TorchDecoder, TorchEncoder
+from screenpressor_tpu_torch.codec import ReusedBuffer, TorchDecoder, TorchEncoder
 from screenpressor_tpu_torch.config import ALG_P, SPTC_VERSION_NIBBLE, CodecConfig
 
 
@@ -113,10 +119,6 @@ class _FormatAdapter:
             if not isinstance(frame, np.ndarray):
                 return frame  # device-resident frame: pass through untouched
             return np.ascontiguousarray(frame, np.uint8)
-        if pf is PixelFormat.RGB32:
-            if frame.ndim != 3 or frame.shape[2] != 4:
-                raise ValueError("RGB32 frame must be [H, W, 4]")
-            return cs.rgb32_to_rgb24_any(frame)
         if frame.ndim != 2 or not _is_uint16(frame):
             raise ValueError("RGB16 frame must be [H, W] uint16")
         return cs.rgb16_to_rgb24_any(
@@ -127,9 +129,32 @@ class _FormatAdapter:
         if pf is PixelFormat.RGB24:
             return frame
         if pf is PixelFormat.RGB32:
-            return cs.rgb24_to_rgb32_any(frame)
+            # an RGB24 host frame of a legacy session or of a batch that
+            # changes format: the batch conversion's host version
+            return cs.rgb24_to_rgb32_batch([torch.from_numpy(frame)])[0].numpy()
         return cs.rgb24_to_rgb16_any(
             frame, self.fmt.rmask, self.fmt.gmask, self.fmt.bmask)
+
+
+def _on_card(frame) -> bool:
+    return isinstance(frame, torch.Tensor) and frame.device.type == "cuda"
+
+
+def _host_tensor(frame: np.ndarray) -> torch.Tensor:
+    """A numpy frame as a CPU tensor over its memory, so that one torch copy
+    (on torch's CPU threads) takes its bytes; a copy of it where torch
+    cannot view it (negative strides, read-only memory)."""
+    if frame.flags.writeable and all(st >= 0 for st in frame.strides):
+        return torch.from_numpy(frame)
+    return torch.from_numpy(np.array(frame))
+
+
+def _count_converted(on_card: int, on_host: int) -> None:
+    """Count converted frames by where the conversion ran."""
+    if on_card:
+        telemetry.count("api.convert.device_frames", on_card)
+    if on_host:
+        telemetry.count("api.convert.host_frames", on_host)
 
 
 def _format_of(parsed) -> FormatParams:
@@ -158,6 +183,11 @@ class Encoder:
         self.fmt = fmt
         self._adapter = _FormatAdapter(fmt)
         self._session = TorchEncoder(cfg, device)
+        dev = self._session.device
+        # RGB32 frames as they come, [N, H, W, 4] uint8: where the session
+        # runs, and host frames on their way to a card
+        self._staging = ReusedBuffer(dev)
+        self._host = ReusedBuffer() if dev.type == "cuda" else None
         self.frames_encoded = 0
         self.bytes_out = 0
 
@@ -169,12 +199,52 @@ class Encoder:
                 self._session.cfg = self.cfg
         with telemetry.span("sptc.api.encode", unit=self.frames_encoded):
             with telemetry.span("sptc.api.encode.convert"):
-                internal = self._adapter.to_internal(frame)
-            data, ftype = self._session.encode(internal, force_key=force_key)
+                internals, owned = self._to_session([frame])
+            (data, ftype), = self._session.encode_batch(internals, force_key=force_key,
+                                                        owned=owned)
             data = self._with_format_prefix(data, ftype)
         self.frames_encoded += 1
         self.bytes_out += len(data)
         return data, ftype
+
+    def _to_session(self, frames):
+        """The frames as the session takes them, and whether they are the
+        session's own already (the RGB32 conversion's output)."""
+        if self.fmt.pixel_format is PixelFormat.RGB32:
+            return self._rgb32_to_session(frames), True
+        internals = [self._adapter.to_internal(f) for f in frames]
+        if self.fmt.pixel_format is PixelFormat.RGB16:
+            card = sum(map(_on_card, frames))
+            _count_converted(card, len(frames) - card)
+        return internals, False
+
+    def _rgb32_to_session(self, frames):
+        """Each frame's bytes as they are into the staging buffer on the
+        session's device (a host frame bound for a card through the
+        session's page-locked buffer, the upload not waited for), then one
+        conversion of the batch (K7 on a card): N RGB24 frames of the
+        session's own. A host frame's bytes have left it when the call
+        returns, so the caller may refill it. The page-locked buffer is
+        free again by the next call: this call's encode reads its payloads
+        back, which waits on the uploads queued before."""
+        dev = self._session.device
+        shape = (self.cfg.height, self.cfg.width, 4)
+        for f in frames:
+            if tuple(f.shape) != shape:
+                raise ValueError(f"RGB32 frame must be [H, W, 4] = {list(shape)}, "
+                                 f"not {list(f.shape)}")
+        n = len(frames)
+        staging = self._staging.take((n,) + shape)
+        via_host = [dev.type == "cuda" and not _on_card(f) for f in frames]
+        host = self._host.take((n,) + shape) if any(via_host) else None
+        for i, (f, up) in enumerate(zip(frames, via_host)):
+            dst = host[i] if up else staging[i]
+            dst.copy_(f if isinstance(f, torch.Tensor) else _host_tensor(f))
+            if up:
+                staging[i].copy_(dst, non_blocking=True)
+        on_card = dev.type == "cuda"
+        _count_converted(n if on_card else 0, 0 if on_card else n)
+        return cs.rgb32_to_rgb24_batch(staging)
 
     def _with_format_prefix(self, data: bytes, ftype: int) -> bytes:
         """Prefix keyframes with the format-extension chunk for non-RGB24
@@ -194,8 +264,8 @@ class Encoder:
         (payload, ftype)."""
         with telemetry.span("sptc.api.encode", unit=self.frames_encoded):
             with telemetry.span("sptc.api.encode.convert"):
-                internals = [self._adapter.to_internal(f) for f in frames]
-            results = self._session.encode_batch(internals, force_key=force_key)
+                internals, owned = self._to_session(frames)
+            results = self._session.encode_batch(internals, force_key=force_key, owned=owned)
             if self.fmt.pixel_format is not PixelFormat.RGB24:
                 results = [(self._with_format_prefix(d, t), t) for d, t in results]
         for data, _ in results:
@@ -257,14 +327,17 @@ class Decoder:
             self._adapter = _FormatAdapter(fmt)
         return data[pos:]
 
-    def _decode_one(self, data: bytes) -> np.ndarray:
+    def _decode_one(self, data: bytes, rgb32_out: bool = False) -> np.ndarray:
+        """One frame, RGB24; with rgb32_out an SPTC frame of an RGB32 stream
+        comes as RGB32 from the session's batch conversion."""
         if not data:
             raise bs.CorruptStreamError("empty frame")
         data = self._strip_format_prefix(data)
         if not data:
             raise bs.CorruptStreamError("format prefix without frame payload")
         if (data[0] >> 4) == SPTC_VERSION_NIBBLE:
-            return self._session.decode(data)
+            rgb32 = rgb32_out and self.fmt.pixel_format is PixelFormat.RGB32
+            return self._session.decode_batch([data], channels=4 if rgb32 else 3)[0]
         # reference-format SCPR stream
         if self._legacy_factory is None:
             raise bs.BadVersionError(data[0] >> 4)
@@ -279,19 +352,38 @@ class Decoder:
             raise bs.CorruptStreamError("SCPR P-frame before any keyframe")
         return self._legacy.decode(data)
 
+    def _to_caller(self, frames, fmts) -> list:
+        """Frames in the caller's formats: the RGB32 conversion's frames
+        (four channels) and RGB24 frames as they are, the rest through their
+        format's adapter; counted by where they were converted."""
+        out, card, host = [], 0, 0
+        for fr, fmt in zip(frames, fmts):
+            if fr.shape[-1] == 4:
+                where = self._session.device.type == "cuda"
+            elif fmt.pixel_format is PixelFormat.RGB24:
+                out.append(fr)
+                continue
+            else:
+                where = _on_card(fr)
+                fr = (self._adapter if fmt == self.fmt else _FormatAdapter(fmt)).from_internal(fr)
+            card, host = card + where, host + (not where)
+            out.append(fr)
+        _count_converted(card, host)
+        return out
+
     def decode(self, data: bytes):
         with telemetry.span("sptc.api.decode", unit=self.frames_decoded):
             if self.crashed and (not data or (data[0] & 0x0F) == ALG_P):
                 raise bs.CorruptStreamError("decoder poisoned; keyframe required")
             try:
-                frame = self._decode_one(data)
+                frame = self._decode_one(data, rgb32_out=True)
             except Exception:
                 self.crashed = True
                 raise
             self.crashed = False
             self.frames_decoded += 1
             with telemetry.span("sptc.api.decode.convert"):
-                return self._adapter.from_internal(frame)
+                return self._to_caller([frame], [self.fmt])[0]
 
     def decode_batch(self, datas, device_out: bool = False):
         """Decode a list of payloads with one deferred validity copy per
@@ -327,9 +419,11 @@ class Decoder:
             raise ValueError("device_out requires RGB24 (stream carries a format prefix)")
         datas = stripped
         all_sptc = all(d and (d[0] >> 4) == SPTC_VERSION_NIBBLE for d in datas)
+        rgb32 = all_sptc and all(f.pixel_format is PixelFormat.RGB32 for f in fmts)
         try:
             if all_sptc:
-                frames = self._session.decode_batch(datas, device_out=device_out)
+                frames = self._session.decode_batch(datas, device_out=device_out,
+                                                    channels=4 if rgb32 else 3)
             else:
                 frames = [self._decode_one(d) for d in datas]
         except Exception:
@@ -343,8 +437,4 @@ class Decoder:
         if device_out:
             return frames
         with telemetry.span("sptc.api.decode.convert"):
-            return [
-                (_FormatAdapter(f).from_internal(fr) if f != self.fmt
-                 else self._adapter.from_internal(fr))
-                for f, fr in zip(fmts, frames)
-            ]
+            return self._to_caller(frames, fmts)

@@ -19,11 +19,14 @@ for the CPU.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 from screenpressor_tpu_torch import bitstream as bs
 from screenpressor_tpu_torch import telemetry
+from screenpressor_tpu_torch.colorspace import rgb24_to_rgb32_batch
 from screenpressor_tpu_torch.config import ALG_FLAT, ALG_I, ALG_P, ALG_RAW, CodecConfig
 from screenpressor_tpu_torch.blocks import AREA, analyze_compact_streams, mv_candidates
 from screenpressor_tpu_torch.coder import col_compact_bucket, upload
@@ -62,6 +65,42 @@ def to_host(t: torch.Tensor, site: str) -> np.ndarray:
     """t as a numpy array: one device-to-host copy, a host sync at `site`."""
     with telemetry.sync(site):
         return t.cpu().numpy()
+
+
+class ReusedBuffer:
+    """A uint8 buffer that a session reuses call after call and never hands
+    out: on `device`, or page-locked on the host (`device` None), where a
+    copy to or from a card runs at the link's rate. It grows to the largest
+    call. A page-locked block comes from PyTorch's caching host allocator,
+    which rounds it up to a power of two (a 64-frame 1080p RGB32 batch,
+    531 MB, takes 1 GiB) and keeps it for a later session when this one
+    goes."""
+
+    def __init__(self, device=None):
+        self.device = device
+        self._buf = None
+
+    def take(self, shape) -> torch.Tensor:
+        n = math.prod(shape)
+        if self._buf is None or self._buf.numel() < n:
+            self._buf = None  # the old block goes before the new one is made
+            if self.device is None:
+                self._buf = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+            else:
+                self._buf = torch.empty(n, dtype=torch.uint8, device=self.device)
+        return self._buf[:n].view(shape)
+
+
+def own_frames(outs, prev) -> list:
+    """outs with every slot in storage of its own: the caller may write into
+    what it gets, and idle P frames repeat a tensor (their previous frame,
+    or `prev`, which the session keeps)."""
+    seen = {id(prev)}
+    owned = []
+    for o in outs:
+        owned.append(o.clone() if id(o) in seen else o)
+        seen.add(id(o))
+    return owned
 
 
 def _pull(tensors):
@@ -134,13 +173,16 @@ class TorchEncoder:
     def encode(self, frame, force_key: bool = False):
         return self.encode_batch([frame], force_key=force_key)[0]
 
-    def encode_batch(self, frames, force_key: bool = False):
+    def encode_batch(self, frames, force_key: bool = False, owned: bool = False):
         """Encode a list of frames -> list of (payload bytes, ftype),
-        byte-identical to encoding them one by one."""
+        byte-identical to encoding them one by one. owned: the frames are
+        uint8 [H, W, 3] tensors on the session's device, each in storage of
+        its own that nothing else writes (the session API's converted
+        frames), taken without owned_frames' copy."""
         with telemetry.span("sptc.codec.encode", unit=self.fn):
-            return self._encode_batch(frames, force_key)
+            return self._encode_batch(frames, force_key, owned)
 
-    def _encode_batch(self, frames, force_key):
+    def _encode_batch(self, frames, force_key, owned):
         cfg = self.cfg
         h, w = cfg.height, cfg.width
         raw_size = 1 + w * h * 3
@@ -148,7 +190,8 @@ class TorchEncoder:
         if n == 0:
             return []
         with telemetry.span("sptc.codec.encode.upload"):
-            devs = [apply_loss(owned_frames(f, self.device), cfg.loss) for f in frames]
+            devs = [apply_loss(f if owned else owned_frames(f, self.device), cfg.loss)
+                    for f in frames]
         prev_chain = [self.prev] + devs[:-1]
 
         # ---- phase A: analysis of every frame, one pull of the counts ----
@@ -335,20 +378,26 @@ class TorchDecoder:
         self.fn = 0
         self.last_was_flat = False
         self.last_flat_color: tuple | None = None
+        self._host = ReusedBuffer()  # page-locked: a card's decoded batch on its way out
 
     def decode(self, data: bytes) -> np.ndarray:
         return self.decode_batch([data])[0]
 
-    def decode_batch(self, datas, device_out: bool = False):
+    def decode_batch(self, datas, device_out: bool = False, channels: int = 3):
         """Decode a list of frame payloads with one deferred validity copy.
+        Host frames come back as arrays of their own: channels 3 the RGB24
+        frames, 4 the RGB32 frames of the session API (alpha 255, K7 on the
+        card). A card's batch leaves it in one copy.
 
         Stream-consistency violations raise CorruptStreamError after the
         batch's device work is queued; the session state then does not
         advance."""
+        if channels not in (3, 4):
+            raise ValueError(f"channels must be 3 or 4, not {channels}")
         with telemetry.span("sptc.codec.decode", unit=self.fn):
-            return self._decode_batch(datas, device_out)
+            return self._decode_batch(datas, device_out, channels)
 
-    def _decode_batch(self, datas, device_out):
+    def _decode_batch(self, datas, device_out, channels):
         cfg = self.cfg
         h, w = cfg.height, cfg.width
         dev = self.device
@@ -433,11 +482,26 @@ class TorchDecoder:
         self.last_was_flat = last_flat
         self.last_flat_color = last_color
         self.fn += len(datas)
-        # the caller may write into what it gets: never hand out prev itself
-        # (.cpu() of a CUDA tensor is a copy already)
-        if device_out or dev.type == "cpu":
-            outs = [o.clone() if o is prev else o for o in outs]
         if device_out:
-            return outs
+            return own_frames(outs, prev)
+        if not outs:
+            return []
         with telemetry.span("sptc.codec.decode.pull"):
-            return [to_host(o, "codec.decode.pull") for o in outs]
+            return self._pull(outs, prev, channels)
+
+    def _pull(self, outs, prev, channels) -> list:
+        """The decoded frames as host arrays, each of its own, so that a
+        frame the caller keeps holds one frame's bytes. From a card: K7 (or,
+        for RGB24, a stack) writes the batch into one buffer there, which
+        comes into the session's page-locked buffer in one copy, one host
+        sync; each frame is then cloned out of it (torch's copy runs on its
+        CPU threads; numpy's on one)."""
+        if self.device.type == "cpu":
+            if channels == 4:
+                return [rgb24_to_rgb32_batch([o])[0].numpy() for o in outs]
+            return [o.numpy() for o in own_frames(outs, prev)]
+        batch = rgb24_to_rgb32_batch(outs) if channels == 4 else torch.stack(outs)
+        host = self._host.take(batch.shape)
+        with telemetry.sync("codec.decode.pull"):
+            host.copy_(batch)
+        return [f.clone().numpy() for f in host]

@@ -8,7 +8,11 @@
 its plain version is `blocks.analyze_blocks_streams_plain`), and of K6,
 the P decode's data-block rebuild, `csrc/block_rebuild.cu` (the
 reference's `jx/pframe.py` `reconstruct_blocks`, no Pallas site either;
-its plain version is `pframe.reconstruct_blocks_streams_plain`).
+its plain version is `pframe.reconstruct_blocks_streams_plain`), and of
+K7, the session API's RGB32 <-> RGB24 conversion of a batch of frames,
+`csrc/pixels.cu` (the reference's `colorspace.rgb32_to_rgb24_device` /
+`rgb24_to_rgb32_device`, no Pallas site; its plain versions are
+`colorspace.rgb32_to_rgb24_batch` / `rgb24_to_rgb32_batch` on the CPU).
 
 Same contracts as the stream loops of the plain coder in `coder.py`
 (`encode_sections_streams_plain`: `model_scan` + `rans_pack`;
@@ -252,4 +256,48 @@ def rebuild_blocks_streams_kernel(out: torch.Tensor, prev: torch.Tensor, rects: 
         _build.launch("sptc_rebuild_blocks", out.data_ptr(), prev.data_ptr(), rects.data_ptr(),
                       bsid.data_ptr(), ptypes.data_ptr(), rlens.data_ptr(), lits.data_ptr(),
                       nblk, c, h, w, device=out.device)
+    return out
+
+
+def _frame_pointers(frames, shape, dev) -> torch.Tensor:
+    """The frames' base addresses as an int64 tensor on `dev` (uploaded
+    without waiting for the queue); every frame uint8, contiguous, `shape`,
+    on `dev`."""
+    _build.require_cuda(*frames)
+    for f in frames:
+        if f.dtype != torch.uint8 or tuple(f.shape) != shape or f.device != dev:
+            raise ValueError(f"pixel frame {f.dtype} {tuple(f.shape)} on {f.device}: "
+                             f"uint8 {shape} on {dev} expected")
+    return upload(np.asarray([f.data_ptr() for f in frames], np.int64), dev)
+
+
+def rgb32_to_rgb24_frames_kernel(batch: torch.Tensor) -> list:
+    """K7, alpha dropped: batch [N, H, W, 4] uint8 on the card -> N frames
+    [H, W, 3] uint8, each in storage of its own, in one launch with no host
+    sync (N up to 65,535, the grid's y; the launch raises beyond)."""
+    _build.require_cuda(batch)
+    if batch.dtype != torch.uint8 or batch.dim() != 4 or batch.shape[3] != 4:
+        raise ValueError(f"RGB32 batch {batch.dtype} {tuple(batch.shape)}: uint8 "
+                         f"[N, H, W, 4] expected")
+    n, h, w = batch.shape[:3]
+    dev = batch.device
+    frames = [torch.empty((h, w, 3), dtype=torch.uint8, device=dev) for _ in range(n)]
+    if n:
+        ptrs = _frame_pointers(frames, (h, w, 3), dev)
+        _build.launch("sptc_rgb32_to_rgb24", batch.data_ptr(), ptrs.data_ptr(), h * w, n,
+                      device=dev)
+    return frames
+
+
+def rgb24_to_rgb32_frames_kernel(frames) -> torch.Tensor:
+    """K7, alpha 255: N frames [H, W, 3] uint8 on one card (a frame may
+    appear in several slots) -> [N, H, W, 4] uint8, in one launch with no
+    host sync."""
+    frames = [f.contiguous() for f in frames]
+    h, w = frames[0].shape[:2]
+    dev = frames[0].device
+    out = torch.empty((len(frames), h, w, 4), dtype=torch.uint8, device=dev)
+    ptrs = _frame_pointers(frames, (h, w, 3), dev)
+    _build.launch("sptc_rgb24_to_rgb32", ptrs.data_ptr(), out.data_ptr(), h * w, len(frames),
+                  device=dev)
     return out

@@ -109,9 +109,11 @@ def count(name: str, n: int = 1) -> None:
 
 
 def counts() -> dict[str, int]:
-    """A snapshot of the counters: `sync`, `launch.<C entry>`, and the work
+    """A snapshot of the counters: `sync`, `launch.<C entry>`, the work
     counts (`frames.I`, `frames.P`, `frames.flat`, `frames.unchanged`,
-    `frames.raw`, `blocks.data`, `blocks.motion`)."""
+    `frames.raw`, `blocks.data`, `blocks.motion`) and where the session
+    API converted its frames (`api.convert.device_frames`,
+    `api.convert.host_frames`)."""
     out = dict(_COUNTS)
     out.update({f"launch.{k}": v for k, v in _build.LAUNCHES.items()})
     return out

@@ -19,6 +19,7 @@ from screenpressor_tpu import colorspace as ref_cs
 from screenpressor_tpu.config import CodecConfig as RefCodecConfig
 from screenpressor_tpu_torch import api
 from screenpressor_tpu_torch import bitstream as bs
+from screenpressor_tpu_torch import telemetry
 from screenpressor_tpu_torch.codec import TorchDecoder, TorchEncoder
 from screenpressor_tpu_torch.config import CodecConfig
 from screenpressor_tpu_torch.parallel.serving import BatchedDecoder, BatchedEncoder
@@ -430,3 +431,160 @@ def test_sessions_default_to_the_card(name):
         return
     with pytest.raises((AssertionError, RuntimeError)):
         cls(*args)
+
+
+# -- RGB32 frames through the batch conversion (K7's plain versions here) ----
+
+@pytest.fixture(params=["numpy", "tensor"])
+def frames_as(request):
+    """How the caller hands in its RGB32 frames: numpy arrays, or CPU torch
+    tensors over the same memory."""
+    if request.param == "numpy":
+        return lambda frames: list(frames)
+    return lambda frames: [torch.from_numpy(f) for f in frames]
+
+
+def _convert_counts():
+    c = telemetry.counts()
+    return c.get("api.convert.device_frames", 0), c.get("api.convert.host_frames", 0)
+
+
+@pytest.mark.parametrize("mode", ["encode", "encode_batch"])
+def test_rgb32_round_trip_equals_reference(frames_as, mode):
+    """An RGB32 Encoder writes the reference's bytes and a Decoder gives the
+    reference decoder's frames (alpha 255), frame by frame and in a batch;
+    the counters say where each frame was converted (the host, for a CPU
+    session)."""
+    want, want_stats = reference_stream("rgb32")
+    dev0, host0 = _convert_counts()
+    enc = api.Encoder(CFG, _fmt(api, "rgb32"), device="cpu")
+    got = drive(enc, frames_as(source_frames("rgb32")), mode)
+    assert got == list(want) and enc.stats == want_stats
+    stream = [p for p, _ in got]
+    ref_frames = ref.Decoder(REF_CFG).decode_batch(stream)
+    one = api.Decoder(CFG, device="cpu")
+    singles = [one.decode(p) for p in stream]
+    batch = api.Decoder(CFG, device="cpu").decode_batch(stream)
+    for i, (s, b, r) in enumerate(zip(singles, batch, ref_frames, strict=True)):
+        assert s.dtype == b.dtype == r.dtype == np.uint8 and s.shape == (H, W, 4)
+        np.testing.assert_array_equal(s, r, err_msg=f"frame {i}")
+        np.testing.assert_array_equal(b, r, err_msg=f"batch frame {i}")
+    n = 3 * len(stream)  # encoded, decoded one by one, decoded in a batch
+    dev1, host1 = _convert_counts()
+    assert (dev1 - dev0, host1 - host0) == (0, n)
+
+
+def _idle_stream(name):
+    """Two calls' payloads: a keyframe, two idle P frames, a scroll and an
+    idle P frame, then two idle P frames (each decodes to its previous
+    frame)."""
+    desk, scroll = rgb24_sequence(5)[2:4]
+    frames = [desk, desk, desk, scroll, scroll, scroll, scroll]
+    if name == "rgb32":
+        frames = [np.dstack([f, np.full((H, W), 9, np.uint8)]) for f in frames]
+    pays = [p for p, _ in api.Encoder(CFG, _fmt(api, name), device="cpu").encode_batch(frames)]
+    return pays[:5], pays[5:], frames
+
+
+@pytest.mark.parametrize("call", ["decode_batch", "decode"])
+@pytest.mark.parametrize("name", ["rgb24", "rgb32"])
+def test_decoded_frames_own_their_storage(call, name):
+    """No decoded frame shares memory with another of its call or of a
+    later call, though idle P frames decode to their previous frame; a
+    caller writing into a frame changes nothing that comes after."""
+    first, second, frames = _idle_stream(name)
+    dec = api.Decoder(CFG, device="cpu")
+
+    def run(pays):
+        return dec.decode_batch(pays) if call == "decode_batch" else [dec.decode(p) for p in pays]
+
+    out1 = run(first)
+    for o in out1:
+        o[...] = 77  # the caller reuses what it got
+    out2 = run(second)
+    outs = out1 + out2
+    assert not any(np.shares_memory(a, b) for i, a in enumerate(outs) for b in outs[i + 1:])
+    want = [f.copy() for f in frames[5:]]
+    if name == "rgb32":
+        for w in want:
+            w[..., 3] = 255
+    for o, w in zip(out2, want, strict=True):
+        np.testing.assert_array_equal(o, w)
+
+
+@pytest.mark.parametrize("layout", ["reused_buffer", "strided"])
+def test_caller_may_refill_its_rgb32_buffer(frames_as, layout):
+    """Frames handed in from one buffer the caller refills after each
+    encode_batch (as a capture loop does), or as strided views, give the
+    bytes of fresh contiguous frames: the session's previous frame is its
+    own, so the next batch's first P frame is coded against it."""
+    frames = source_frames("rgb32", seed=2)
+    fresh = api.Encoder(CFG, _fmt(api, "rgb32"), device="cpu")
+    want = fresh.encode_batch([f.copy() for f in frames[:4]])
+    want += fresh.encode_batch([f.copy() for f in frames[4:8]])
+    enc = api.Encoder(CFG, _fmt(api, "rgb32"), device="cpu")
+    if layout == "strided":
+        wide = [np.repeat(f, 2, axis=1) for f in frames[:8]]
+        got = enc.encode_batch([f[:, ::2] for f in frames_as(wide[:4])])
+        got += enc.encode_batch([f[:, ::2] for f in frames_as(wide[4:])])
+    else:
+        buf = np.empty((4, H, W, 4), np.uint8)
+        buf[:] = frames[:4]
+        got = enc.encode_batch(frames_as(buf))
+        buf[:] = 200  # refilled: the next frames are not ready yet
+        buf[:] = frames[4:8]
+        got += enc.encode_batch(frames_as(buf))
+    assert got == want
+    assert [t for _, t in got[4:]].count(1) >= 3  # P frames coded against the previous
+
+
+def test_rgb32_frames_torch_cannot_view_give_the_same_bytes():
+    """Numpy frames with negative strides (a bottom-up DIB's rows) or in
+    read-only memory are copied first and give the bytes of plain frames."""
+    frames = source_frames("rgb32", seed=3)[:4]
+    want = api.Encoder(CFG, _fmt(api, "rgb32"), device="cpu").encode_batch(frames)
+    flipped = [np.ascontiguousarray(f[::-1])[::-1] for f in frames[:2]]
+    readonly = [f.copy() for f in frames[2:]]
+    for f in readonly:
+        f.setflags(write=False)
+    assert all(f.strides[0] < 0 for f in flipped)
+    got = api.Encoder(CFG, _fmt(api, "rgb32"), device="cpu").encode_batch(flipped + readonly)
+    assert got == want
+
+
+def test_rgb32_frame_shape_is_checked_on_the_card_path():
+    """The batch path (the one every RGB32 session takes) refuses a frame
+    of another shape."""
+    enc = api.Encoder(CFG, _fmt(api, "rgb32"), device="cpu")
+    for bad in (np.zeros((H, W, 3), np.uint8), np.zeros((H, W + 1, 4), np.uint8),
+                np.zeros((1, W, 4), np.uint8)):
+        with pytest.raises(ValueError):
+            enc.encode_batch([bad])
+
+
+def test_own_frames_gives_each_slot_its_storage():
+    """codec.own_frames: a tensor repeated in several slots, or the session's
+    previous frame, is copied; every other slot is handed out as it is."""
+    from screenpressor_tpu_torch.codec import own_frames
+
+    a, b, prev = (torch.full((2, 3, 3), v, dtype=torch.uint8) for v in (1, 2, 3))
+    got = own_frames([a, a, b, prev, a, prev], prev)
+    assert got[0] is a and got[2] is b
+    ptrs = [g.data_ptr() for g in got]
+    assert len(set(ptrs)) == len(ptrs) and prev.data_ptr() not in ptrs
+    for g, want in zip(got, (1, 1, 2, 3, 1, 3)):
+        assert (g == want).all()
+
+
+def test_reused_buffer_grows_and_is_reused():
+    """codec.ReusedBuffer hands out views of one block, which grows only
+    when a call needs more."""
+    from screenpressor_tpu_torch.codec import ReusedBuffer
+
+    buf = ReusedBuffer(torch.device("cpu"))
+    small = buf.take((2, 3))
+    again = buf.take((3, 2))
+    assert again.data_ptr() == small.data_ptr() and again.shape == (3, 2)
+    big = buf.take((4, 5))
+    assert big.shape == (4, 5) and big.dtype == torch.uint8
+    assert buf.take((2, 2)).data_ptr() == big.data_ptr()

@@ -1,7 +1,7 @@
 """The port's colorspace.py against the reference's, exactly: the host
 (numpy) conversions, the torch conversions on CPU tensors (and the
-reference's jnp ones), the `*_any` dispatch, and the DIB helpers with pitch
-adaptation."""
+reference's jnp ones), the RGB16 `*_any` dispatch, the RGB32 batch
+functions' plain versions, and the DIB helpers with pitch adaptation."""
 
 import numpy as np
 import pytest
@@ -70,12 +70,10 @@ def test_rgb32_conversions_equal_reference():
     assert (got32[..., 3] == 255).all() and got32.dtype == torch.uint8
 
 
-@pytest.mark.parametrize("fn", ["rgb16_to_rgb24", "rgb24_to_rgb16", "rgb32_to_rgb24",
-                                "rgb24_to_rgb32"])
+@pytest.mark.parametrize("fn", ["rgb16_to_rgb24", "rgb24_to_rgb16"])
 def test_any_keeps_tensors_tensors_and_numpy_numpy(fn):
-    f16, f24, f32 = _frames(4, 5, 7)
-    src = {"rgb16_to_rgb24": f16, "rgb24_to_rgb16": f24, "rgb32_to_rgb24": f32,
-           "rgb24_to_rgb32": f24}[fn]
+    f16, f24, _ = _frames(4, 5, 7)
+    src = {"rgb16_to_rgb24": f16, "rgb24_to_rgb16": f24}[fn]
     args = MASKS[0] if "16" in fn else ()
     host = getattr(cs, fn + "_any")(src, *args)
     dev = getattr(cs, fn + "_any")(torch.as_tensor(src), *args)
@@ -117,3 +115,55 @@ def test_dib_errors():
         cs.to_dib(f, 24, stride=14)
     with pytest.raises(ValueError):
         cs.from_dib(b"\0" * 10, 5, 4, 24)
+
+
+# -- the batch conversions (K7's plain versions) ------------------------------
+
+K7_WIDTHS = [1, 7, 1918, 1920]
+
+
+def _batch(seed, n, w, ch, h=3):
+    return np.random.default_rng(seed).integers(0, 256, (n, h, w, ch), dtype=np.uint8)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
+@pytest.mark.parametrize("w", K7_WIDTHS)
+@pytest.mark.parametrize("direction", ["rgb32_to_rgb24", "rgb24_to_rgb32"])
+def test_batch_conversions_equal_reference(direction, w, layout):
+    """The batch functions on CPU tensors give the reference's frames byte
+    for byte (its numpy and jnp conversions), from contiguous input and
+    from strided views (every other frame of a batch; every other column of
+    a frame); every RGB24 frame they make is in storage of its own, and an
+    RGB24 frame may fill several slots."""
+    import jax.numpy as jnp
+
+    n = 3
+    if direction == "rgb32_to_rgb24":
+        src = _batch(w, n, w, 4)
+        t = torch.as_tensor(src if layout == "contiguous" else np.repeat(src, 2, axis=0))
+        if layout == "strided":
+            t = t[::2]
+            assert not t.is_contiguous()
+        got = cs.rgb32_to_rgb24_batch(t)
+        assert len(got) == n
+        for g, f in zip(got, src, strict=True):
+            assert g.is_contiguous() and g.dtype == torch.uint8
+            np.testing.assert_array_equal(g.numpy(), ref.rgb32_to_rgb24(f))
+            np.testing.assert_array_equal(
+                g.numpy(), np.asarray(ref.rgb32_to_rgb24_device(jnp.asarray(f))))
+        arrays = [g.numpy() for g in got] + [t.numpy()]
+        assert not any(np.shares_memory(a, b) for i, a in enumerate(arrays)
+                       for b in arrays[i + 1:])
+        return
+    src = _batch(w, n, w, 3)
+    frames = [torch.as_tensor(f if layout == "contiguous" else np.repeat(f, 2, axis=1))
+              for f in src]
+    if layout == "strided":
+        frames = [f[:, ::2] for f in frames]
+        assert w == 1 or not any(f.is_contiguous() for f in frames)
+    got = cs.rgb24_to_rgb32_batch(frames + [frames[0]])
+    assert got.shape == (n + 1, 3, w, 4) and got.dtype == torch.uint8
+    for g, f in zip(got, list(src) + [src[0]], strict=True):
+        np.testing.assert_array_equal(g.numpy(), ref.rgb24_to_rgb32(f))
+        np.testing.assert_array_equal(
+            g.numpy(), np.asarray(ref.rgb24_to_rgb32_device(jnp.asarray(f))))

@@ -10,8 +10,11 @@ position 0 under next(p). K4 (csrc/recon.cu) runs the row recurrence mod
 thread chunks, warps and warp totals, with the row before kept per thread.
 K6 (csrc/block_rebuild.cu) expands a block's records by two warp prefix
 sums (run lengths, then marks) and runs each row in 8-bit lanes of one word
-a pixel, as a scan of (reset, add) maps over 16 lanes. Inputs are made from
-a seed with numpy.
+a pixel, as a scan of (reset, add) maps over 16 lanes. K7
+(csrc/pixels.cu) packs a thread's 4 RGB32 pixels (one 16-byte word) into
+3 words of RGB24 with __byte_perm, and back with alpha 255, through a
+tile's 96 16-byte words of shared memory. Inputs are made from a seed with
+numpy.
 """
 
 import jax
@@ -356,3 +359,47 @@ def test_k6_byte_lane_rows_match_plain_and_jx(name):
                                         *(jnp.asarray(a[sel]) for a in (rects, pt, rl, lt)),
                                         h, w, int(sel.sum()))
             np.testing.assert_array_equal(got[s], np.asarray(ref))
+
+
+# -- K7 ------------------------------------------------------------------------
+
+def byte_perm(x, y, sel):
+    """CUDA's __byte_perm(x, y, sel) on uint32 arrays (selector bit 3, the
+    sign-replicate mode, unused): byte i of the result is byte sel[i] of
+    the 8 bytes y:x."""
+    src = [(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)]
+    out = np.zeros_like(x)
+    for i in range(4):
+        out |= src[(sel >> (4 * i)) & 7] << (8 * i)
+    return out
+
+
+K7_TILE = 512  # pixels a thread block: 128 threads x 4
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k7_tile_packing_matches_plain_and_reference(seed):
+    """One whole tile through K7's vector path both ways: each thread's
+    RGB32 word (v.x .. v.w) packed into its 3 shared words at 3t, the
+    tile's shared words stored in order, and back (alpha 255); equal to the
+    plain batch functions and the reference's conversions."""
+    from screenpressor_tpu import colorspace as ref_cs
+    from screenpressor_tpu_torch import colorspace as cs
+
+    rng = np.random.default_rng(seed)
+    f32 = rng.integers(0, 256, (1, 1, K7_TILE, 4), dtype=np.uint8)
+    v = f32.reshape(-1).view("<u4").reshape(128, 4).astype(np.uint32)  # thread t: v.x .. v.w
+    w = np.stack([byte_perm(v[:, 0], v[:, 1], 0x4210), byte_perm(v[:, 1], v[:, 2], 0x5421),
+                  byte_perm(v[:, 2], v[:, 3], 0x6542)], axis=1)  # shared words 3t .. 3t + 2
+    rgb = w.astype("<u4").reshape(-1).view(np.uint8)  # the 96 stored 16-byte words
+    want24 = cs.rgb32_to_rgb24_batch(torch.as_tensor(f32))[0].numpy()
+    np.testing.assert_array_equal(rgb, want24.reshape(-1))
+    np.testing.assert_array_equal(want24, ref_cs.rgb32_to_rgb24(f32[0]))
+
+    w0, w1, w2 = (rgb.view("<u4").reshape(128, 3)[:, j].astype(np.uint32) for j in range(3))
+    back = np.stack([w0 | 0xFF000000, byte_perm(w0, w1, 0x7543) | 0xFF000000,
+                     byte_perm(w1, w2, 0x7432) | 0xFF000000, (w2 >> 8) | 0xFF000000], axis=1)
+    got32 = back.astype("<u4").reshape(-1).view(np.uint8).reshape(1, K7_TILE, 4)
+    want32 = cs.rgb24_to_rgb32_batch([torch.as_tensor(want24)])[0].numpy()
+    np.testing.assert_array_equal(got32, want32)
+    np.testing.assert_array_equal(want32, ref_cs.rgb24_to_rgb32(want24))

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1-K4, their stream-batched launches and K1's
 colw variant; K5, the P analysis's block front end; K6, the P decode's
-data-block rebuild) against their plain PyTorch versions, on the card. Skips where there is no CUDA device.
+data-block rebuild; K7, the session API's RGB32 conversion) against their
+plain PyTorch versions, on the card. Skips where there is no CUDA device.
 
 This file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
@@ -665,8 +666,8 @@ def test_rgb32_conversions_on_card_equal_numpy(cuda):
     rng = np.random.default_rng(32)
     f32 = rng.integers(0, 256, (270, 481, 4), dtype=np.uint8)
     f24 = rng.integers(0, 256, (270, 481, 3), dtype=np.uint8)
-    got24 = cs.rgb32_to_rgb24_any(torch.as_tensor(f32, device=cuda))
-    got32 = cs.rgb24_to_rgb32_any(torch.as_tensor(f24, device=cuda))
+    got24 = cs.rgb32_to_rgb24_device(torch.as_tensor(f32, device=cuda))
+    got32 = cs.rgb24_to_rgb32_device(torch.as_tensor(f24, device=cuda))
     assert got24.device.type == "cuda" and got32.device.type == "cuda"
     np.testing.assert_array_equal(got24.cpu().numpy(), cs.rgb32_to_rgb24(f32))
     np.testing.assert_array_equal(got32.cpu().numpy(), cs.rgb24_to_rgb32(f24))
@@ -1354,3 +1355,118 @@ def test_block_rebuild_kernel_on_damaged_streams(cuda):
             assert launches == 1 and torch.equal(got[keep], want[keep])
             n_calls += 1
     assert n_calls >= len(runs) // 2
+
+
+# ---- K7: the session API's RGB32 <-> RGB24 conversion (csrc/pixels.cu) ----
+
+K7_WIDTHS = [1, 7, 1918, 1920]
+
+
+def _k7_launches():
+    return _build.LAUNCHES["sptc_rgb32_to_rgb24"], _build.LAUNCHES["sptc_rgb24_to_rgb32"]
+
+
+@pytest.mark.parametrize("n", [1, 64])
+@pytest.mark.parametrize("w", K7_WIDTHS)
+def test_k7_matches_plain(cuda, w, n):
+    """K7 both ways equals the plain batch functions on the CPU, one launch
+    a batch: widths with a ragged last tile, frame bases off 16 bytes
+    (1918 x 5 pixels), a tile of 512 or less, and whole tiles. Each RGB24
+    frame it writes is in storage of its own."""
+    from screenpressor_tpu_torch import colorspace as cs
+
+    rng = np.random.default_rng(w * 1000 + n)
+    f32 = rng.integers(0, 256, (n, 5, w, 4), dtype=np.uint8)
+    f24 = rng.integers(0, 256, (n, 5, w, 3), dtype=np.uint8)
+    before = _k7_launches()
+    got24 = cs.rgb32_to_rgb24_batch(torch.as_tensor(f32, device=cuda))
+    got32 = cs.rgb24_to_rgb32_batch([torch.as_tensor(f, device=cuda) for f in f24])
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_k7_launches(), before)) == (1, 1)
+    want24 = cs.rgb32_to_rgb24_batch(torch.as_tensor(f32))
+    for g, want in zip(got24, want24, strict=True):
+        assert g.device.type == "cuda" and g.is_contiguous()
+        np.testing.assert_array_equal(g.cpu().numpy(), want.numpy())
+    assert len({g.data_ptr() for g in got24}) == n
+    want32 = cs.rgb24_to_rgb32_batch([torch.as_tensor(f) for f in f24])
+    np.testing.assert_array_equal(got32.cpu().numpy(), want32.numpy())
+
+
+@pytest.mark.parametrize("n", [1, 64])
+def test_k7_repeated_and_unaligned_slots(cuda, n):
+    """A batch whose slots repeat one tensor (idle P frames decode to their
+    previous frame), with frames that lie at an odd offset of their
+    storage (the pixel-by-pixel path), at 1080p: equal to the plain
+    version; and back through K7 to the same RGB24 frames."""
+    from screenpressor_tpu_torch import colorspace as cs
+
+    rng = np.random.default_rng(n)
+    h, w = 1080, 1920
+    base = [torch.as_tensor(rng.integers(0, 256, (h, w, 3), dtype=np.uint8), device=cuda)
+            for _ in range(3)]
+    odd = torch.empty(h * w * 3 + 5, dtype=torch.uint8, device=cuda)
+    odd[5:] = base[2].reshape(-1)
+    base[2] = odd[5:].view(h, w, 3)
+    slots = [base[min(i // 3, 2) if n > 1 else 2] for i in range(n)]
+    before = _k7_launches()
+    got32 = cs.rgb24_to_rgb32_batch(slots)
+    back = cs.rgb32_to_rgb24_batch(got32)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_k7_launches(), before)) == (1, 1)
+    host = [s.cpu() for s in slots]
+    np.testing.assert_array_equal(got32.cpu().numpy(), cs.rgb24_to_rgb32_batch(host).numpy())
+    for b, s in zip(back, host, strict=True):
+        assert torch.equal(b.cpu(), s)
+
+
+def test_rgb32_session_on_card_equals_pinned_digests(cuda):
+    """A 1080p RGB32 session through the session API, fed from one buffer
+    that the caller refills between two 32-frame batches: without the
+    keyframe's format prefix the payloads are the native codec's pinned
+    bytes; the decoder gives the frames back with alpha 255, each an array
+    of its own. One K7 launch a batch and direction; every frame counted on
+    the card's path. Frames the caller keeps hold no page-locked memory:
+    the second call's page-locked bytes are the first's (the sessions reuse
+    their buffers)."""
+    import hashlib
+
+    from screenpressor_tpu_torch import Decoder, Encoder, FormatParams, PixelFormat, telemetry
+    from screenpressor_tpu_torch import bitstream as bs
+    from screenpressor_tpu_torch.synth import synth_screencast
+
+    with open(os.path.join(DATA, "torch_native_1080p_64.json")) as fh:
+        pinned = json.load(fh)["frames"]
+    frames = synth_screencast(1080, 1920, 64)
+    rng = np.random.default_rng(5)
+    cfg = CodecConfig(width=1920, height=1080)
+    fmt = FormatParams(PixelFormat.RGB32)
+    enc, dec = Encoder(cfg, fmt, device=cuda), Decoder(cfg, device=cuda)
+    buf = np.empty((32, 1080, 1920, 4), np.uint8)
+    buf[..., 3] = rng.integers(0, 256, buf.shape[:3], dtype=np.uint8)
+    before, counted = _k7_launches(), telemetry.counts()
+    pays, outs, pinned_bytes = [], [], []
+    for b in range(2):
+        buf[..., :3] = frames[32 * b: 32 * (b + 1)]
+        got = enc.encode_batch(list(buf))
+        buf[...] = 0  # the caller's buffer is refilled before the next batch
+        pays += got
+        outs.append(dec.decode_batch([p for p, _ in got]))  # kept
+        pinned_bytes.append(torch.cuda.host_memory_stats()["allocated_bytes.current"])
+    assert pinned_bytes[1] - pinned_bytes[0] < 1080 * 1920 * 4, pinned_bytes
+    assert tuple(a - b for a, b in zip(_k7_launches(), before)) == (2, 2)
+    after = telemetry.counts()
+    assert after.get("api.convert.device_frames", 0) - counted.get(
+        "api.convert.device_frames", 0) == 128
+    assert after.get("api.convert.host_frames", 0) == counted.get("api.convert.host_frames", 0)
+    prefix = bs.pack_format_prefix(32)
+    for i, ((p, ft), want) in enumerate(zip(pays, pinned, strict=True)):
+        if ft == 0:
+            assert p.startswith(prefix)
+            p = p[len(prefix):]
+        assert {"size": len(p), "ftype": ft, "sha256": hashlib.sha256(p).hexdigest()} == want, i
+    flat = [o for call in outs for o in call]
+    for i, (o, f) in enumerate(zip(flat, frames, strict=True)):
+        assert isinstance(o, np.ndarray) and o.shape == (1080, 1920, 4)
+        np.testing.assert_array_equal(o[..., :3], f, err_msg=f"frame {i}")
+        assert (o[..., 3] == 255).all()
+    assert not any(np.shares_memory(a, b) for i, a in enumerate(flat) for b in flat[i + 1:])

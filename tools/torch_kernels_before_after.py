@@ -53,8 +53,14 @@ phases). Every run works on the same inputs, made from seeds:
     launches (torch.profiler); all 32 calls of the 1080p decode in
     sequence beside the decode; the 1080p session decode's Mpix/s and the
     serving session's decode time (three runs each after a warm-up).
+  - api: the session API (`Encoder` / `Decoder`) at 1080p on 64
+    synth_screencast frames, host frames in and out: RGB32 (alpha seeded)
+    and RGB24, each a warm-up session, then three timed sessions (a new
+    Encoder and Decoder each, synchronised host clock); then a Decoder's
+    three calls over the RGB32 stream whose frames the caller keeps, with
+    the page-locked bytes PyTorch's host allocator holds after each.
 --kernels picks the groups to run (k1, k3, k4, serving, session, analysis,
-rebuild; default k1,k3,k4).
+rebuild, api; default k1,k3,k4).
 Kernel times are CUDA events, the mean of 5 launches after a warm-up. Prints one
 JSON line per run, then a table, with the card's nvidia-smi name and power
 limit. Needs a CUDA device and nvcc; imports nothing of JAX.
@@ -120,7 +126,9 @@ def measure(root: str, kernels) -> dict:
         out["k4"][f"{label}: reconstruct_i with expand and pad"] = whole
 
     out = {"k1": {}, "k1_probe": {}, "k3": {}, "k4": {}, "serving": {}, "session": {},
-           "analysis": {}, "rebuild": {}}
+           "analysis": {}, "rebuild": {}, "api": {}}
+    if "api" in kernels:
+        api(out["api"], dev, synth_screencast)
     if "rebuild" in kernels:
         rebuild(out["rebuild"], dev, synth_screencast)
     if "analysis" in kernels:
@@ -632,6 +640,47 @@ def session(out: dict, dev, synth_screencast):
     out["profiled encode: idle share of its wall"] = 1 - busy / 1e6 / dt
 
 
+def api(out: dict, dev, synth_screencast):
+    """The session API's host frames: see the module docstring's `api`."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from screenpressor_tpu_torch import Decoder, Encoder, FormatParams, PixelFormat
+    from screenpressor_tpu_torch.config import CodecConfig
+
+    h, w, n = 1080, 1920, 64
+    frames = synth_screencast(h, w, n)
+    rng = np.random.default_rng(8)
+    f32 = [np.dstack([f, rng.integers(0, 256, (h, w), dtype=np.uint8)]) for f in frames]
+    cfg = CodecConfig(width=w, height=h)
+    mpix = h * w * n / 1e6
+
+    def timed(fn, arg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(arg)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, res
+
+    for tag, fmt, src in (("RGB32", FormatParams(PixelFormat.RGB32), f32),
+                          ("RGB24", FormatParams(), frames)):
+        for r in range(4):  # 0: the warm-up
+            te, pays = timed(Encoder(cfg, fmt, device=dev).encode_batch, src)
+            td, _ = timed(Decoder(cfg, device=dev).decode_batch, [p for p, _ in pays])
+            if r:
+                out[f"{tag} session {r}, encode Mpix/s"] = mpix / te
+                out[f"{tag} session {r}, decode Mpix/s"] = mpix / td
+        if tag == "RGB32":
+            stream = [p for p, _ in pays]
+    dec, kept = Decoder(cfg, device=dev), []
+    for c, part in enumerate((stream[:21], stream[21:42], stream[42:]), 1):
+        kept.append(dec.decode_batch(part))
+        held = torch.cuda.host_memory_stats().get("allocated_bytes.current", -1)
+        out[f"RGB32 decode, frames kept: page-locked MB after call {c}"] = held / 1e6
+
+
 def forward_only_copy(parent: str) -> str:
     """A copy of the parent whose K1 returns before its pack."""
     dst = parent.rstrip("/") + "_k1_forward_only"
@@ -678,7 +727,8 @@ def main() -> int:
         print(json.dumps({"run": tag, "card": smi, **res}), flush=True)
     print(f"\nms (us or stream-frames/s where the name says so) on {smi}; columns: "
           + " | ".join(tag for tag, _ in results))
-    for group in ("k1", "k1_probe", "k3", "k4", "serving", "session", "analysis", "rebuild"):
+    for group in ("k1", "k1_probe", "k3", "k4", "serving", "session", "analysis", "rebuild",
+                  "api"):
         names = []
         for _, res in results:
             names += [nm for nm in res[group] if nm not in names]
