@@ -31,7 +31,13 @@ analysis before it finishes step t.
 sharding): stream group g, the contiguous range [g * S / n, (g + 1) * S / n),
 is a one-device session of its own on devices[g]. Every group's front half
 is queued before any group's back half, outputs come back in global stream
-order, and a damaged stream's message carries its global index.
+order, and a damaged stream's message carries its global index. One
+controller runs the groups in turn: each group's part of `encode_begin`,
+`encode_finish`, `decode` and `validate` is a span `sptc.serve.group`
+whose `card` is g; `decode(device_out=True)` gathers the groups' frames
+onto devices[0] (span `sptc.serve.decode.gather`). The counters
+`serving.dp.scatter_bytes` and `serving.dp.gather_bytes` add the bytes of
+frames that change device on the way to a group and in that gather.
 """
 
 from __future__ import annotations
@@ -141,11 +147,26 @@ def on_device(device):
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
+def _moved_bytes(t: torch.Tensor, dev: torch.device) -> int:
+    """t's bytes if copying it to `dev` changes its device, else 0."""
+    same = t.device.type == dev.type and dev.index in (None, t.device.index)
+    return 0 if same else t.numel() * t.element_size()
+
+
 def _to_group(frames, dev, sl):
     """A group's slice of a step's frames, on its device (non-blocking)."""
     if isinstance(frames, torch.Tensor):
-        return frames[sl].to(dev, non_blocking=True)
+        part = frames[sl]
+        telemetry.count("serving.dp.scatter_bytes", _moved_bytes(part, dev))
+        return part.to(dev, non_blocking=True)
     return tc.upload(np.asarray(frames)[sl], dev)
+
+
+def _gather(outs, dev) -> torch.Tensor:
+    """The groups' decoded frames as one tensor on `dev`."""
+    with telemetry.span("sptc.serve.decode.gather"):
+        telemetry.count("serving.dp.gather_bytes", sum(_moved_bytes(o, dev) for o in outs))
+        return torch.cat([o.to(dev) for o in outs])
 
 
 def _k_fixed(cfg: CodecConfig) -> CodecConfig:
@@ -255,8 +276,8 @@ class BatchedEncoder:
         if self.groups is not None:
             self.fn += 1
             pend = []
-            for g, sl in self.groups:
-                with on_device(g.device):
+            for card, (g, sl) in enumerate(self.groups):
+                with telemetry.span("sptc.serve.group", card=card), on_device(g.device):
                     pend.append(g._begin(_to_group(frames, g.device, sl), force_key))
             return pend
         self.take_flat()
@@ -292,8 +313,8 @@ class BatchedEncoder:
     def _finish(self, pend):
         if self.groups is not None:
             outs = []
-            for (g, _), p in zip(self.groups, pend):
-                with on_device(g.device):
+            for card, ((g, _), p) in enumerate(zip(self.groups, pend)):
+                with telemetry.span("sptc.serve.group", card=card), on_device(g.device):
                     outs += g._finish(p)
             return outs
         outs = self._drain(*pend)
@@ -571,11 +592,11 @@ class BatchedDecoder:
         assert len(payloads) == self.s
         if self.groups is not None:
             outs = []
-            for g, sl in self.groups:
-                with on_device(g.device):
+            for card, (g, sl) in enumerate(self.groups):
+                with telemetry.span("sptc.serve.group", card=card), on_device(g.device):
                     outs.append(g._decode(payloads[sl], device_out=True))
             if device_out:
-                return torch.cat([o.to(self.device) for o in outs])
+                return _gather(outs, self.device)
             self.validate()
             return np.concatenate([to_host(o, "serving.decode.pull") for o in outs])
         with telemetry.span("sptc.serve.decode.parse"):
@@ -731,8 +752,9 @@ class BatchedDecoder:
     def validate(self):
         """Resolve the deferred stream check of a device_out decode. Called
         by the next decode(); call it after the last step of a session."""
-        for g, _ in self.groups or ():
-            g.validate()
+        for card, (g, _) in enumerate(self.groups or ()):
+            with telemetry.span("sptc.serve.group", card=card):
+                g.validate()
         pend, self._pending_err = self._pending_err, None
         if pend is not None:
             self._raise_errs(to_host(pend[0], "serving.validate"), pend[1])

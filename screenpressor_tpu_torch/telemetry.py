@@ -4,7 +4,7 @@ Spans record only while a torch profiler collects (`torch.profiler.profile`
 sets `torch.autograd.profiler._is_profiler_enabled`); otherwise `span`
 returns one shared no-op context manager, so an untraced run records
 nothing and allocates nothing a call. A recorded span is
-(name, start_ns, end_ns, parent, unit, site) in a list in memory, not a
+(name, start_ns, end_ns, parent, unit, card, site) in a list in memory, not a
 `record_function` range: Kineto would copy such a range onto the device
 timeline as a GPU annotation, where it would read as device work. The
 clock is `time.time_ns()` (CLOCK_REALTIME), the clock of the profiler's
@@ -13,7 +13,9 @@ host events, so a span can be laid over a trace's launches and kernels.
 - `parent` is the index (in `spans()`) of the recorded span open when the
   span began, -1 for none; `unit` is the request a span belongs to (a
   desktop call's first frame number, a serving step) and is inherited
-  from the parent when not given.
+  from the parent when not given; `card` is the stream group of a split
+  serving session (`devices=`, group g on devices[g]) that a span's work
+  belongs to, inherited the same way, None outside a split session.
 - `sync(site)` wraps every point where the host waits on the device (a
   device-to-host read, a blocking upload): it adds one to the counter
   `sync` always, and while recording opens a span `sync` carrying `site`.
@@ -40,10 +42,11 @@ class Span(NamedTuple):
     end_ns: int
     parent: int  # index in spans(), -1 at the top
     unit: int | None
+    card: int | None  # the stream group of a split serving session
     site: str | None  # where a `sync` span waited
 
 
-_SPANS: list[list] = []  # [name, start_ns, end_ns, parent, unit, site]
+_SPANS: list[list] = []  # [name, start_ns, end_ns, parent, unit, card, site]
 _OPEN: list[int] = []  # indices of the recorded spans open now, innermost last
 _COUNTS: dict[str, int] = {"sync": 0}
 
@@ -64,15 +67,18 @@ NOOP = _Noop()
 class _Recorded:
     __slots__ = ("rec",)
 
-    def __init__(self, name, unit, site):
-        self.rec = [name, 0, 0, -1, unit, site]
+    def __init__(self, name, unit, card, site):
+        self.rec = [name, 0, 0, -1, unit, card, site]
 
     def __enter__(self):
         rec = self.rec
         if _OPEN:
             rec[3] = _OPEN[-1]
+            parent = _SPANS[rec[3]]
             if rec[4] is None:
-                rec[4] = _SPANS[rec[3]][4]
+                rec[4] = parent[4]
+            if rec[5] is None:
+                rec[5] = parent[5]
         _OPEN.append(len(_SPANS))
         _SPANS.append(rec)
         rec[1] = time.time_ns()
@@ -86,12 +92,12 @@ class _Recorded:
         return False
 
 
-def span(name: str, unit: int | None = None):
+def span(name: str, unit: int | None = None, card: int | None = None):
     """A context manager timing the block as span `name` while a profiler
     collects; NOOP otherwise."""
     if not _profiler._is_profiler_enabled:
         return NOOP
-    return _Recorded(name, unit, None)
+    return _Recorded(name, unit, card, None)
 
 
 def sync(site: str):
@@ -101,7 +107,7 @@ def sync(site: str):
     _COUNTS["sync"] += 1
     if not _profiler._is_profiler_enabled:
         return NOOP
-    return _Recorded("sync", None, site)
+    return _Recorded("sync", None, None, site)
 
 
 def count(name: str, n: int = 1) -> None:
@@ -113,7 +119,8 @@ def counts() -> dict[str, int]:
     counts (`frames.I`, `frames.P`, `frames.flat`, `frames.unchanged`,
     `frames.raw`, `blocks.data`, `blocks.motion`) and where the session
     API converted its frames (`api.convert.device_frames`,
-    `api.convert.host_frames`)."""
+    `api.convert.host_frames`), and the bytes a split serving session moves
+    between devices (`serving.dp.scatter_bytes`, `serving.dp.gather_bytes`)."""
     out = dict(_COUNTS)
     out.update({f"launch.{k}": v for k, v in _build.LAUNCHES.items()})
     return out
@@ -140,13 +147,14 @@ def _ancestors(recs, i):
         p = recs[p].parent
 
 
-def summary(units=None) -> dict[str, dict[str, int]]:
-    """Per span name over the spans of `units` (all when None): calls,
-    wall_ns, self_ns (wall minus the time its child spans cover) and
+def summary(units=None, cards=None) -> dict[str, dict[str, int]]:
+    """Per span name over the spans of `units` and `cards` (all when None):
+    calls, wall_ns, self_ns (wall minus the time its child spans cover) and
     sync_ns (the time of its `sync` descendants; wall minus it is the
     host's own time)."""
     recs = spans()
-    keep = [units is None or s.unit in units for s in recs]
+    keep = [(units is None or s.unit in units) and (cards is None or s.card in cards)
+            for s in recs]
     out: dict[str, dict[str, int]] = {}
 
     def row(name):

@@ -1,0 +1,17 @@
+"""serving.dp.sync_ms_step: the wall of the program's `sync` spans (each
+a host wait on a card) under its `sptc.serve.group` spans (the stream
+groups of a `devices=` split, `screenpressor_tpu_torch/parallel/
+serving.py`), in the traced steps, over those steps, in ms. None for a
+port without those spans."""
+
+
+def read(drv, trace, ctx):
+    try:
+        from screenpressor_tpu_torch import telemetry
+    except ImportError:
+        return None
+    units = {u["step"] for u in drv.units if u["traced"]}
+    if trace is None or not units or "sptc.serve.group" not in telemetry.summary(units):
+        return None
+    ns = sum(s.end_ns - s.start_ns for s in telemetry.syncs("sptc.serve.group", units))
+    return ns / 1e6 / len(units)

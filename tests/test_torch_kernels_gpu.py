@@ -1470,3 +1470,67 @@ def test_rgb32_session_on_card_equals_pinned_digests(cuda):
         np.testing.assert_array_equal(o[..., :3], f, err_msg=f"frame {i}")
         assert (o[..., 3] == 255).all()
     assert not any(np.shares_memory(a, b) for i, a in enumerate(flat) for b in flat[i + 1:])
+
+
+# -- the four-card conferencing host ---------------------------------------------
+
+@pytest.fixture
+def four_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    return [torch.device("cuda", i) for i in range(4)]
+
+
+def test_split_over_four_cards_equals_one_card(four_cards):
+    """The benchmark's four-card host (`spbench/configs/conf-4x64x360p.json`:
+    256 streams of 640x360, kf 500 staggered over the streams, the
+    `staggered` traffic rendered on cuda:0) for 12 steps through
+    serve_pipelined with device_out=True, split over the four cards (one
+    group of 64 a card): the unsplit one-card 256-stream session's bytes,
+    every decoded frame equal to its input in one tensor on cuda:0, and
+    132,710,400 bytes a step (3/4 of the frames) through each counter."""
+    from spbench.generators.screen import Screen
+
+    from screenpressor_tpu_torch import telemetry
+    from screenpressor_tpu_torch.parallel.serving import (
+        BatchedDecoder,
+        BatchedEncoder,
+        serve_pipelined,
+    )
+
+    spb = os.path.join(os.path.dirname(DATA), os.pardir, "spbench")
+    with open(os.path.join(spb, "configs", "conf-4x64x360p.json")) as fh:
+        conf = json.load(fh)
+    with open(os.path.join(spb, "traffic", "staggered.json")) as fh:
+        traffic = json.load(fh)
+    s, h, w, steps = conf["streams"], conf["height"], conf["width"], 12
+    cfg = CodecConfig(width=w, height=h, **conf["codec"])
+    offsets = (np.arange(s) * cfg.kf_interval) // s
+    screen = Screen(traffic, h, w, 2**31 + 5)
+    screen.to_device(s, four_cards[0])
+    frames = [screen.streams(t) for t in range(steps)]
+
+    def run(**where):
+        enc = BatchedEncoder(s, cfg, kf_offsets=offsets, **where)
+        dec = BatchedDecoder(s, cfg, **where)
+        before = telemetry.counts()
+        pays, wrong = [], []
+        for t, (outs, back) in enumerate(serve_pipelined(enc, frames, dec, device_out=True)):
+            assert back.device == four_cards[0] and back.shape == (s, h, w, 3), t
+            pays.append([p for p, _ in outs])
+            wrong.append(int((back != frames[t]).flatten(1).any(dim=1).sum()))
+        dec.validate()
+        after = telemetry.counts()
+        moved = {k: after.get(k, 0) - before.get(k, 0)
+                 for k in ("serving.dp.scatter_bytes", "serving.dp.gather_bytes")}
+        return pays, wrong, moved
+
+    split, wrong, moved = run(devices=four_cards)
+    one, wrong_one, _ = run(device=four_cards[0])
+    for t in range(steps):
+        assert split[t] == one[t], f"step {t}"
+    assert wrong == [0] * steps and wrong_one == [0] * steps
+    assert moved == {"serving.dp.scatter_bytes": steps * 132_710_400,
+                     "serving.dp.gather_bytes": steps * 132_710_400}
+    kinds = [p[0] & 0x0F for p in split[steps - 1] + split[2]]
+    assert 2 in kinds and 3 in kinds  # keyframes among P streams

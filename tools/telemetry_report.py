@@ -13,8 +13,11 @@ program span (top 8), and the card's idle time inside the harness's
 `window` span, outside its `frames` and `fingerprints` spans, by the
 innermost program span open during it (top 5), with the shares that fall
 under a stage-level span (any span but the call spans `CALLS`), directly
-under a call span, and under none; and the traced units' times beside the
-untraced units' of the same run.
+under a call span, and under none; the traced units' times beside the
+untraced units' of the same run; and, for a `devices=` split, the same by
+card (`by_card`: each card's busy seconds, its group spans' host and sync
+seconds, self time by program span of its spans (top 5), and its idle time
+by the innermost program span open, whichever card's that is (top 5)).
 
 The second (`--syncs`) runs the cell's set-up, then `--units` units with
 torch's sync debug mode on and the profiler collecting, and lists every
@@ -154,7 +157,30 @@ def report(args, **run_kw) -> dict:
         "idle_share_call": call / total if total else None,
         "idle_share_none": idle.get(None, 0.0) / total if total else None,
     }
+    cards = sorted({s.card for s in spans if s.card is not None})
+    if cards:
+        out["by_card"] = {c: by_card(trace, units, c) for c in cards}
     return out
+
+
+def by_card(trace, units, card) -> dict:
+    """One card of a split: its busy seconds in the window, its group
+    spans' host (wall less syncs) and sync seconds, self time by program span
+    (top 5) and its idle time by the program span open (top 5)."""
+    from screenpressor_tpu_torch import telemetry
+
+    rows = telemetry.summary(units, cards={card})
+    group = rows.get("sptc.serve.group", {"wall_ns": 0, "sync_ns": 0})
+    idle = idle_by_span(trace, telemetry.spans(), device=card)
+    return {
+        "busy_s": trace.busy_seconds("window", card),
+        "group_host_s": (group["wall_ns"] - group["sync_ns"]) * 1e-9,
+        "group_sync_s": group["sync_ns"] * 1e-9,
+        "self_s_top5": sorted(((n, r["self_ns"] * 1e-9, r["calls"]) for n, r in rows.items()),
+                              key=lambda x: -x[1])[:5],
+        "idle_s_top5": sorted(((k or "(no program span)", v) for k, v in idle.items()),
+                              key=lambda x: -x[1])[:5],
+    }
 
 
 def syncs(args) -> dict:
