@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import struct
 
+import numpy as np
+
 from screenpressor_tpu_torch.config import ALG_FMT, SPTC_VERSION_NIBBLE
 
 
@@ -63,6 +65,7 @@ def parse_format_prefix(data: bytes):
 
 _WIDTHS = (1, 2, 4)
 _WIDTH_FMT = {1: "B", 2: "H", 4: "I"}
+_WIDTH_DTYPE = {1: np.dtype("<u1"), 2: np.dtype("<u2"), 4: np.dtype("<u4")}
 
 
 def size_width(max_size: int) -> int:
@@ -92,7 +95,10 @@ def pack_section(blobs: list[bytes]) -> bytes:
     return b"".join(out)
 
 
-def unpack_section(data: bytes, pos: int, expected_k: int) -> tuple[list[bytes], int]:
+def read_section(data: bytes, pos: int, expected_k: int):
+    """The lane container at `pos` (pack_section's layout), checked whole:
+    (sizes [k] int64, the position of its first payload byte, the position
+    past it). Its lanes lie back to back from that first byte."""
     if pos >= len(data):
         raise CorruptStreamError("truncated section header")
     status = data[pos]
@@ -104,18 +110,26 @@ def unpack_section(data: bytes, pos: int, expected_k: int) -> tuple[list[bytes],
     if k != expected_k:
         raise CorruptStreamError(f"lane count mismatch: stream {k}, policy {expected_k}")
     pos += 1
-    need = w * k
-    if pos + need > len(data):
+    if pos + w * k > len(data):
         raise CorruptStreamError("truncated lane size table")
-    sizes = struct.unpack_from(f"<{k}{_WIDTH_FMT[w]}", data, pos)
-    pos += need
+    sizes = np.frombuffer(data, _WIDTH_DTYPE[w], k, pos).astype(np.int64)
+    pos += w * k
+    # sizes are not negative: the last lane's end is the only one to check
+    end = pos + int(sizes.sum())
+    if end > len(data):
+        raise CorruptStreamError("truncated lane payload")
+    return sizes, pos, end
+
+
+def unpack_section(data: bytes, pos: int, expected_k: int) -> tuple[list[bytes], int]:
+    """The lane container at `pos` -> (its lanes' payloads, the position
+    past it)."""
+    sizes, pos, end = read_section(data, pos, expected_k)
     blobs = []
-    for s in sizes:
-        if pos + s > len(data):
-            raise CorruptStreamError("truncated lane payload")
+    for s in sizes.tolist():
         blobs.append(data[pos: pos + s])
         pos += s
-    return blobs, pos
+    return blobs, end
 
 
 def pack_varint(*vals: int) -> bytes:

@@ -558,13 +558,20 @@ def color_restore_streams(ctab_b: dict, sidx, ctab_c: dict, maps) -> None:
             ctab_b[key][st] = ctab_c[key]
 
 
+def pad_lanes(payload, sizes: np.ndarray) -> np.ndarray:
+    """Lanes of `sizes` [..., k] bytes, back to back in `payload` in that
+    order -> [..., k, L] zero-padded uint8, L = max(largest lane, 4): one
+    masked copy."""
+    pay = np.zeros(sizes.shape + (max(int(sizes.max(initial=0)), 4),), np.uint8)
+    pay[np.arange(pay.shape[-1]) < sizes[..., None]] = np.frombuffer(payload, np.uint8)
+    return pay
+
+
 def pad_payload(blobs, k: int) -> np.ndarray:
     """Lane blobs -> [k, L] zero-padded uint8 (L >= 4)."""
-    max_len = max(max((len(b) for b in blobs), default=0), 4)
-    pay = np.zeros((k, max_len), np.uint8)
-    for i, b in enumerate(blobs):
-        pay[i, : len(b)] = np.frombuffer(b, np.uint8)
-    return pay
+    sizes = np.zeros(k, np.int64)
+    sizes[:len(blobs)] = [len(b) for b in blobs]
+    return pad_lanes(b"".join(blobs), sizes)
 
 
 def blobs_from_buf(buf: np.ndarray, start: np.ndarray, lens: np.ndarray):

@@ -89,17 +89,26 @@ def encode_i_raw(records, n_rec: int, lits, n_lit: int, tables: dict,
     return buf_rec, start_rec, lens_rec, buf_col, start_col, lens_col, stats, sel
 
 
-def parse_i_header(data: bytes, pos: int, cfg: CodecConfig):
-    """Host-side I-frame container parse + sanity bounds. Returns
-    (pay_rec, pay_col, n_rec, n_lit) with [K, L] uint8 numpy payloads."""
+def read_i_container(data: bytes, pos: int, cfg: CodecConfig):
+    """Host-side I-frame container parse + sanity bounds, the payload bytes
+    left where they lie. Returns (lanes_rec, lanes_col, n_rec, n_lit), each
+    lanes a section's bitstream.read_section (sizes, first, end)."""
     (n_rec, n_lit), pos = bs.read_varint(data, pos, 2)
     if n_rec > cfg.width * cfg.height or n_lit > max(n_rec, 1):
         raise bs.CorruptStreamError("I-frame record counts out of bounds")
     k_rec, _, k_col, _ = i_geometry(n_rec, n_lit, cfg)
-    rec_blobs, pos = bs.unpack_section(data, pos, k_rec)
-    col_blobs, pos = bs.unpack_section(data, pos, k_col)
-    return (tc.pad_payload(rec_blobs, k_rec), tc.pad_payload(col_blobs, k_col),
-            n_rec, n_lit)
+    lanes_rec = bs.read_section(data, pos, k_rec)
+    lanes_col = bs.read_section(data, lanes_rec[2], k_col)
+    return lanes_rec, lanes_col, n_rec, n_lit
+
+
+def parse_i_header(data: bytes, pos: int, cfg: CodecConfig):
+    """read_i_container with its sections' lanes as arrays: (pay_rec,
+    pay_col, n_rec, n_lit) with [K, L] uint8 numpy payloads."""
+    lanes_rec, lanes_col, n_rec, n_lit = read_i_container(data, pos, cfg)
+    view = memoryview(data)
+    return (*(tc.pad_lanes(view[first:end], sizes)
+              for sizes, first, end in (lanes_rec, lanes_col)), n_rec, n_lit)
 
 
 def decode_i_device(pay_rec: torch.Tensor, pay_col: torch.Tensor, n_rec: int,

@@ -62,13 +62,13 @@ from screenpressor_tpu_torch.codec import (
     owned_frames,
     to_host,
 )
-from screenpressor_tpu_torch.iframe import parse_i_header
+from screenpressor_tpu_torch.iframe import read_i_container
 from screenpressor_tpu_torch.pframe import (
     SECTION_NAMES,
     classify_assemble_streams,
     header_row,
-    parse_p_header,
     raise_p_error,
+    read_p_container,
     rebuild_p_streams,
     step_layout_from,
     step_layout_host,
@@ -618,7 +618,8 @@ class BatchedDecoder:
     def _parse(self, payloads, where, have_prev=None):
         """The host half of a step: parse and check every payload (a
         CorruptStreamError names stream i as where(i)), advance the flat
-        bookkeeping, and lay out what the device half needs. have_prev:
+        bookkeeping, and lay out what the device half needs: each section
+        of the coded streams is cut into one [C, K, L] array. have_prev:
         whether P frames may come (default: a step was decoded). Returns
         (plan, the host arrays of its one upload, in the order _run takes
         them)."""
@@ -651,13 +652,13 @@ class BatchedDecoder:
                 renew[i] = True
             elif alg == ALG_I:
                 renew[i] = True
-                i_parse[i] = parse_i_header(data, 1, cfg)
+                i_parse[i] = _read_container(read_i_container, data, cfg, where, i)
             elif alg != ALG_P:
                 raise bs.CorruptStreamError(f"{where(i)}: unknown algorithm {alg}")
             elif not have_prev:
                 raise bs.CorruptStreamError(f"{where(i)}: P-frame before keyframe")
             else:
-                p_parse[i] = parse_p_header(data, 1, cfg)
+                p_parse[i] = _read_container(read_p_container, data, cfg, where, i)
         coded_p = [i for i, x in p_parse.items() if x is not None]
         p_mask = np.zeros(s, bool)
         p_mask[coded_p] = True
@@ -668,17 +669,17 @@ class BatchedDecoder:
         if i_parse:
             ids = plan["i_ids"]
             plan["i_n"] = [(i_parse[i][2], i_parse[i][3]) for i in ids]
-            host += [np.asarray(ids, np.int64), _stack_payloads([i_parse[i][0] for i in ids]),
-                     _stack_payloads([i_parse[i][1] for i in ids])]
+            host += [np.asarray(ids, np.int64)]
+            host += [_stack_lanes(payloads, ids, [i_parse[i][j] for i in ids]) for j in (0, 1)]
         if coded_p:
             rows = []
             for i in coded_p:
-                _pl, ns, _kts, (xx1, xx2, _n_mv, n_data) = p_parse[i]
+                _lanes, ns, _kts, (xx1, xx2, _n_mv, n_data) = p_parse[i]
                 rows.append(header_row(ns, xx1, xx2, n_data))
             lay_host, plan["p_layout"] = step_layout_host(rows)
             host += [np.asarray(coded_p, np.int64), lay_host]
-            host += [_stack_payloads([p_parse[i][0][name] for i in coded_p])
-                     for name in SECTION_NAMES]
+            host += [_stack_lanes(payloads, coded_p, [p_parse[i][0][j] for i in coded_p])
+                     for j in range(len(SECTION_NAMES))]
         if raws:
             host += [np.asarray(list(raws), np.int64), np.stack(list(raws.values()))]
         if flats:
@@ -760,13 +761,22 @@ class BatchedDecoder:
             self._raise_errs(to_host(pend[0], "serving.validate"), pend[1])
 
 
-def _stack_payloads(pays) -> np.ndarray:
-    """[K, L_i] numpy lane payloads -> one [C, K, max L] uint8 array."""
-    out = np.zeros((len(pays),) + pays[0].shape[:1] + (max(p.shape[1] for p in pays),),
-                   np.uint8)
-    for j, p in enumerate(pays):
-        out[j, :, :p.shape[1]] = p
-    return out
+def _read_container(read, data: bytes, cfg: CodecConfig, where, i: int):
+    """read(data, 1, cfg), a CorruptStreamError naming stream i as where(i)."""
+    try:
+        return read(data, 1, cfg)
+    except bs.CorruptStreamError as e:
+        raise bs.CorruptStreamError(f"{where(i)}: {e}") from None
+
+
+def _stack_lanes(payloads, ids, lanes) -> np.ndarray:
+    """One section of the streams `ids`, lanes holding each one's
+    bitstream.read_section (sizes, first, end) in its payload -> [C, K, L]
+    uint8, L = max(largest lane, 4): one join and one masked copy."""
+    sizes = np.stack([sz for sz, _, _ in lanes])
+    joined = b"".join([memoryview(payloads[i])[a:b] for i, (_, a, b) in zip(ids, lanes)])
+    telemetry.count("serving.decode.lanes", sizes.size)
+    return tc.pad_lanes(joined, sizes)
 
 
 def serve_pipelined(enc: BatchedEncoder, batches, dec: BatchedDecoder | None = None,

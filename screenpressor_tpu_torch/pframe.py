@@ -351,10 +351,11 @@ def p_header(handle) -> bytes:
 # ---------------------------------------------------------------------------
 
 
-def parse_p_header(data: bytes, pos: int, cfg: CodecConfig):
-    """Host-side container parse + validation. Returns None for a no-change
-    frame, else (payloads {name: [K, L] uint8}, ns, kts, (xx1, xx2, n_mv,
-    n_data))."""
+def read_p_container(data: bytes, pos: int, cfg: CodecConfig):
+    """Host-side container parse + validation, the payload bytes left where
+    they lie. Returns None for a no-change frame, else (lanes, ns, kts,
+    (xx1, xx2, n_mv, n_data)), lanes holding each section's
+    bitstream.read_section (sizes, first, end) in SECTION_NAMES order."""
     if pos >= len(data):
         raise bs.CorruptStreamError("truncated P-frame")
     flags = data[pos]
@@ -370,16 +371,28 @@ def parse_p_header(data: bytes, pos: int, cfg: CodecConfig):
         raise bs.CorruptStreamError("section counts out of bounds")
     if n_bt == 0:
         raise bs.CorruptStreamError("empty block-type section")
-    counts = {"bt": n_bt, "sxy": n_sxy, "mv": n_mv, "rec": n_pix, "col": n_lit}
-    kts, payloads, ns = [], {}, {}
+    ns = {"bt": n_bt, "sxy": n_sxy, "mv": n_mv, "rec": n_pix, "col": n_lit}
+    kts, lanes = [], []
     for name in SECTION_NAMES:
-        n = counts[name]
-        k = cfg.lanes(n)
-        blobs, pos = bs.unpack_section(data, pos, k)
-        kts.append((name, k, tc.steps_for(n, k)))
-        payloads[name] = tc.pad_payload(blobs, k)
-        ns[name] = n
-    return payloads, ns, tuple(kts), (xx1, xx2, n_mv, n_data)
+        k = cfg.lanes(ns[name])
+        lanes.append(bs.read_section(data, pos, k))
+        pos = lanes[-1][2]
+        kts.append((name, k, tc.steps_for(ns[name], k)))
+    return lanes, ns, tuple(kts), (xx1, xx2, n_mv, n_data)
+
+
+def parse_p_header(data: bytes, pos: int, cfg: CodecConfig):
+    """read_p_container with each section's lanes as a [K, L] uint8 array.
+    Returns None for a no-change frame, else (payloads {name: [K, L]
+    uint8}, ns, kts, (xx1, xx2, n_mv, n_data))."""
+    got = read_p_container(data, pos, cfg)
+    if got is None:
+        return None
+    lanes, ns, kts, rest = got
+    view = memoryview(data)
+    payloads = {name: tc.pad_lanes(view[first:end], sizes)
+                for name, (sizes, first, end) in zip(SECTION_NAMES, lanes)}
+    return payloads, ns, kts, rest
 
 
 def decode_p_sections(payloads: dict, ns: dict, kts, tables: dict):

@@ -119,8 +119,10 @@ def counts() -> dict[str, int]:
     counts (`frames.I`, `frames.P`, `frames.flat`, `frames.unchanged`,
     `frames.raw`, `blocks.data`, `blocks.motion`) and where the session
     API converted its frames (`api.convert.device_frames`,
-    `api.convert.host_frames`), and the bytes a split serving session moves
-    between devices (`serving.dp.scatter_bytes`, `serving.dp.gather_bytes`)."""
+    `api.convert.host_frames`), the bytes a split serving session moves
+    between devices (`serving.dp.scatter_bytes`, `serving.dp.gather_bytes`),
+    and the lanes a serving decode step's parse cut, over its coded streams'
+    sections (`serving.decode.lanes`)."""
     out = dict(_COUNTS)
     out.update({f"launch.{k}": v for k, v in _build.LAUNCHES.items()})
     return out

@@ -28,6 +28,7 @@ from screenpressor_tpu_torch import (
     TorchEncoder,
     telemetry,
 )
+from screenpressor_tpu_torch.config import ALG_FLAT, ALG_I, ALG_P
 from screenpressor_tpu_torch.parallel.serving import BatchedDecoder, BatchedEncoder, serve_pipelined
 from screenpressor_tpu_torch.synth import synth_screencast
 
@@ -92,6 +93,28 @@ def test_counters_count_frame_kinds_and_blocks():
     assert [t for _, t in outs] == [0, 1, 1, 1, 0]
     telemetry.reset()
     assert telemetry.counts()["sync"] == 0 and telemetry.spans() == []
+
+
+def test_decode_lanes_counter_counts_the_step_parse():
+    """`serving.decode.lanes`: sections x k_fixed x coded streams a step (5
+    sections a P frame, 2 a keyframe); 0 on steps of unchanged or flat
+    frames."""
+    cfg = CodecConfig(width=W, height=H, kf_interval=8, k_fixed=8, msr_x=16, msr_y=16)
+    enc, dec = BatchedEncoder(3, cfg, "cpu"), BatchedDecoder(3, cfg, "cpu")
+    # a keyframe, a scroll, typing, an idle frame; then two flat frames
+    steps = [np.stack([np.roll(f, 5 * i, axis=1) for i in range(3)])
+             for f in synth_screencast(H, W, 4)]
+    flat = np.full_like(steps[0], 77)
+    got = []
+    for frames in steps + [flat, flat]:
+        pays = [p for p, _ in enc.encode(frames)]
+        before = telemetry.counts().get("serving.decode.lanes", 0)
+        dec.decode(pays)
+        kinds = [(p[0] & 0x0F) if len(p) > 2 else "unchanged" for p in pays]
+        got.append((kinds, telemetry.counts().get("serving.decode.lanes", 0) - before))
+    k = cfg.k_fixed
+    assert got == [([ALG_I] * 3, 2 * k * 3), ([ALG_P] * 3, 5 * k * 3), ([ALG_P] * 3, 5 * k * 3),
+                   (["unchanged"] * 3, 0), ([ALG_FLAT] * 3, 0), ([ALG_FLAT] * 3, 0)], got
 
 
 # -- (b) the spans' names, parents and units -------------------------------------
