@@ -64,7 +64,6 @@ def parse_format_prefix(data: bytes):
 
 
 _WIDTHS = (1, 2, 4)
-_WIDTH_FMT = {1: "B", 2: "H", 4: "I"}
 _WIDTH_DTYPE = {1: np.dtype("<u1"), 2: np.dtype("<u2"), 4: np.dtype("<u4")}
 
 
@@ -85,18 +84,23 @@ def section_status_byte(k: int, width: int) -> int:
     return klog | (_WIDTHS.index(width) << 4)
 
 
+def write_section(k: int, sizes: np.ndarray, payload: np.ndarray) -> bytes:
+    """Lane container of k lanes: status byte + minimal-width size table of
+    `sizes` [k] + the lanes' bytes back to back (`payload`, uint8). The
+    inverse of read_section."""
+    w = size_width(int(sizes.max(initial=0)))
+    return (bytes([section_status_byte(k, w)]) + sizes.astype(_WIDTH_DTYPE[w]).tobytes()
+            + payload.tobytes())
+
+
 def pack_section(blobs: list[bytes]) -> bytes:
     """Lane container: status byte + minimal-width size table + payloads."""
-    k = len(blobs)
-    w = size_width(max((len(b) for b in blobs), default=0))
-    out = [bytes([section_status_byte(k, w)])]
-    out.append(struct.pack(f"<{k}{_WIDTH_FMT[w]}", *(len(b) for b in blobs)))
-    out.extend(blobs)
-    return b"".join(out)
+    return write_section(len(blobs), np.asarray([len(b) for b in blobs], np.int64),
+                         np.frombuffer(b"".join(blobs), np.uint8))
 
 
 def read_section(data: bytes, pos: int, expected_k: int):
-    """The lane container at `pos` (pack_section's layout), checked whole:
+    """The lane container at `pos` (write_section's layout), checked whole:
     (sizes [k] int64, the position of its first payload byte, the position
     past it). Its lanes lie back to back from that first byte."""
     if pos >= len(data):

@@ -6,8 +6,9 @@ deferred validity checks), with the heavy passes on the session's device.
 `encode_batch` runs a batch phase by phase so that it pays a fixed number
 of device-to-host copies per batch: the analysis counts (A), the data-block
 record counts (B), the section sizes (C) and one gather of every payload
-byte of the batch (D); the host then assembles the containers (E). Phase A
-analyses every P frame of the batch in one stream-batched call
+byte of the batch (D); the host then assembles the containers (E) with the
+container writer (`container`, which also lays out phase D's gather).
+Phase A analyses every P frame of the batch in one stream-batched call
 (`blocks.analyze_compact_streams`), phase B classifies the data blocks of
 all of them in one (`pframe.classify_assemble_streams`); phase C chains
 the tables frame by frame.
@@ -25,46 +26,30 @@ import numpy as np
 import torch
 
 from screenpressor_tpu_torch import bitstream as bs
+from screenpressor_tpu_torch import container as ct
 from screenpressor_tpu_torch import telemetry
-from screenpressor_tpu_torch.colorspace import rgb24_to_rgb32_batch
-from screenpressor_tpu_torch.config import ALG_FLAT, ALG_I, ALG_P, ALG_RAW, CodecConfig
+from screenpressor_tpu_torch.colorspace import apply_loss, rgb24_to_rgb32_batch
+from screenpressor_tpu_torch.config import (ALG_FLAT, ALG_I, ALG_P, ALG_RAW, FTYPE_I, FTYPE_P,
+                                            CodecConfig)
 from screenpressor_tpu_torch.blocks import AREA, analyze_compact_streams, mv_candidates
-from screenpressor_tpu_torch.coder import col_compact_bucket, upload
+from screenpressor_tpu_torch.coder import col_compact_bucket
 from screenpressor_tpu_torch.iframe import (
     decode_i_device,
     encode_i_raw,
-    i_geometry,
     i_phase,
     parse_i_header,
 )
 from screenpressor_tpu_torch.pframe import (
+    SECTION_NAMES,
     classify_assemble_streams,
     decode_p_device,
     encode_p_sections,
-    p_header,
     parse_p_header,
     payloads_to_device,
     raise_p_error,
 )
 from screenpressor_tpu_torch.tables import renew_tables_cached
-
-FTYPE_I = 0
-FTYPE_P = 1
-
-
-def apply_loss(frame: torch.Tensor, loss: int) -> torch.Tensor:
-    """Bit-truncation loss with half-step correction (spec.codec.apply_loss)."""
-    if loss <= 0:
-        return frame
-    mask = 0xFF & ~((1 << loss) - 1)
-    corr = (1 << loss) >> 1
-    return (frame & mask) | corr
-
-
-def to_host(t: torch.Tensor, site: str) -> np.ndarray:
-    """t as a numpy array: one device-to-host copy, a host sync at `site`."""
-    with telemetry.sync(site):
-        return t.cpu().numpy()
+from screenpressor_tpu_torch.transfer import owned_frames, pull, to_device, to_host
 
 
 class ReusedBuffer:
@@ -103,60 +88,6 @@ def own_frames(outs, prev) -> list:
     return owned
 
 
-def _pull(tensors):
-    """One device-to-host copy of a list of small int tensors -> list of
-    numpy arrays."""
-    if not tensors:
-        return []
-    flat = to_host(torch.cat([t.reshape(-1).to(torch.int64) for t in tensors]), "codec.pull")
-    out, pos = [], 0
-    for t in tensors:
-        out.append(flat[pos: pos + t.numel()])
-        pos += t.numel()
-    return out
-
-
-def owned_frames(frames, device) -> torch.Tensor:
-    """Frames (numpy or tensor) as uint8 on `device`, in storage of their
-    own: a session keeps the last ones as `prev`, which must not change when
-    the caller refills its capture buffer. One copy, contiguous (the kernels
-    take raw pointers; an RGB32 frame's RGB view is strided)."""
-    if not isinstance(frames, torch.Tensor):
-        with telemetry.sync("codec.owned_frames"):
-            return torch.tensor(np.ascontiguousarray(frames, np.uint8), device=device)
-    crossing = frames.device.type != torch.device(device).type  # host <-> card
-    with telemetry.sync("codec.owned_frames") if crossing else telemetry.NOOP:
-        return frames.to(device, torch.uint8, copy=True, memory_format=torch.contiguous_format)
-
-
-def gather_segments_device(parts, segs, device) -> torch.Tensor:
-    """One torch.cat + index on the device: parts are flat uint8 tensors,
-    segs (part, offset, length) byte ranges. Returns the concatenated bytes
-    as a uint8 tensor. The ranges go up in one non-blocking upload and are
-    expanded into byte indices on the device."""
-    if not segs:
-        return torch.zeros(0, dtype=torch.uint8, device=device)
-    bases = np.cumsum([0] + [p.numel() for p in parts])
-    seg = np.asarray(segs, np.int64).reshape(-1, 3)
-    lens = seg[:, 2]
-    total = int(lens.sum())
-    flat = torch.cat(parts)
-    if not total:
-        return flat[:0]
-    # each byte's source is its range's start minus the range's output
-    # offset, plus its own output position
-    shift = bases[seg[:, 0]] + seg[:, 1] - (np.cumsum(lens) - lens)
-    meta = upload(np.concatenate([shift, lens]), flat.device)
-    idx = torch.repeat_interleave(meta[:len(seg)], meta[len(seg):], output_size=total)
-    return flat[idx + torch.arange(total, device=flat.device)]
-
-
-def gather_segments(parts, segs):
-    """gather_segments_device + one device-to-host copy -> numpy bytes."""
-    dev = parts[0].device if parts else "cpu"
-    return to_host(gather_segments_device(parts, segs, dev), "codec.gather")
-
-
 class TorchEncoder:
     def __init__(self, cfg: CodecConfig, device="cuda"):
         self.cfg = cfg
@@ -166,9 +97,8 @@ class TorchEncoder:
         self.fn = 0
         self.last_was_flat = False
         self.last_flat_color: tuple | None = None
-        with telemetry.sync("codec.cands"):
-            self.cands = torch.tensor(mv_candidates(cfg), dtype=torch.int32,
-                                      device=self.device).reshape(-1, 2)
+        self.cands = to_device(mv_candidates(cfg), self.device, "codec.cands",
+                               torch.int32).reshape(-1, 2)
 
     def encode(self, frame, force_key: bool = False):
         return self.encode_batch([frame], force_key=force_key)[0]
@@ -184,8 +114,6 @@ class TorchEncoder:
 
     def _encode_batch(self, frames, force_key, owned):
         cfg = self.cfg
-        h, w = cfg.height, cfg.width
-        raw_size = 1 + w * h * 3
         n = len(frames)
         if n == 0:
             return []
@@ -225,8 +153,8 @@ class TorchEncoder:
                     counts.append(c)
                 else:
                     plans.append(("P", {name: a[row_of[i]] for name, a in p_arrs.items()}))
-            pulled = _pull(counts)
-            p_rows = pulled.pop(0).reshape(len(p_idx), -1) if p_idx else np.zeros((0, 11))
+            pulled = pull([counts], "codec.pull")[0]
+            p_rows = pulled.pop(0).astype(np.int64) if p_idx else np.zeros((0, 11), np.int64)
             counts_host = [p_rows[row_of[i]] if kinds[i] == "P" else pulled.pop(0)
                            for i in range(n)]
 
@@ -244,8 +172,7 @@ class TorchEncoder:
             if n_data.any():
                 pix, lit, pl, bms, roff = classify_assemble_streams(
                     p_frames, p_prevs, p_arrs["data_rects"], n_data)
-                (pl_rows,) = _pull([pl])
-                pl_rows = pl_rows.reshape(len(p_idx), 3)
+                (pl_rows,) = pull([[pl]], "codec.pull")[0]
                 for j in np.nonzero(n_data)[0]:
                     rows = slice(int(roff[j]), int(roff[j] + n_data[j] * AREA))
                     i = p_idx[j]
@@ -257,8 +184,7 @@ class TorchEncoder:
             tables = self.tables
             last_flat, last_color = self.last_was_flat, self.last_flat_color
             results: list = [None] * n
-            handles: list = [None] * n
-            small = []
+            coded, small = [], []  # the coded frames, and what each pulls
             for i, (kind, payload) in enumerate(plans):
                 ch = counts_host[i]
                 flat, color = flat_of(kind, ch)
@@ -267,7 +193,7 @@ class TorchEncoder:
                         tables = renew_tables_cached(self.device)
                         last_color = color
                     last_flat = True
-                    results[i] = (bytes([bs.header_byte(ALG_FLAT), *color]), FTYPE_I)
+                    results[i] = (ct.flat_frame(color), FTYPE_I)
                     telemetry.count("frames.flat")
                     continue
                 last_flat = False
@@ -275,89 +201,40 @@ class TorchEncoder:
                     n_rec, n_lit = int(ch[0]), int(ch[1])
                     records, lits, bm = payload
                     out = encode_i_raw(records, n_rec, lits, n_lit,
-                                       renew_tables_cached(self.device), cfg, raw_size,
+                                       renew_tables_cached(self.device), cfg, ct.raw_size(cfg),
                                        col_compact_bucket(int(ch[6])), bm)
                     tables = out[7]
-                    k_rec, _, k_col, _ = i_geometry(n_rec, n_lit, cfg)
-                    handles[i] = ("I", (n_rec, n_lit),
-                                  [(out[0], k_rec), (out[3], k_col)])
-                    small.append([out[1], out[2], out[4], out[5], out[6]])
+                    coded.append((i, "I", ct.i_head(n_rec, n_lit), [out[0], out[3]]))
+                    small.append([out[6], out[1], out[4], out[2], out[5]])
                 elif not ch[0]:
-                    results[i] = (bytes([bs.header_byte(ALG_P), 0]), FTYPE_P)
+                    results[i] = (ct.UNCHANGED_P, FTYPE_P)
                     telemetry.count("frames.unchanged")
                 else:
                     telemetry.count("blocks.motion", ch[5])
                     telemetry.count("blocks.data", ch[6])
                     handle, tables = encode_p_sections(
                         payload, ch, phase_b[i], pl_host.get(i), tables, cfg)
-                    kts, _nums, _hdr, bufs, starts, lens_l, stats = handle
-                    handles[i] = ("P", handle,
-                                  [(buf, k) for buf, (_, k, _) in zip(bufs, kts)])
-                    pieces = []
-                    for start, lens in zip(starts, lens_l):
-                        pieces.extend([start, lens])
-                    small.append(pieces + [stats])
-            flat_small = _pull([t for pieces in small for t in pieces])
+                    _kts, nums, (xx1, xx2, n_data), bufs, starts, lens_l, stats = handle
+                    head = ct.p_head([xx1, xx2, *(nums[s] for s in SECTION_NAMES), n_data])
+                    coded.append((i, "P", head, bufs))
+                    small.append([stats, *starts, *lens_l])
+            pulled = pull(small, "codec.pull")
 
         # ---- phase D: one gather of every payload byte of the batch ----
         with telemetry.span("sptc.codec.encode.gather"):
-            parts, segs, layouts = [], [], [None] * n
-            cursor = 0
-            for i, hnd in enumerate(handles):
-                if hnd is None:
-                    continue
-                sections = hnd[2]
-                got = flat_small[cursor: cursor + 2 * len(sections) + 1]
-                cursor += 2 * len(sections) + 1
-                total, is_raw = int(got[-1][0]), bool(got[-1][1])
-                telemetry.count("frames.raw" if is_raw else "frames." + hnd[0])
-                sizes_l = []
-                if is_raw:
-                    parts.append(devs[i].reshape(-1))
-                    segs.append((len(parts) - 1, 0, h * w * 3))
-                for (buf, k), start, lens in zip(sections, got[0::2], got[1::2]):
-                    cap = buf.shape[1]
-                    sizes = np.where(lens > 0, cap - start, 0).astype(np.int64)
-                    sizes_l.append(sizes)
-                    if is_raw:
-                        continue
-                    parts.append(buf.reshape(-1))
-                    segs.extend((len(parts) - 1, lane * cap + int(start[lane]),
-                                 int(sizes[lane])) for lane in range(k) if sizes[lane])
-                layouts[i] = (total, is_raw, sizes_l)
-            tight = gather_segments(parts, segs)
+            parts, segs, layouts = [], [], []
+            for (i, kind, head, bufs), got in zip(coded, pulled):
+                raw = bool(got[0][1])
+                telemetry.count("frames.raw" if raw else "frames." + kind)
+                layouts.append((i, FTYPE_P if kind == "P" and not raw else FTYPE_I,
+                                ct.frame_layout(parts, segs, head, bufs, got, devs[i].reshape(-1))))
+            tight = ct.gather_segments(parts, segs)
 
         # ---- phase E: container assembly on the host ----
         with telemetry.span("sptc.codec.encode.assemble"):
             pos = 0
-            for i, lay in enumerate(layouts):
-                if lay is None:
-                    continue
-                total, is_raw, sizes_l = lay
-                if is_raw:
-                    data = bytes([bs.header_byte(ALG_RAW)]) + tight[pos:pos + h * w * 3].tobytes()
-                    pos += h * w * 3
-                    results[i] = (data, FTYPE_I)
-                    continue
-                chunks = []
-                for sizes in sizes_l:
-                    width = bs.size_width(int(sizes.max(initial=0)))
-                    end = pos + int(sizes.sum())
-                    chunks.append(bytes([bs.section_status_byte(len(sizes), width)])
-                                  + sizes.astype(f"<u{width}").tobytes()
-                                  + tight[pos:end].tobytes())
-                    pos = end
-                if handles[i][0] == "I":
-                    n_rec, n_lit = handles[i][1]
-                    head = bytes([bs.header_byte(ALG_I)]) + bs.pack_varint(n_rec, n_lit)
-                    ftype = FTYPE_I
-                else:
-                    head = p_header(handles[i][1])
-                    ftype = FTYPE_P
-                data = head + b"".join(chunks)
-                if len(data) != total:
-                    raise RuntimeError(f"frame {i}: container {len(data)} B, "
-                                       f"device size rule {total} B")
+            for i, ftype, (head, sizes_l, body, total) in layouts:
+                data, pos = ct.assemble(head, tight, pos, sizes_l, body, total)
                 results[i] = (data, ftype)
 
         # ---- commit session state ----
@@ -415,9 +292,8 @@ class TorchDecoder:
                     if len(data) < 4:
                         raise bs.CorruptStreamError("truncated flat frame")
                     color = (data[1], data[2], data[3])
-                    with telemetry.sync("codec.decode.flat"):
-                        frame = torch.tensor(color, dtype=torch.uint8,
-                                             device=dev).expand(h, w, 3).contiguous()
+                    frame = to_device(color, dev, "codec.decode.flat",
+                                      torch.uint8).expand(h, w, 3).contiguous()
                     if not (last_flat and color == last_color):
                         prev = frame
                         tables = renew_tables_cached(dev)
@@ -428,10 +304,8 @@ class TorchDecoder:
                 last_flat = False
                 if alg == ALG_I:
                     pay_rec, pay_col, n_rec, n_lit = parse_i_header(data, 1, cfg)
-                    with telemetry.sync("codec.decode.i_payload"):
-                        rec_d = torch.as_tensor(pay_rec, device=dev)
-                    with telemetry.sync("codec.decode.i_payload"):
-                        col_d = torch.as_tensor(pay_col, device=dev)
+                    rec_d = to_device(pay_rec, dev, "codec.decode.i_payload")
+                    col_d = to_device(pay_col, dev, "codec.decode.i_payload")
                     frame, total, tables = decode_i_device(
                         rec_d, col_d, n_rec, n_lit, renew_tables_cached(dev), cfg)
                     checks.append((i, (total != w * h).to(torch.int32)))
@@ -440,11 +314,10 @@ class TorchDecoder:
                     continue
                 if alg == ALG_RAW:
                     npix = h * w * 3
-                    if len(data) < 1 + npix:
+                    if len(data) < ct.raw_size(cfg):
                         raise bs.CorruptStreamError("truncated raw frame")
                     arr = np.frombuffer(data, np.uint8, npix, 1).reshape(h, w, 3)
-                    with telemetry.sync("codec.decode.raw"):
-                        frame = torch.as_tensor(arr.copy(), device=dev)
+                    frame = to_device(arr.copy(), dev, "codec.decode.raw")
                     tables = renew_tables_cached(dev)
                     prev = frame
                     outs[i] = frame

@@ -28,7 +28,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from screenpressor_tpu_torch import telemetry
 from screenpressor_tpu_torch.config import (
     COL_COMPACT_BUCKETS,
     COLOR_CTX_ROWS,
@@ -41,6 +40,7 @@ from screenpressor_tpu_torch.config import (
 )
 from screenpressor_tpu_torch.substeps import SUBSTEP_CODECS as CODECS
 from screenpressor_tpu_torch.tables import effective_rows, update_batch
+from screenpressor_tpu_torch.transfer import to_device
 
 MASK = PROB_SCALE - 1
 X_MAX_SHIFT = 23 - PROB_BITS + 8
@@ -71,16 +71,6 @@ def gather_order(n: int, k: int):
     lane = np.where(g < cut, g // (base + 1), rem + (g - cut) // max(base, 1))
     t = np.where(g < cut, g % (base + 1), (g - cut) % max(base, 1))
     return lane.astype(np.int64), t.astype(np.int64)
-
-
-def upload(host: np.ndarray, device) -> torch.Tensor:
-    """A host array on `device`, without waiting for the device's queue: on
-    a CUDA device through pinned memory and a non-blocking copy (a plain
-    pageable copy waits for the queue to drain)."""
-    t = torch.as_tensor(np.ascontiguousarray(host))
-    if torch.device(device).type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
 
 
 def deal(records_cap: torch.Tensor, n: int, k: int, t: int) -> torch.Tensor:
@@ -532,8 +522,7 @@ def color_compact_streams(recs: torch.Tensor, lens: torch.Tensor, bm: torch.Tens
     rows = _col_rows_exact(recs, lens)
     slots = lut.gather(1, rows.reshape(c, -1).long()).reshape(rows.shape)
     recs_c = torch.cat([recs.to(I32), slots], dim=-1)
-    with telemetry.sync("coder.color_compact"):
-        st = torch.as_tensor(sidx, device=dev).long()
+    st = to_device(sidx, dev, "coder.color_compact").long()
     src = torch.where(valid, perm, 0)  # filler reads row 0 (never indexed)
     ctab_c = {"cnt": ctab_b["cnt"][st[:, None], src],
               "cntsum": ctab_b["cntsum"][st[:, None], src]}

@@ -10,7 +10,8 @@ session (the reference's `ScreenCodec`, `screencap.cpp:1652-1678` inbound,
 to 255 on RGB32 output `:1721`). RGB16 carries the raw masked channel
 bits, with no scaling. The session API converts RGB32 a batch at a time
 with the `*_batch` functions: K7 (`csrc/pixels.cu`, one launch) on the
-card, their plain versions on the CPU.
+card, their plain versions on the CPU. `apply_loss` is the lossy modes'
+bit truncation of RGB24 frames.
 """
 
 from __future__ import annotations
@@ -187,3 +188,12 @@ def to_dib(frame: np.ndarray, bpp: int = 24, stride: int | None = None) -> bytes
         px = out
     rows[:, : w * ch] = px.reshape(h, w * ch)
     return rows.tobytes()
+
+
+def apply_loss(frame: torch.Tensor, loss: int) -> torch.Tensor:
+    """Bit-truncation loss with half-step correction (spec.codec.apply_loss)."""
+    if loss <= 0:
+        return frame
+    mask = 0xFF & ~((1 << loss) - 1)
+    corr = (1 << loss) >> 1
+    return (frame & mask) | corr

@@ -38,6 +38,10 @@ ALG_P = 3
 ALG_RAW = 4  # uncompressed escape
 ALG_FMT = 5  # pixel-format prefix chunk
 
+# Frame types an encoder reports beside a frame's bytes (a raw escape is I)
+FTYPE_I = 0
+FTYPE_P = 1
+
 BLOCK = 16  # block geometry of P frames
 SEG_TILE = 1024  # I-frame segmentation tile of small frames
 

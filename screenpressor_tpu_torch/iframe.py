@@ -12,6 +12,7 @@ import torch
 from screenpressor_tpu_torch import bitstream as bs
 from screenpressor_tpu_torch.config import CodecConfig
 from screenpressor_tpu_torch import coder as tc
+from screenpressor_tpu_torch.container import frame_bytes, i_head, raw_escape
 from screenpressor_tpu_torch.classify import classify_i
 from screenpressor_tpu_torch.recon import reconstruct_i
 from screenpressor_tpu_torch.tables import renew_tables_cached, select_tables
@@ -36,21 +37,6 @@ def i_geometry(n_rec: int, n_lit: int, cfg: CodecConfig):
     """(k_rec, t_rec, k_col, t_col) for a keyframe's two sections."""
     k_rec, k_col = cfg.lanes(n_rec), cfg.lanes(n_lit)
     return k_rec, tc.steps_for(n_rec, k_rec), k_col, tc.steps_for(n_lit, k_col)
-
-
-def varint_len(v: int) -> int:
-    """Encoded LEB128 length (matches bs.pack_varint)."""
-    return len(bs.pack_varint(v))
-
-
-def section_bytes(starts: torch.Tensor, lens: torch.Tensor, cap: int,
-                  k: int) -> torch.Tensor:
-    """Exact container bytes of one lane section (status byte +
-    minimal-width size table + payloads), matching bs.pack_section."""
-    sizes = torch.where(lens > 0, cap - starts, 0)
-    m = sizes.max()
-    w = torch.where(m < 1 << 8, 1, torch.where(m < 1 << 16, 2, 4))
-    return (1 + k * w + sizes.sum()).to(I32)
 
 
 def encode_i_from_records(records, n_rec: int, lits, n_lit: int, tables: dict,
@@ -79,11 +65,9 @@ def encode_i_raw(records, n_rec: int, lits, n_lit: int, tables: dict,
     out = encode_i_from_records(records, n_rec, lits, n_lit, tables, cfg, col_w,
                                 col_bm)
     buf_rec, start_rec, lens_rec, buf_col, start_col, lens_col, tables2 = out
-    k_rec, _, k_col, _ = i_geometry(n_rec, n_lit, cfg)
-    total = (1 + varint_len(n_rec) + varint_len(n_lit)
-             + section_bytes(start_rec, lens_rec, buf_rec.shape[1], k_rec)
-             + section_bytes(start_col, lens_col, buf_col.shape[1], k_col))
-    is_raw = total >= raw_threshold
+    total = frame_bytes(i_head(n_rec, n_lit), [buf_rec, buf_col], [start_rec, start_col],
+                        [lens_rec, lens_col])
+    is_raw = raw_escape(total, raw_threshold)
     sel = select_tables(is_raw, renew_tables_cached(records.device), tables2)
     stats = torch.stack([total, is_raw.to(I32)])
     return buf_rec, start_rec, lens_rec, buf_col, start_col, lens_col, stats, sel

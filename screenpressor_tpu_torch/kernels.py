@@ -46,8 +46,9 @@ from screenpressor_tpu_torch.config import (
     kind_step,
 )
 from screenpressor_tpu_torch import _build
-from screenpressor_tpu_torch.coder import pack_cap, upload
+from screenpressor_tpu_torch.coder import pack_cap
 from screenpressor_tpu_torch.substeps import SUBSTEP_CODECS as CODECS
+from screenpressor_tpu_torch.transfer import upload
 
 AREA = BLOCK * BLOCK
 KIND_ORDER = ("ptype", "nrun", "color", "bt", "btn", "sxy", "mvflag", "mv")

@@ -30,7 +30,6 @@ caller passes others (`devices=["cpu"] * n` on a machine without a card).
 
 from __future__ import annotations
 
-import contextlib
 import math
 
 import numpy as np
@@ -38,6 +37,7 @@ import torch
 
 from screenpressor_tpu_torch import bitstream as bs
 from screenpressor_tpu_torch import coder as tc
+from screenpressor_tpu_torch import container as ct
 from screenpressor_tpu_torch import telemetry
 from screenpressor_tpu_torch.blocks import (
     analyze_blocks_streams,
@@ -52,15 +52,15 @@ from screenpressor_tpu_torch.classify import (
     run_walk,
     start_types_i,
 )
-from screenpressor_tpu_torch.codec import FTYPE_I, FTYPE_P, _pull, gather_segments
 from screenpressor_tpu_torch.config import (
     ALG_FLAT,
     ALG_I,
     ALG_P,
-    ALG_RAW,
     BLOCK,
     BT_FULL_DATA,
     BT_PARTIAL_DATA,
+    FTYPE_I,
+    FTYPE_P,
     NUM_PTYPES,
     PT_LEFT,
     PT_LITERAL,
@@ -71,16 +71,15 @@ from screenpressor_tpu_torch.config import (
 )
 from screenpressor_tpu_torch.iframe import decode_i_device, encode_i_raw, parse_i_header
 from screenpressor_tpu_torch.pframe import (
-    SECTION_NAMES,
     classify_assemble_streams,
     decode_p_device,
     encode_sections_raw,
-    p_header,
     parse_p_header,
     payloads_to_device,
     raise_p_error,
 )
 from screenpressor_tpu_torch.tables import renew_tables_cached
+from screenpressor_tpu_torch.transfer import on_device, pull, to_device, to_host, upload
 
 I32 = torch.int32
 REC_KINDS = ("ptype", "nrun")  # the tables the rec section updates
@@ -151,12 +150,6 @@ def psum(xs, device) -> torch.Tensor:
     return out
 
 
-def _on(device):
-    """Make `device` current while a shard's work is queued (a kernel
-    launches on the current device's stream)."""
-    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
-
-
 def _stage(name: str):
     """The span of one stage of the sp pipelines ("sptc.sp." + name,
     `telemetry.span`): recorded only while a profiler collects."""
@@ -168,7 +161,7 @@ def _part(x, index, device) -> torch.Tensor:
     `device`: a host array uploads only that part."""
     if isinstance(x, torch.Tensor):
         return x[index].to(device, torch.uint8).contiguous()
-    return tc.upload(np.asarray(x, np.uint8)[index], device)
+    return upload(np.asarray(x, np.uint8)[index], device)
 
 
 def _rows(frame, r0: int, r1: int, rows: int, device) -> torch.Tensor:
@@ -182,8 +175,7 @@ def _rows(frame, r0: int, r1: int, rows: int, device) -> torch.Tensor:
 
 def _host_bytes(frame) -> bytes:
     if isinstance(frame, torch.Tensor):
-        with telemetry.sync("mesh.host_bytes"):
-            frame = frame.cpu().numpy()
+        frame = to_host(frame, "mesh.host_bytes")
     return np.ascontiguousarray(frame, np.uint8).tobytes()
 
 
@@ -256,7 +248,7 @@ def sharded_analysis_step(frames, prevs, mesh: Mesh, loss: int = 0):
         first = fr[0][:, 0, 0]
         fits, changed, flat = [], [], []
         for i, (f, p, halo, dev) in enumerate(zip(fr, pv, halos, devs)):
-            with _on(dev):
+            with on_device(dev):
                 fi = _halo_fits(f, halo)
                 fits.append(_top_row(fi) if i == 0 else fi)
                 changed.append((f != p).reshape(c, -1).any(dim=1).to(I32))
@@ -357,37 +349,6 @@ def _flat_shards(shards, rows, home):
     return flat, c0.to(home, I32)
 
 
-def _sections_container(head: bytes, bufs, starts, lens_l, stats, frame):
-    """Container of one coded frame from its section encode: one copy of the
-    sizes, one gather of the lane bytes. Returns (bytes, is_raw); a raw
-    escape's bytes are the frame's (`frame`, numpy or tensor)."""
-    got = _pull([stats, *starts, *lens_l])
-    total, is_raw = int(got[0][0]), bool(got[0][1])
-    if is_raw:
-        return bytes([bs.header_byte(ALG_RAW)]) + _host_bytes(frame), True
-    n = len(bufs)
-    parts, segs, sizes_l = [], [], []
-    for buf, start, lens in zip(bufs, got[1:1 + n], got[1 + n:]):
-        cap = buf.shape[1]
-        sizes = np.where(lens > 0, cap - start, 0).astype(np.int64)
-        sizes_l.append(sizes)
-        parts.append(buf.reshape(-1))
-        segs.extend((len(parts) - 1, lane * cap + int(start[lane]), int(sizes[lane]))
-                    for lane in range(buf.shape[0]) if sizes[lane])
-    tight = gather_segments(parts, segs)
-    chunks, pos = [head], 0
-    for sizes in sizes_l:
-        width = bs.size_width(int(sizes.max(initial=0)))
-        end = pos + int(sizes.sum())
-        chunks.append(bytes([bs.section_status_byte(len(sizes), width)])
-                      + sizes.astype(f"<u{width}").tobytes() + tight[pos:end].tobytes())
-        pos = end
-    data = b"".join(chunks)
-    if len(data) != total:
-        raise RuntimeError(f"container {len(data)} B, device size rule {total} B")
-    return data, False
-
-
 def _lossless(cfg: CodecConfig) -> None:
     if cfg.loss:
         raise ValueError("the sp pipelines code lossless frames (cfg.loss must be 0)")
@@ -413,25 +374,26 @@ def encode_i_sp(frame, mesh: Mesh, cfg: CodecConfig, tables=None):
     halos = ppermute_down([s[-1] for s in shards])
     outs = []
     for i, (s, halo, dev) in enumerate(zip(shards, halos, devs)):
-        with _on(dev), _stage(f"classify shard {i}"):
+        with on_device(dev), _stage(f"classify shard {i}"):
             outs.append(_classify_shard(s, halo, i == 0, tile))
     flat, c0 = _flat_shards(shards, [r1 - r0 for r0, r1 in bounds], home)
     cnt_rec = all_gather([o[1].reshape(1) for o in outs], home)
     cnt_lit = all_gather([o[3].reshape(1) for o in outs], home)
-    flat_h, c0_h, rec_h, lit_h = _pull([flat, c0, cnt_rec, cnt_lit])
+    flat_h, c0_h, rec_h, lit_h = pull([[flat, c0, cnt_rec, cnt_lit]], "codec.pull")[0]
     if flat_h[0]:
-        return bytes([bs.header_byte(ALG_FLAT), *(int(v) for v in c0_h)]), FTYPE_I, tables
+        return ct.flat_frame(c0_h), FTYPE_I, tables
     n_rec, n_lit = int(rec_h.sum()), int(lit_h.sum())
-    with _on(home), _stage("compaction"):
+    with on_device(home), _stage("compaction"):
         records = _join([o[0] for o in outs], cnt_rec, home, max(n_rec, 1))
         lits = _join([o[2] for o in outs], cnt_lit, home, max(n_lit, 1))
-    with _on(home), _stage("sections"):
+    with on_device(home), _stage("sections"):
         out = encode_i_raw(records, n_rec, lits, n_lit, renew_tables_cached(home), cfg,
-                           1 + w * h * 3)
+                           ct.raw_size(cfg))
         buf_rec, start_rec, lens_rec, buf_col, start_col, lens_col, stats, tables = out
-        head = bytes([bs.header_byte(ALG_I)]) + bs.pack_varint(n_rec, n_lit)
-        data, _ = _sections_container(head, [buf_rec, buf_col], [start_rec, start_col],
-                                      [lens_rec, lens_col], stats, frame)
+        data = ct.write_frame(ct.i_head(n_rec, n_lit), [buf_rec, buf_col],
+                              [start_rec, start_col], [lens_rec, lens_col], stats)
+        if data is None:
+            data = ct.RAW_HEAD + _host_bytes(frame)
     return data, FTYPE_I, tables
 
 
@@ -449,15 +411,14 @@ def decode_i_sp(data: bytes, mesh: Mesh, cfg: CodecConfig, tables=None):
     if alg == ALG_FLAT:
         if len(data) < 4:
             raise bs.CorruptStreamError("truncated flat frame")
-        with telemetry.sync("mesh.decode_i.flat"):
-            color = torch.tensor(list(data[1:4]), dtype=torch.uint8, device=home)
+        color = to_device(list(data[1:4]), home, "mesh.decode_i.flat", torch.uint8)
         return color.expand(h, w, 3).contiguous(), tables
     if alg != ALG_I:
         raise bs.CorruptStreamError("decode_i_sp expects a coded I frame")
     pay_rec, pay_col, n_rec, n_lit = parse_i_header(data, 1, cfg)
-    with _on(home), _stage("decode"):
+    with on_device(home), _stage("decode"):
         frame, total, tables = decode_i_device(
-            tc.upload(pay_rec, home), tc.upload(pay_col, home), n_rec, n_lit,
+            upload(pay_rec, home), upload(pay_col, home), n_rec, n_lit,
             renew_tables_cached(home), cfg)
         with telemetry.sync("mesh.decode_i.check"):
             tiled = int(total) == w * h
@@ -472,8 +433,7 @@ def decode_i_sp(data: bytes, mesh: Mesh, cfg: CodecConfig, tables=None):
 
 
 def _cands(cfg: CodecConfig, device) -> torch.Tensor:
-    with telemetry.sync("mesh.cands"):
-        return torch.tensor(mv_candidates(cfg), dtype=I32, device=device).reshape(-1, 2)
+    return to_device(mv_candidates(cfg), device, "mesh.cands", I32).reshape(-1, 2)
 
 
 def _analyze_shard(full_f, full_p, cands, i: int, h_loc: int, cfg: CodecConfig):
@@ -513,7 +473,7 @@ def encode_p_sp(frame, prev, mesh: Mesh, cfg: CodecConfig, tables: dict):
     escape with renewed tables (ftype I); a flat frame with `tables`
     unchanged (single-frame helper, as `encode_i_sp`)."""
     _lossless(cfg)
-    h, w = cfg.height, cfg.width
+    h = cfg.height
     devs = mesh.devices[0]
     home = devs[0]
     sp = len(devs)
@@ -529,21 +489,21 @@ def encode_p_sp(frame, prev, mesh: Mesh, cfg: CodecConfig, tables: dict):
             full[dev] = (all_gather(fs, dev)[:h], all_gather(ps, dev)[:h], _cands(cfg, dev))
     shard_out = []
     for i, dev in enumerate(devs):
-        with _on(dev), _stage(f"analysis shard {i}"):
+        with on_device(dev), _stage(f"analysis shard {i}"):
             shard_out.append(_analyze_shard(*full[dev], i, h_loc, cfg))
     flat = (psum([o[4] for o in shard_out], home) == sp).to(I32).reshape(1)
     c0 = fs[0][0, 0].to(home, I32)
-    with _on(home), _stage("block records"):
+    with on_device(home), _stage("block records"):
         bts, rects, mvs = (all_gather([o[j] for o in shard_out], home)[:nb][None]
                            for j in range(3))
         bt, sxy, mv, data_rects, counts = compact_block_records(bts, rects, mvs, cfg.nbx,
                                                                 next_pow2(nb))
         nd_sh = all_gather([o[3] for o in shard_out], home)
-    flat_h, c0_h, ch, nd_h = _pull([flat, c0, counts[0], nd_sh])
+    flat_h, c0_h, ch, nd_h = pull([[flat, c0, counts[0], nd_sh]], "codec.pull")[0]
     if flat_h[0]:
-        return bytes([bs.header_byte(ALG_FLAT), *(int(v) for v in c0_h)]), FTYPE_I, tables
+        return ct.flat_frame(c0_h), FTYPE_I, tables
     if not ch[0]:
-        return bytes([bs.header_byte(ALG_P), 0]), FTYPE_P, tables
+        return ct.UNCHANGED_P, FTYPE_P, tables
     _any, xx1, xx2, n_bt, n_sxy, n_mv, n_data = (int(v) for v in ch)
 
     if n_data:
@@ -555,7 +515,7 @@ def encode_p_sp(frame, prev, mesh: Mesh, cfg: CodecConfig, tables: dict):
             nd = int(nd_h[i])
             if not nd:
                 continue
-            with _on(dev), _stage(f"data blocks shard {i}"):
+            with on_device(dev), _stage(f"data blocks shard {i}"):
                 # shard i > 0: its frame with the halo row on top, rows from
                 # i * h_loc - 1, so the rects shift by 1 - i * h_loc and every
                 # local y1 stays > 0 as the global one is. The top shard keeps
@@ -566,21 +526,19 @@ def encode_p_sp(frame, prev, mesh: Mesh, cfg: CodecConfig, tables: dict):
                 if i:
                     f_loc = torch.cat([halos_f[i][None], f_loc])
                     p_loc = torch.cat([halos_p[i][None], p_loc])
-                    with telemetry.sync("mesh.rect_shift"):
-                        shift = torch.tensor([0, i * h_loc - 1, 0, i * h_loc - 1], dtype=I32,
-                                             device=dev)
-                    r = r - shift
+                    r = r - to_device([0, i * h_loc - 1, 0, i * h_loc - 1], dev,
+                                      "mesh.rect_shift", I32)
                 pix, lit, cnt, _bm, _off = classify_assemble_streams(
                     f_loc[None], p_loc[None], r[None], [nd])
             pix_ch.append(pix)
             lit_ch.append(lit)
             cnt_ch.append(cnt[0, :2])
-        with _on(home), _stage("compaction"):
+        with on_device(home), _stage("compaction"):
             cnt = all_gather([c[None] for c in cnt_ch], home)
             cap = int(sum(p.shape[0] for p in pix_ch))
             pix_cap = _join(pix_ch, cnt[:, 0], home, cap)
             lit_cap = _join(lit_ch, cnt[:, 1], home, cap)
-        n_pix, n_lit = (int(v) for v in _pull([cnt.sum(dim=0)])[0])
+        n_pix, n_lit = (int(v) for v in pull([[cnt.sum(dim=0)]], "codec.pull")[0][0])
     else:
         n_pix = n_lit = 0
         pix_cap = torch.zeros((1, 2), dtype=I32, device=home)
@@ -588,12 +546,14 @@ def encode_p_sp(frame, prev, mesh: Mesh, cfg: CodecConfig, tables: dict):
 
     hdr_vals = [xx1, xx2, n_bt, n_sxy, n_mv, n_pix, n_lit, n_data]
     sources = {"bt": bt[0], "sxy": sxy[0], "mv": mv[0], "rec": pix_cap, "col": lit_cap}
-    with _on(home), _stage("sections"):
-        kts, bufs, starts, lens_l, stats, tables2 = encode_sections_raw(
-            sources, hdr_vals, tables, cfg, 1 + w * h * 3)
-        head = p_header((kts, dict(zip(SECTION_NAMES, hdr_vals[2:7])), (xx1, xx2, n_data)))
-        data, is_raw = _sections_container(head, bufs, starts, lens_l, stats, frame)
-    return data, (FTYPE_I if is_raw else FTYPE_P), tables2
+    with on_device(home), _stage("sections"):
+        _kts, bufs, starts, lens_l, stats, tables2 = encode_sections_raw(
+            sources, hdr_vals, tables, cfg, ct.raw_size(cfg))
+        data = ct.write_frame(ct.p_head(hdr_vals), bufs, starts, lens_l, stats)
+        ftype = FTYPE_P
+        if data is None:
+            data, ftype = ct.RAW_HEAD + _host_bytes(frame), FTYPE_I
+    return data, ftype, tables2
 
 
 def decode_p_sp(data: bytes, prev, mesh: Mesh, cfg: CodecConfig, tables: dict):
@@ -613,7 +573,7 @@ def decode_p_sp(data: bytes, prev, mesh: Mesh, cfg: CodecConfig, tables: dict):
     if parsed is None:
         return prev, tables
     payloads, ns, kts, (xx1, xx2, _n_mv, n_data) = parsed
-    with _on(home), _stage("decode"):
+    with on_device(home), _stage("decode"):
         frame, err, tables = decode_p_device(payloads_to_device(payloads, home), ns, kts,
                                              xx1, xx2, n_data, prev, tables, cfg)
         with telemetry.sync("mesh.decode_p.check"):
@@ -671,7 +631,7 @@ def device_encode_step(frame, tables: dict, h: int, w: int, k: int):
     _check_k(h, w, k)
     dev = tables["ptype"]["cnt"].device
     tabs = {kd: {key: v[None].clone() for key, v in tables[kd].items()} for kd in REC_KINDS}
-    with _on(dev):
+    with on_device(dev):
         buf, start, n_rec = _encode_step_streams(_rows(frame, 0, h, h, dev)[None], tabs, k)
     out = dict(tables)
     out.update({kd: {key: v[0] for key, v in tabs[kd].items()} for kd in REC_KINDS})
@@ -698,7 +658,7 @@ def dryrun_step(frames, prevs, tables_b: dict, mesh: Mesh, k: int = 8):
         dev = devs[0]
         tabs = {kd: {key: v[d * c:(d + 1) * c].to(dev, copy=True)
                      for key, v in tables_b[kd].items()} for kd in REC_KINDS}
-        with _on(dev):
+        with on_device(dev):
             buf, start, n_rec = _encode_step_streams(
                 _part(frames, slice(d * c, (d + 1) * c), dev), tabs, k)
         bufs.append(buf)

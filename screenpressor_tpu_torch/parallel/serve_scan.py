@@ -4,14 +4,15 @@ A window advances F serving steps of a `BatchedEncoder` (all S streams) on
 the device with no host read between its steps: analysis, data-block
 classification at a fixed capacity, the section encode (K1) with the raw
 escape, the keyframe slots, the flat / no-change bookkeeping and the
-container bytes all stay on the device, with fixed capacities throughout
-(`WindowConfig`). The steps are a Python loop (torch has no scan); every K1
-launch takes its step count from a capacity, not from pulled counts; the
-block analysis (change map, sub-rects, flat flags, motion search) is one
-K5 launch a step (`blocks.analyze_blocks_streams`), which reads nothing
-back. `encode_window_finish` then makes two pulls: the
+container bytes (the container writer's device emitter,
+`container.container_emit`) all stay on the device, with fixed capacities
+throughout (`WindowConfig`). The steps are a Python loop (torch has no
+scan); every K1 launch takes its step count from a capacity, not from
+pulled counts; the block analysis (change map, sub-rects, flat flags,
+motion search) is one K5 launch a step (`blocks.analyze_blocks_streams`),
+which reads nothing back. `encode_window_finish` then makes two pulls: the
 [F, S] lengths and kinds, then one gather of exactly the used bytes (RAW
-bodies included).
+bodies included), which `container.assemble` cuts into the frames.
 
 Capacities are part of the bytes. Within them a window emits exactly the
 sequential `BatchedEncoder.encode()` bytes; a stream-step beyond them is
@@ -19,7 +20,8 @@ emitted as a RAW frame of its lossy input, and its tables are renewed (the
 reference's rule, serve_scan.py:250-252, 283, 302, 328):
   P: n_data > bcap, n_pix > rec_cap or n_lit > col_cap;
   I: n_rec > irec_cap or n_lit > icol_cap;
-  either: total >= 1 + W * H * 3 or total > pack_cap.
+  either: the size rule's raw escape (`container.raw_escape`) or
+  total > pack_cap.
 The keyframe slots code from renewed tables over the full color table (no
 colw), which changes no byte.
 
@@ -39,117 +41,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from screenpressor_tpu_torch import bitstream as bs
 from screenpressor_tpu_torch import coder as tc
+from screenpressor_tpu_torch import container as ct
 from screenpressor_tpu_torch.blocks import analyze_compact_streams
 from screenpressor_tpu_torch.classify import classify_i_streams
-from screenpressor_tpu_torch.codec import FTYPE_I, FTYPE_P, apply_loss, gather_segments
-from screenpressor_tpu_torch.config import ALG_FLAT, ALG_I, ALG_P, ALG_RAW, next_pow2
-from screenpressor_tpu_torch.parallel.serving import on_device, pull, upload_all
+from screenpressor_tpu_torch.colorspace import apply_loss
+from screenpressor_tpu_torch.config import FTYPE_I, FTYPE_P, next_pow2
 from screenpressor_tpu_torch.pframe import SECTION_NAMES, classify_assemble_fixed
 from screenpressor_tpu_torch.tables import renew_rows_at, renew_where
+from screenpressor_tpu_torch.transfer import on_device, pull, upload, upload_all
 
 # kind codes of the pulled [F, S] matrix
 K_FLAT, K_I, K_NOCHANGE, K_P, K_RAW = 0, 1, 2, 3, 4
 
 U8 = torch.uint8
 I64 = torch.int64
-
-
-# ---------------------------------------------------------------------------
-# Container bytes on the device
-# ---------------------------------------------------------------------------
-
-
-def _varint_emit(vals: torch.Tensor):
-    """vals [C, n] (each < 2^28) -> (bytes [C, 4n] uint8: the n fields'
-    LEB128 concatenated, lens [C]). Mirrors bs.pack_varint."""
-    c, n = vals.shape
-    v = vals.to(I64)
-    ln = 1 + (v >= 1 << 7).long() + (v >= 1 << 14).long() + (v >= 1 << 21).long()
-    offs = ln.cumsum(dim=1) - ln
-    j = torch.arange(4, device=v.device)
-    byts = ((v[..., None] >> (7 * j)) & 0x7F) | torch.where(ln[..., None] > j + 1, 0x80, 0)
-    cap = 4 * n
-    pos = torch.where(j < ln[..., None], offs[..., None] + j, cap)  # column cap: a sink
-    buf = torch.zeros((c, cap + 1), dtype=I64, device=v.device)
-    buf.scatter_(1, pos.reshape(c, -1), byts.reshape(c, -1))
-    return buf[:, :cap].to(U8), ln.sum(dim=1)
-
-
-def _sec_meta_bytes(sizes: torch.Tensor, k: int):
-    """Section status byte + minimal-width size table of C streams' lane
-    sizes [C, k] -> (meta [C, 1 + 4k] uint8, meta lens [C]). Mirrors
-    bs.pack_section's header."""
-    klog = max(0, (k - 1).bit_length())
-    assert (1 << klog) == k
-    c = sizes.shape[0]
-    dev = sizes.device
-    m = sizes.max(dim=1).values
-    wcode = torch.where(m < 1 << 8, 0, torch.where(m < 1 << 16, 1, 2))
-    wid = torch.where(m < 1 << 8, 1, torch.where(m < 1 << 16, 2, 4))[:, None, None]
-    j = torch.arange(4, device=dev)
-    sb = (sizes[..., None] >> (8 * j)) & 0xFF  # [C, k, 4] little endian
-    cap = 1 + 4 * k
-    pos = torch.where(j < wid, 1 + torch.arange(k, device=dev)[None, :, None] * wid + j, cap)
-    meta = torch.zeros((c, cap + 1), dtype=I64, device=dev)
-    meta[:, 0] = klog | (wcode << 4)
-    meta.scatter_(1, pos.reshape(c, -1), sb.reshape(c, -1))
-    return meta[:, :cap].to(U8), 1 + k * wid[:, 0, 0]
-
-
-def _seg_gather(flat: torch.Tensor, src: torch.Tensor, lens: torch.Tensor, cap: int):
-    """Per stream c, the segments flat[src[c, g]: src[c, g] + lens[c, g]]
-    concatenated in order into [C, cap] uint8 (cut at cap) -> (out, total
-    lens [C])."""
-    c, g = src.shape
-    ends = lens.cumsum(dim=1)
-    p = torch.arange(cap, device=flat.device).expand(c, cap).contiguous()
-    seg = torch.searchsorted(ends, p, right=True).clamp(max=g - 1)
-    idx = src.gather(1, seg) + p - (ends.gather(1, seg) - lens.gather(1, seg))
-    out = torch.where(p < ends[:, -1:], flat[idx.clamp(0, flat.numel() - 1)], 0)
-    return out.to(U8), ends[:, -1]
-
-
-def _container_emit(head: torch.Tensor, head_len: torch.Tensor, secs, pack_cap: int):
-    """C streams' whole containers on the device: head [C, hc] uint8
-    (head_len [C] bytes valid), then per section (bufs [C, K, cap], starts
-    [C, K], lens [C, K]) its status byte, size table and lane payloads.
-    Returns (out [C, pack_cap] uint8, total lens [C])."""
-    c, hc = head.shape
-    dev = head.device
-    cid = torch.arange(c, device=dev)[:, None]
-    parts, srcs, lens = [head.reshape(-1)], [cid * hc], [head_len.to(I64)[:, None]]
-    base = c * hc
-    for buf, start, ln in secs:
-        _, k, cap = buf.shape
-        sizes = torch.where(ln > 0, cap - start.to(I64), 0)
-        meta, meta_len = _sec_meta_bytes(sizes, k)
-        parts.append(meta.reshape(-1))
-        srcs.append(base + cid * meta.shape[1])
-        lens.append(meta_len[:, None])
-        base += meta.numel()
-        parts.append(buf.reshape(-1))
-        srcs.append(base + (cid * k + torch.arange(k, device=dev)) * cap + start.to(I64))
-        lens.append(sizes)
-        base += buf.numel()
-    return _seg_gather(torch.cat(parts), torch.cat(srcs, dim=1), torch.cat(lens, dim=1),
-                       pack_cap)
-
-
-def _p_head(hdr_vals: torch.Tensor):
-    """P-frame heads: [hdr(ALG_P), 1] + varint(8 fields) -> ([C, 34], lens)."""
-    vb, vl = _varint_emit(hdr_vals)
-    c = vb.shape[0]
-    pre = [torch.full((c, 1), v, dtype=U8, device=vb.device) for v in (bs.header_byte(ALG_P), 1)]
-    return torch.cat([*pre, vb], dim=1), 2 + vl
-
-
-def _i_head(n_rec: torch.Tensor, n_lit: torch.Tensor):
-    """I-frame heads: [hdr(ALG_I)] + varint(n_rec, n_lit) -> ([C, 9], lens)."""
-    vb, vl = _varint_emit(torch.stack([n_rec, n_lit], dim=1))
-    pre = torch.full((vb.shape[0], 1), bs.header_byte(ALG_I), dtype=U8, device=vb.device)
-    return torch.cat([pre, vb], dim=1), 1 + vl
 
 
 # ---------------------------------------------------------------------------
@@ -184,7 +90,6 @@ def _p_slots(enc, wcfg, frames, prevs, ids):
     step. Returns (out [C, pack_cap], lens [C], raw [C], flat [C], color
     [C, 3], nochange [C])."""
     cfg, k = enc.cfg, enc.cfg.k_fixed
-    h, w = cfg.height, cfg.width
     c = frames.shape[0]
     dev = frames.device
     arrs, counts, flat4 = analyze_compact_streams(frames, prevs, enc.cands, cfg)
@@ -218,9 +123,9 @@ def _p_slots(enc, wcfg, frames, prevs, ids):
         dealt.append(tc.deal_streams(src.reshape(-1, src.shape[2]), off, n, k, t))
         lens.append(tc.lane_lens_streams(n, k))
     bufs, starts = tc.encode_sections_streams(dealt, lens, enc.tables_b, kts, ids)
-    out, total = _container_emit(*_p_head(hdr_vals), list(zip(bufs, starts, lens)),
-                                 wcfg.pack_cap)
-    raw = active & (overflow | (total >= 1 + w * h * 3) | (total > wcfg.pack_cap))
+    out, total = ct.container_emit(*ct.heads(ct.P_HEAD, hdr_vals), list(zip(bufs, starts, lens)),
+                                   wcfg.pack_cap)
+    raw = active & (overflow | ct.raw_escape(total, ct.raw_size(cfg)) | (total > wcfg.pack_cap))
     return out, total, raw, is_flat, flat4[:, 1:4].to(U8), nochange
 
 
@@ -250,9 +155,9 @@ def _i_slots(enc, wcfg, frames, ids, ids_t):
              tc.deal_streams(torch.cat([lt for _, _, lt, _ in cls]), off, n_lit, k, kts[1][2])]
     lens = [tc.lane_lens_streams(n_rec, k), tc.lane_lens_streams(n_lit, k)]
     bufs, starts = tc.encode_sections_streams(dealt, lens, enc.tables_b, kts, ids)
-    out, total = _container_emit(*_i_head(n_rec, n_lit), list(zip(bufs, starts, lens)),
-                                 wcfg.pack_cap)
-    raw = ~is_flat & (overflow | (total >= 1 + w * h * 3) | (total > wcfg.pack_cap))
+    out, total = ct.container_emit(*ct.heads(ct.I_HEAD, torch.stack([n_rec, n_lit], dim=1)),
+                                   list(zip(bufs, starts, lens)), wcfg.pack_cap)
+    raw = ~is_flat & (overflow | ct.raw_escape(total, ct.raw_size(cfg)) | (total > wcfg.pack_cap))
     return out, total, raw, is_flat, frames[:, 0, 0]
 
 
@@ -303,11 +208,10 @@ def encode_window_steps(enc, frames_fs, key_fs, idx, wcfg):
 
         # small frames: flat (4 B), no-change (2 B), raw header (1 B + body)
         kind = torch.where(raw, K_RAW, kind)
-        head = torch.where(raw, bs.header_byte(ALG_RAW), torch.where(
-            nochange, bs.header_byte(ALG_P), bs.header_byte(ALG_FLAT)))
-        small = torch.cat([head[:, None], torch.where(flat[:, None], color, 0)], dim=1)
-        out[:, :4] = torch.where((flat | nochange | raw)[:, None], small.to(U8), out[:, :4])
-        out_len = torch.where(flat, 4, torch.where(nochange, 2, torch.where(raw, 1, out_len)))
+        small, small_len = ct.small_frames(flat, nochange, raw, color)
+        is_small = flat | nochange | raw
+        out[:, :4] = torch.where(is_small[:, None], small, out[:, :4])
+        out_len = torch.where(is_small, small_len, out_len)
         outs.append(out)
         lens.append(out_len)
         kinds.append(kind)
@@ -326,7 +230,7 @@ def _window_frames(frames_list, device, loss: int) -> torch.Tensor:
     """A window's frame batches -> [F, S, H, W, 3] uint8 on `device`, lossy,
     in storage of their own (one upload for host frames)."""
     if all(isinstance(f, np.ndarray) for f in frames_list):
-        frames = tc.upload(np.stack([np.asarray(f, np.uint8) for f in frames_list]), device)
+        frames = upload(np.stack([np.asarray(f, np.uint8) for f in frames_list]), device)
     else:
         frames = torch.stack([torch.as_tensor(f).to(device, torch.uint8) for f in frames_list])
     return apply_loss(frames, loss)
@@ -392,7 +296,7 @@ def encode_window_finish(handle):
     f, s, pc = outs.shape
     npx3 = frames_fs[0, 0].numel()
     # pull 1: the [F, S] lengths and kinds
-    lens_h, kinds_h = pull([[lens, kinds]])[0]
+    lens_h, kinds_h = pull([[lens, kinds]], "serving.pull")[0]
     # pull 2: exactly the used container bytes, RAW bodies after their header
     segs = []
     for t in range(f):
@@ -400,16 +304,15 @@ def encode_window_finish(handle):
             segs.append((0, (t * s + i) * pc, int(lens_h[t, i])))
             if kinds_h[t, i] == K_RAW:
                 segs.append((1, (t * s + i) * npx3, npx3))
-    tight = gather_segments([outs.reshape(-1), frames_fs.reshape(-1)], segs)
+    tight = ct.gather_segments([outs.reshape(-1), frames_fs.reshape(-1)], segs)
     results, pos = [], 0
     for t in range(f):
         out_t = []
         for i in range(s):
             kd = int(kinds_h[t, i])
-            n = int(lens_h[t, i]) + (npx3 if kd == K_RAW else 0)
-            out_t.append((tight[pos:pos + n].tobytes(),
-                          FTYPE_P if kd in (K_NOCHANGE, K_P) else FTYPE_I))
-            pos += n
+            data, pos = ct.assemble(b"", tight, pos,
+                                    body=int(lens_h[t, i]) + (npx3 if kd == K_RAW else 0))
+            out_t.append((data, FTYPE_P if kd in (K_NOCHANGE, K_P) else FTYPE_I))
         results.append(out_t)
     return results
 

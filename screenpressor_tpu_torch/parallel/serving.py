@@ -23,9 +23,11 @@ payload buffers take the exact sizes of the pulled counts.
 An encode step is a set of generator stages (the P streams' and the I
 streams'); each `yield` is a request for device values, and `_drain` copies
 the requests of all live stages to the host in ONE device-to-host copy per
-round. `encode_begin` runs the stages up to their first request (the
-analysis, which reads no table), so `serve_pipelined` can queue step t+1's
-analysis before it finishes step t.
+round (`transfer.pull`). The last round gathers every used lane byte of the
+stage, and the container writer (`container`) assembles the streams'
+frames from them. `encode_begin` runs the stages up to their first request
+(the analysis, which reads no table), so `serve_pipelined` can queue step
+t+1's analysis before it finishes step t.
 
 `devices=` splits a session along the stream axis (the reference's dp
 sharding): stream group g, the contiguous range [g * S / n, (g + 1) * S / n),
@@ -42,26 +44,20 @@ frames that change device on the way to a group and in that gather.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 
 import numpy as np
 import torch
 
 from screenpressor_tpu_torch import bitstream as bs
+from screenpressor_tpu_torch import container as ct
 from screenpressor_tpu_torch import telemetry
-from screenpressor_tpu_torch.config import ALG_FLAT, ALG_I, ALG_P, ALG_RAW, CodecConfig
+from screenpressor_tpu_torch.colorspace import apply_loss
+from screenpressor_tpu_torch.config import (ALG_FLAT, ALG_I, ALG_P, ALG_RAW, FTYPE_I, FTYPE_P,
+                                            CodecConfig)
 from screenpressor_tpu_torch import coder as tc
 from screenpressor_tpu_torch.blocks import analyze_compact_streams, mv_candidates
 from screenpressor_tpu_torch.classify import classify_i_streams
-from screenpressor_tpu_torch.codec import (
-    FTYPE_I,
-    FTYPE_P,
-    apply_loss,
-    gather_segments_device,
-    owned_frames,
-    to_host,
-)
 from screenpressor_tpu_torch.iframe import read_i_container
 from screenpressor_tpu_torch.pframe import (
     SECTION_NAMES,
@@ -76,48 +72,10 @@ from screenpressor_tpu_torch.pframe import (
 )
 from screenpressor_tpu_torch.recon import reconstruct_i_streams
 from screenpressor_tpu_torch.tables import renew_rows, renew_rows_at, renew_tables_streams
+from screenpressor_tpu_torch.transfer import (on_device, owned_frames, pull, to_device,
+                                              to_host, upload, upload_all)
 
 I32 = torch.int32
-_NP = {torch.uint8: np.uint8, torch.bool: np.bool_, torch.int32: np.int32,
-       torch.int64: np.int64}
-
-
-def pull(groups):
-    """One device-to-host copy of lists of tensors -> the same lists of
-    numpy arrays (dtype and shape kept)."""
-    flat = [t for g in groups for t in g]
-    if not flat:
-        return [[] for _ in groups]
-    raw = to_host(torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8)
-                             for t in flat]), "serving.pull")
-    out, pos = [], 0
-    for g in groups:
-        got = []
-        for t in g:
-            n = t.numel() * t.element_size()
-            got.append(raw[pos: pos + n].view(_NP[t.dtype]).reshape(t.shape))
-            pos += n
-        out.append(got)
-    return out
-
-
-def upload_all(arrays, device) -> list:
-    """Host arrays -> the same arrays on `device` in ONE non-blocking upload
-    (`coder.upload`); each part starts at a multiple of 8 bytes, so that
-    every dtype can view it."""
-    if not arrays:
-        return []
-    chunks, spans, pos = [], [], 0
-    for a in arrays:
-        b = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
-        chunks += [b, np.zeros(-len(b) % 8, np.uint8)]
-        spans.append((pos, len(b)))
-        pos += len(b) + len(chunks[-1])
-    dev = tc.upload(np.concatenate(chunks), device)
-    dtypes = {v: k for k, v in _NP.items()}
-    return [dev[o:o + n].view(dtypes[np.dtype(a.dtype).type]).view(a.shape) if n else
-            torch.empty(a.shape, dtype=dtypes[np.dtype(a.dtype).type], device=dev.device)
-            for (o, n), a in zip(spans, arrays)]
 
 
 class _Default(str):
@@ -141,12 +99,6 @@ def _groups_of(n_streams: int, device, devices):
     return [(d, slice(j * g, (j + 1) * g)) for j, d in enumerate(devices)]
 
 
-def on_device(device):
-    """Make `device` current while a group's work is queued (a kernel
-    launches on the current device's stream)."""
-    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
-
-
 def _moved_bytes(t: torch.Tensor, dev: torch.device) -> int:
     """t's bytes if copying it to `dev` changes its device, else 0."""
     same = t.device.type == dev.type and dev.index in (None, t.device.index)
@@ -159,7 +111,7 @@ def _to_group(frames, dev, sl):
         part = frames[sl]
         telemetry.count("serving.dp.scatter_bytes", _moved_bytes(part, dev))
         return part.to(dev, non_blocking=True)
-    return tc.upload(np.asarray(frames)[sl], dev)
+    return upload(np.asarray(frames)[sl], dev)
 
 
 def _gather(outs, dev) -> torch.Tensor:
@@ -175,17 +127,6 @@ def _k_fixed(cfg: CodecConfig) -> CodecConfig:
     return cfg
 
 
-def _sizes(start: np.ndarray, lens: np.ndarray, cap: int) -> np.ndarray:
-    return np.where(lens > 0, cap - start.astype(np.int64), 0)
-
-
-def _section(k: int, sizes: np.ndarray, payload: np.ndarray) -> bytes:
-    """Container section: status byte + minimal-width size table + lanes."""
-    width = bs.size_width(int(sizes.max(initial=0)))
-    return (bytes([bs.section_status_byte(k, width)])
-            + sizes.astype(f"<u{width}").tobytes() + payload.tobytes())
-
-
 def _deal_ragged(srcs, ns, k: int):
     """Deal the sections of C streams in one gather per section.
 
@@ -197,7 +138,7 @@ def _deal_ragged(srcs, ns, k: int):
     ns = [np.asarray(n, np.int64) for n in ns]
     c = len(ns[0])
     lens_h = [n[:, None] // k + (np.arange(k) < n[:, None] % k) for n in ns]
-    meta = tc.upload(np.concatenate(
+    meta = upload(np.concatenate(
         [np.concatenate([np.asarray(off, np.int64), n, ln.reshape(-1)])
          for (_, off), n, ln in zip(srcs, ns, lens_h)]), srcs[0][0].device)
     out = []
@@ -208,17 +149,6 @@ def _deal_ragged(srcs, ns, k: int):
         out.append((tc.deal_streams(src, off_d, n_d, k, t), lens_d.view(c, k).to(I32),
                     ln, t))
     return out
-
-
-def _lane_segments(parts, segs, buf, starts_h, sizes):
-    """Append the used lane bytes of buf [C, K, cap] to a gather list."""
-    parts.append(buf.reshape(-1))
-    c, k, cap = buf.shape
-    for j in range(c):
-        for lane in range(k):
-            if sizes[j, lane]:
-                segs.append((len(parts) - 1, (j * k + lane) * cap + int(starts_h[j, lane]),
-                             int(sizes[j, lane])))
 
 
 class BatchedEncoder:
@@ -251,9 +181,8 @@ class BatchedEncoder:
         if self.groups is not None:
             return
         self.tables_b = renew_tables_streams(n_streams, self.device)
-        with telemetry.sync("serving.cands"):
-            self.cands = torch.tensor(mv_candidates(self.cfg), dtype=I32,
-                                      device=self.device).reshape(-1, 2)
+        self.cands = to_device(mv_candidates(self.cfg), self.device, "serving.cands",
+                               I32).reshape(-1, 2)
 
     def has_prev(self) -> bool:
         """Whether a step has been encoded (P frames can follow)."""
@@ -325,7 +254,7 @@ class BatchedEncoder:
         """Take the flat bookkeeping a window left on the device to the
         host (one copy)."""
         if self.flat_dev is not None:
-            last_flat, color = pull([list(self.flat_dev)])[0]
+            last_flat, color = pull([list(self.flat_dev)], "serving.pull")[0]
             self.last_flat, self.flat_color = last_flat.copy(), color.copy()
             self.flat_dev = None
 
@@ -348,7 +277,8 @@ class BatchedEncoder:
     def _drain(names, stages, reqs, outs):
         """Advance primed stages to the end, one host copy per round."""
         while any(st is not None for st in stages):
-            got = pull([r if st is not None else [] for st, r in zip(stages, reqs)])
+            got = pull([r if st is not None else [] for st, r in zip(stages, reqs)],
+                       "serving.pull")
             for j, st in enumerate(stages):
                 if st is None:
                     continue
@@ -367,16 +297,14 @@ class BatchedEncoder:
         if renew:
             self.flat_color[i] = color
         self.last_flat[i] = True
-        return (bytes([bs.header_byte(ALG_FLAT), *color]), FTYPE_I), renew
+        return (ct.flat_frame(color), FTYPE_I), renew
 
     # ------------------------------------------------------------------ I --
     def _i_stages(self, frames, own):
         """I-encode the streams `own`; other entries stay None and their
         state is untouched."""
         cfg, k = self.cfg, self.cfg.k_fixed
-        with telemetry.sync("serving.i_ids"):
-            own_t = torch.as_tensor(own, device=self.device)
-        fr = frames[own_t]
+        fr = frames[to_device(own, self.device, "serving.i_ids")]
         cls = classify_i_streams(fr)
         bms = [tc.color_touched_bitmap(lits, n_lit) for _, _, lits, n_lit in cls]
         flat = (fr == fr[:, :1, :1]).flatten(1).all(dim=1)
@@ -417,22 +345,18 @@ class BatchedEncoder:
         starts_h = yield starts
 
         lens_h = [lr_h, lc_h]
-        sizes = [_sizes(st, ln, b.shape[2]) for st, ln, b in zip(starts_h, lens_h, bufs)]
+        sizes = [ct.lane_sizes(st, ln, b.shape[2]) for st, ln, b in zip(starts_h, lens_h, bufs)]
         parts, segs = [], []
         for j in range(len(ids)):
             for buf, st, sz in zip(bufs, starts_h, sizes):
-                _lane_segments(parts, segs, buf[j:j + 1], st[j:j + 1], sz[j:j + 1])
-        (tight,) = yield [gather_segments_device(parts, segs, self.device)]
+                ct.lane_segments(parts, segs, buf[j:j + 1], st[j:j + 1], sz[j:j + 1])
+        (tight,) = yield [ct.gather_segments_device(parts, segs, self.device)]
 
         pos = 0
         for j, i in enumerate(ids):
-            chunks = []
-            for sz in sizes:
-                end = pos + int(sz[j].sum())
-                chunks.append(_section(k, sz[j], tight[pos:end]))
-                pos = end
-            out[i] = (bytes([bs.header_byte(ALG_I)]) + bs.pack_varint(n_rec[j], n_lit[j])
-                      + b"".join(chunks), FTYPE_I)
+            data, pos = ct.assemble(ct.i_head(n_rec[j], n_lit[j]), tight, pos,
+                                    [sz[j] for sz in sizes])
+            out[i] = (data, FTYPE_I)
         return out
 
     # ------------------------------------------------------------------ P --
@@ -443,7 +367,7 @@ class BatchedEncoder:
         h, w = cfg.height, cfg.width
         dev = self.device
         if len(own) < self.s:
-            own_t = tc.upload(np.asarray(own, np.int64), dev)
+            own_t = upload(np.asarray(own, np.int64), dev)
             frames_o, prevs_o = frames[own_t], prevs[own_t]
         else:
             frames_o, prevs_o = frames, prevs
@@ -460,7 +384,7 @@ class BatchedEncoder:
                 continue
             self.last_flat[i] = False
             if not ch[j, 0]:
-                out[i] = (bytes([bs.header_byte(ALG_P), 0]), FTYPE_P)
+                out[i] = (ct.UNCHANGED_P, FTYPE_P)
                 telemetry.count("frames.unchanged")
                 continue
             active.append(j)
@@ -497,7 +421,7 @@ class BatchedEncoder:
         dealt = _deal_ragged(srcs, [nums[name] for name in SECTION_NAMES], k)
         kts = tuple((name, k, t) for name, (_, _, _, t) in zip(SECTION_NAMES, dealt))
         col_w = tc.col_compact_bucket(int(plc[active, 2].max()))
-        a_t = tc.upload(np.asarray(active, np.int64), dev)
+        a_t = upload(np.asarray(active, np.int64), dev)
         bufs, starts = tc.encode_sections_streams([d for d, _, _, _ in dealt],
                                                   [ln for _, ln, _, _ in dealt], self.tables_b,
                                                   kts, ids, col_w, bms[a_t])
@@ -505,16 +429,11 @@ class BatchedEncoder:
 
         # container sizes on the host; raw escape per stream
         lens_h = [ln for _, _, ln, _ in dealt]
-        sizes = [_sizes(st, ln, b.shape[2]) for st, ln, b in zip(starts_h, lens_h, bufs)]
-        hdrs = []
-        for r, j in enumerate(active):
-            vals = [int(ch[j, 1]), int(ch[j, 2])] + [nums[name][r] for name in SECTION_NAMES]
-            vals.append(int(ch[j, 6]))
-            hdrs.append(bytes([bs.header_byte(ALG_P), 1]) + bs.pack_varint(*vals))
-        totals = [len(hd) + sum(1 + k * bs.size_width(int(sz[r].max(initial=0)))
-                                + int(sz[r].sum()) for sz in sizes)
-                  for r, hd in enumerate(hdrs)]
-        is_raw = [t >= 1 + w * h * 3 for t in totals]
+        sizes = [ct.lane_sizes(st, ln, b.shape[2]) for st, ln, b in zip(starts_h, lens_h, bufs)]
+        hdrs = [ct.p_head([int(ch[j, 1]), int(ch[j, 2]), *(nums[name][r] for name in SECTION_NAMES),
+                           int(ch[j, 6])]) for r, j in enumerate(active)]
+        totals = [ct.container_size(hd, [sz[r] for sz in sizes]) for r, hd in enumerate(hdrs)]
+        is_raw = [ct.raw_escape(t, ct.raw_size(cfg)) for t in totals]
         telemetry.count("frames.raw", sum(is_raw))
         telemetry.count("frames.P", len(is_raw) - sum(is_raw))
         raw_mask = np.zeros(self.s, bool)
@@ -527,24 +446,18 @@ class BatchedEncoder:
                 segs.append((len(parts) - 1, 0, h * w * 3))
                 continue
             for buf, st, sz in zip(bufs, starts_h, sizes):
-                _lane_segments(parts, segs, buf[r:r + 1], st[r:r + 1], sz[r:r + 1])
-        (tight,) = yield [gather_segments_device(parts, segs, dev)]
+                ct.lane_segments(parts, segs, buf[r:r + 1], st[r:r + 1], sz[r:r + 1])
+        (tight,) = yield [ct.gather_segments_device(parts, segs, dev)]
 
         pos = 0
         for r, i in enumerate(ids):
             if is_raw[r]:
-                out[i] = (bytes([bs.header_byte(ALG_RAW)]) + tight[pos:pos + h * w * 3].tobytes(),
-                          FTYPE_I)
-                pos += h * w * 3
-                continue
-            chunks = []
-            for sz in sizes:
-                end = pos + int(sz[r].sum())
-                chunks.append(_section(k, sz[r], tight[pos:end]))
-                pos = end
-            data = hdrs[r] + b"".join(chunks)
-            assert len(data) == totals[r], (len(data), totals[r])
-            out[i] = (data, FTYPE_P)
+                data, pos = ct.assemble(ct.RAW_HEAD, tight, pos, body=h * w * 3)
+                out[i] = (data, FTYPE_I)
+            else:
+                data, pos = ct.assemble(hdrs[r], tight, pos, [sz[r] for sz in sizes],
+                                        total=totals[r])
+                out[i] = (data, FTYPE_P)
         return out
 
 
@@ -646,7 +559,7 @@ class BatchedDecoder:
                 continue
             self.last_flat[i] = False
             if alg == ALG_RAW:
-                if len(data) < 1 + h * w * 3:
+                if len(data) < ct.raw_size(cfg):
                     raise bs.CorruptStreamError(f"{where(i)}: truncated raw")
                 raws[i] = np.frombuffer(data, np.uint8, h * w * 3, 1).reshape(h, w, 3)
                 renew[i] = True

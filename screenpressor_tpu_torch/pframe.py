@@ -26,7 +26,6 @@ import torch
 from screenpressor_tpu_torch import bitstream as bs
 from screenpressor_tpu_torch import telemetry
 from screenpressor_tpu_torch.config import (
-    ALG_P,
     BLOCK,
     BT_FULL_DATA,
     BT_FULL_MOTION,
@@ -43,9 +42,10 @@ from screenpressor_tpu_torch.config import (
 )
 from screenpressor_tpu_torch import coder as tc
 from screenpressor_tpu_torch.classify import fits_bits, run_walk
-from screenpressor_tpu_torch.iframe import section_bytes, varint_len
+from screenpressor_tpu_torch.container import frame_bytes, p_head, raw_escape, raw_size
 from screenpressor_tpu_torch.kernels import rebuild_blocks_streams_kernel
 from screenpressor_tpu_torch.tables import renew_tables_cached, select_tables
+from screenpressor_tpu_torch.transfer import to_device, upload
 
 AREA = BLOCK * BLOCK
 I32 = torch.int32
@@ -180,7 +180,7 @@ def classify_assemble_streams(frames: torch.Tensor, prevs: torch.Tensor,
     boff = np.cumsum(nd) - nd
     n_blk = int(nd.sum())
     blk = np.repeat(np.arange(c) * nbp - boff, nd) + np.arange(n_blk)
-    meta = tc.upload(np.concatenate([blk, boff]), dev)
+    meta = upload(np.concatenate([blk, boff]), dev)
     blk_d, boff_d = meta.split([n_blk, c])
     bsid = blk_d // nbp
     rects = data_rects.reshape(-1, 4)[blk_d]
@@ -300,10 +300,8 @@ def encode_sections_raw(sources: dict, hdr_vals, tables: dict, cfg: CodecConfig,
         kts.append((name, k, t))
     kts = tuple(kts)
     bufs, starts, tables2 = tc.encode_sections(dealt, lens_l, tables, kts, col_w, col_bm)
-    total = 2 + sum(varint_len(int(v)) for v in hdr_vals)
-    for (_, k, _), buf, start, lens in zip(kts, bufs, starts, lens_l):
-        total = total + section_bytes(start, lens, buf.shape[1], k)
-    is_raw = total >= raw_threshold
+    total = frame_bytes(p_head([int(v) for v in hdr_vals]), bufs, starts, lens_l)
+    is_raw = raw_escape(total, raw_threshold)
     sel = select_tables(is_raw, renew_tables_cached(bufs[0].device), tables2)
     stats = torch.stack([total, is_raw.to(I32)])
     return kts, bufs, starts, lens_l, stats, sel
@@ -331,19 +329,10 @@ def encode_p_sections(arrs: dict, counts_host, phase_b, pl_counts_host,
                "rec": pix_cap, "col": lit_cap}
     hdr_vals = [xx1, xx2, n_bt, n_sxy, n_mv, n_pix, n_lit, n_data]
     kts, bufs, starts, lens_l, stats, tables = encode_sections_raw(
-        sources, hdr_vals, tables, cfg, 1 + cfg.width * cfg.height * 3, col_w, col_bm)
+        sources, hdr_vals, tables, cfg, raw_size(cfg), col_w, col_bm)
     nums = dict(zip(SECTION_NAMES, hdr_vals[2:7]))
     handle = (kts, nums, (xx1, xx2, n_data), bufs, starts, lens_l, stats)
     return handle, tables
-
-
-def p_header(handle) -> bytes:
-    kts, nums, (xx1, xx2, n_data) = handle[:3]
-    return b"".join([
-        bytes([bs.header_byte(ALG_P)]), bytes([1]),
-        bs.pack_varint(xx1, xx2, nums["bt"], nums["sxy"], nums["mv"],
-                       nums["rec"], nums["col"], n_data),
-    ])
 
 
 # ---------------------------------------------------------------------------
@@ -475,8 +464,7 @@ def step_layout_from(dev: torch.Tensor, rest) -> StepLayout:
 def step_layout(rows, device) -> StepLayout:
     """rows: C header rows (header_row) -> StepLayout, in one upload."""
     host, rest = step_layout_host(rows)
-    with telemetry.sync("pframe.step_layout"):
-        return step_layout_from(torch.as_tensor(host, device=device), rest)
+    return step_layout_from(to_device(host, device, "pframe.step_layout"), rest)
 
 
 def undeal_sections_streams(recs_l, lay: StepLayout, kts) -> dict:
@@ -825,8 +813,5 @@ def raise_p_error(err: int):
 
 def payloads_to_device(payloads: dict, device) -> dict:
     """A P frame's section payloads on `device`: one blocking upload each."""
-    out = {}
-    for name, p in payloads.items():
-        with telemetry.sync("pframe.payloads_to_device"):
-            out[name] = torch.as_tensor(np.ascontiguousarray(p), device=device)
-    return out
+    return {name: to_device(np.ascontiguousarray(p), device, "pframe.payloads_to_device")
+            for name, p in payloads.items()}

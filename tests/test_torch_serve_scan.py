@@ -4,8 +4,9 @@ the reference's `encode_window` (the staggered mixed-kind session, and the
 overflow fixture whose noisy stream takes the RAW escape) and against the
 port's sequential `BatchedEncoder`; `decode_window` lossless (RAW and flat
 included) with its stream check deferred; `plan_windows` and the
-capacities against the reference's; the device container emitter against
-`bitstream.pack_varint` / `pack_section`.
+capacities against the reference's; the device container emitter
+(`container.varint_emit` / `container_emit`, which the window uses)
+against `bitstream.pack_varint` / `pack_section`.
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_serve_scan.py -q
 """
@@ -19,6 +20,7 @@ from screenpressor_tpu.config import CodecConfig
 from screenpressor_tpu.parallel import serve_scan as jss
 from screenpressor_tpu.parallel import serving as jserving
 from screenpressor_tpu_torch import bitstream as bs
+from screenpressor_tpu_torch import container as ct
 from screenpressor_tpu_torch.config import ALG_FLAT, ALG_I, ALG_P, ALG_RAW
 from screenpressor_tpu_torch.parallel import serve_scan as ss
 from screenpressor_tpu_torch.parallel.serving import BatchedDecoder, BatchedEncoder
@@ -270,7 +272,7 @@ def test_varint_emitter_matches_pack_varint():
     rows = [VARINT_EDGES[:8], VARINT_EDGES[1:]]
     rows += [list(rng.integers(0, 1 << 28, 8)) for _ in range(6)]
     rows += [list(rng.integers(0, 200, 8)) for _ in range(2)]
-    vb, vl = ss._varint_emit(torch.as_tensor(np.asarray(rows, np.int64)))
+    vb, vl = ct.varint_emit(torch.as_tensor(np.asarray(rows, np.int64)))
     for r, row in enumerate(rows):
         want = jbs.pack_varint(*(int(v) for v in row))
         assert int(vl[r]) == len(want)
@@ -293,8 +295,8 @@ def test_container_emitter_matches_pack_section(sizes):
         secs.append((torch.as_tensor(buf), torch.as_tensor(start), torch.as_tensor(lens)))
         want += jbs.pack_section([buf[0, j, cap - s:].tobytes() if s else b""
                                   for j, s in enumerate(sz)])
-    head, head_len = ss._varint_emit(torch.as_tensor([[7, 300, (1 << 28) - 1]]))
-    out, total = ss._container_emit(head, head_len, secs, len(want) + 3)
+    head, head_len = ct.varint_emit(torch.as_tensor([[7, 300, (1 << 28) - 1]]))
+    out, total = ct.container_emit(head, head_len, secs, len(want) + 3)
     assert int(total[0]) == len(want)
     assert out[0, :len(want)].numpy().tobytes() == want
     assert not out[0, len(want):].any()
