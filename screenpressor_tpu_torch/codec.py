@@ -222,18 +222,19 @@ class TorchEncoder:
 
         # ---- phase D: one gather of every payload byte of the batch ----
         with telemetry.span("sptc.codec.encode.gather"):
-            parts, segs, layouts = [], [], []
+            kept, frames = [], []
             for (i, kind, head, bufs), got in zip(coded, pulled):
                 raw = bool(got[0][1])
                 telemetry.count("frames.raw" if raw else "frames." + kind)
-                layouts.append((i, FTYPE_P if kind == "P" and not raw else FTYPE_I,
-                                ct.frame_layout(parts, segs, head, bufs, got, devs[i].reshape(-1))))
-            tight = ct.gather_segments(parts, segs)
+                kept.append((i, FTYPE_P if kind == "P" and not raw else FTYPE_I))
+                frames.append((head, bufs, got, devs[i].reshape(-1)))
+            (parts, src, lens), lays = ct.frame_layouts(frames)
+            tight = ct.gather_segments(parts, src, lens)
 
         # ---- phase E: container assembly on the host ----
         with telemetry.span("sptc.codec.encode.assemble"):
             pos = 0
-            for i, ftype, (head, sizes_l, body, total) in layouts:
+            for (i, ftype), (head, sizes_l, body, total) in zip(kept, lays):
                 data, pos = ct.assemble(head, tight, pos, sizes_l, body, total)
                 results[i] = (data, ftype)
 

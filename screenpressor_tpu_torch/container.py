@@ -5,9 +5,10 @@ lane section per entropy section (`bitstream.write_section`); a coded
 container of `raw_size` bytes or more takes the raw escape (the raw head
 and the RGB24 pixels). The size rule is written once a side
 (`container_size`, `frame_bytes`). The host writers pull each section's
-lane starts and counts, gather the used lane bytes in one copy
-(`lane_segments`, `gather_segments`) and `assemble` the containers; window
-serving emits them on the device (`container_emit`).
+lane starts and counts, lay out the used lane bytes of a whole call in one
+numpy pass (`lane_segments`: byte ranges as arrays, no Python trip a lane),
+gather them in one copy (`gather_segments`) and `assemble` the containers;
+window serving emits them on the device (`container_emit`).
 """
 
 from __future__ import annotations
@@ -59,10 +60,14 @@ def lane_sizes(starts: np.ndarray, lens: np.ndarray, cap: int) -> np.ndarray:
     return np.where(lens > 0, cap - starts.astype(np.int64), 0)
 
 
-def container_size(head: bytes, sizes_rows) -> int:
-    """The host's size rule: bytes of `head` and a section a row of lane sizes."""
-    return len(head) + sum(1 + len(s) * bs.size_width(int(s.max(initial=0))) + int(s.sum())
-                           for s in sizes_rows)
+def container_size(head_len, sizes: np.ndarray) -> np.ndarray:
+    """The host's size rule for R containers: head_len [R] head bytes, then
+    a section of K lanes for each row of sizes [R, S, K] (its status byte,
+    size table at the width of its largest lane, lanes) -> int64 [R]."""
+    m = sizes.max(axis=2, initial=0)
+    width = np.where(m < 1 << 8, 1, np.where(m < 1 << 16, 2, 4))
+    return np.asarray(head_len, np.int64) + (1 + sizes.shape[2] * width
+                                             + sizes.sum(axis=2)).sum(axis=1)
 
 
 def lane_sizes_device(starts: torch.Tensor, lens: torch.Tensor, cap: int) -> torch.Tensor:
@@ -91,63 +96,93 @@ def frame_bytes(head: bytes, bufs, starts, lens_l) -> torch.Tensor:
     return total
 
 
-def lane_segments(parts, segs, buf, starts_h, sizes):
-    """Append the used lane bytes of buf [C, K, cap] to a gather list."""
-    parts.append(buf.reshape(-1))
-    c, k, cap = buf.shape
-    for j in range(c):
-        for lane in range(k):
-            if sizes[j, lane]:
-                segs.append((len(parts) - 1, (j * k + lane) * cap + int(starts_h[j, lane]),
-                             int(sizes[j, lane])))
+def section_rows(bufs):
+    """Where S section buffers [R, K_s, cap_s], laid end to end in a flat
+    source, hold each row's section: (base [R, S], cap [R, S]) int64, as
+    lane_segments takes them."""
+    r = bufs[0].shape[0]
+    cap = np.asarray([b.shape[2] for b in bufs], np.int64)
+    at = np.cumsum([0] + [b.numel() for b in bufs[:-1]], dtype=np.int64)
+    row = np.asarray([b.shape[1] for b in bufs], np.int64) * cap
+    return at + np.arange(r, dtype=np.int64)[:, None] * row, np.broadcast_to(cap, (r, len(bufs)))
 
 
-def frame_layout(parts, segs, head: bytes, bufs, got, raw=None):
-    """One coded frame's share of a gather list, from its sections' bufs
-    [K, cap] and its pulled [stats, *starts, *lens] (stats: the device size
-    rule's total and raw flag): its used lane bytes or, if it escapes, the
-    pixels `raw` (flat uint8). Returns assemble's (head, sizes_rows, body,
-    total) for it; None if it escapes and raw is None."""
-    if got[0][1]:
-        if raw is None:
-            return None
-        parts.append(raw)
-        segs.append((len(parts) - 1, 0, raw.numel()))
-        return RAW_HEAD, (), raw.numel(), None
-    n = len(bufs)
-    sizes_l = []
-    for buf, start, lens in zip(bufs, got[1:1 + n], got[1 + n:]):
-        sizes_l.append(lane_sizes(start, lens, buf.shape[1]))
-        lane_segments(parts, segs, buf[None], start[None], sizes_l[-1][None])
-    return head, sizes_l, 0, int(got[0][0])
+def lane_segments(base, cap, starts, sizes, raw_src=None, raw_len=None):
+    """The byte ranges a writer gathers, in row (stream or frame), then
+    section, then lane order: lane k of section s of row r starts at
+    base[r, s] + k * cap[r, s] + starts[r, s, k] of the flat source and
+    holds sizes[r, s, k] bytes (sizes and starts [R, S, K]); after row r's
+    lanes come its raw pixels, raw_len[r] bytes at raw_src[r]. Empty ranges
+    drop out. Returns (src, lens), int64 arrays."""
+    r, s, k = sizes.shape
+    src = (base[..., None] + np.arange(k, dtype=np.int64) * cap[..., None]
+           + starts).reshape(r, s * k)
+    lens = sizes.reshape(r, s * k)
+    if raw_len is not None:
+        src = np.concatenate([src, np.reshape(raw_src, (r, 1))], axis=1)
+        lens = np.concatenate([lens, np.reshape(raw_len, (r, 1))], axis=1)
+    keep = lens > 0
+    return src[keep].astype(np.int64, copy=False), lens[keep].astype(np.int64, copy=False)
 
 
-def gather_segments_device(parts, segs, device) -> torch.Tensor:
+def frame_layouts(frames):
+    """Coded frames' share of one gather. frames: per frame (head, bufs,
+    got, raw), bufs its sections' [K, cap] buffers, got its pulled [stats,
+    *starts, *lens] (stats: the device size rule's total and raw flag), raw
+    the flat uint8 pixels it writes if it escapes (None: it is left out).
+    Returns (parts, src, lens) for gather_segments and, a frame, assemble's
+    (head, sizes_rows, body, total), None where it escapes without raw."""
+    n_sec = max((len(bufs) for _, bufs, _, _ in frames), default=0)
+    k = max((b.shape[0] for _, bufs, _, _ in frames for b in bufs), default=0)
+    base = np.zeros((len(frames), n_sec), np.int64)
+    cap = np.zeros_like(base)
+    starts = np.zeros((len(frames), n_sec, k), np.int64)
+    sizes = np.zeros_like(starts)
+    raw_src, raw_len = np.zeros(len(frames), np.int64), np.zeros(len(frames), np.int64)
+    parts, lays, at = [], [], 0
+    for r, (head, bufs, got, raw) in enumerate(frames):
+        if got[0][1]:
+            if raw is not None:
+                parts.append(raw)
+                raw_src[r], raw_len[r] = at, raw.numel()
+                at += raw.numel()
+            lays.append(None if raw is None else (RAW_HEAD, (), raw.numel(), None))
+            continue
+        n = len(bufs)
+        sizes_l = []
+        for s, (buf, start, lens) in enumerate(zip(bufs, got[1:1 + n], got[1 + n:])):
+            kb, cb = buf.shape
+            sizes_l.append(lane_sizes(start, lens, cb))
+            parts.append(buf.reshape(-1))
+            base[r, s], cap[r, s] = at, cb
+            starts[r, s, :kb], sizes[r, s, :kb] = start, sizes_l[-1]
+            at += buf.numel()
+        lays.append((head, sizes_l, 0, int(got[0][0])))
+    return (parts, *lane_segments(base, cap, starts, sizes, raw_src, raw_len)), lays
+
+
+def gather_segments_device(parts, src, lens, device) -> torch.Tensor:
     """One torch.cat + index on the device: parts are flat uint8 tensors,
-    segs (part, offset, length) byte ranges. Returns the concatenated bytes
-    as a uint8 tensor. The ranges go up in one non-blocking upload and are
-    expanded into byte indices on the device."""
-    if not segs:
+    src / lens (lane_segments) byte ranges of their concatenation. Returns
+    the ranges' bytes back to back as a uint8 tensor. The ranges go up in
+    one non-blocking upload and are expanded into byte indices on the
+    device."""
+    if not len(lens):
         return torch.zeros(0, dtype=U8, device=device)
-    bases = np.cumsum([0] + [p.numel() for p in parts])
-    seg = np.asarray(segs, np.int64).reshape(-1, 3)
-    lens = seg[:, 2]
     total = int(lens.sum())
-    flat = torch.cat(parts)
-    if not total:
-        return flat[:0]
+    flat = parts[0] if len(parts) == 1 else torch.cat(parts)
     # each byte's source is its range's start minus the range's output
     # offset, plus its own output position
-    shift = bases[seg[:, 0]] + seg[:, 1] - (np.cumsum(lens) - lens)
+    shift = src - (np.cumsum(lens) - lens)
     meta = upload(np.concatenate([shift, lens]), flat.device)
-    idx = torch.repeat_interleave(meta[:len(seg)], meta[len(seg):], output_size=total)
+    idx = torch.repeat_interleave(meta[:len(lens)], meta[len(lens):], output_size=total)
     return flat[idx + torch.arange(total, device=flat.device)]
 
 
-def gather_segments(parts, segs):
+def gather_segments(parts, src, lens):
     """gather_segments_device + one device-to-host copy -> numpy bytes."""
     dev = parts[0].device if parts else "cpu"
-    return to_host(gather_segments_device(parts, segs, dev), "codec.gather")
+    return to_host(gather_segments_device(parts, src, lens, dev), "codec.gather")
 
 
 def assemble(head: bytes, tight: np.ndarray, pos: int, sizes_rows=(), body: int = 0,
@@ -173,9 +208,10 @@ def assemble(head: bytes, tight: np.ndarray, pos: int, sizes_rows=(), body: int 
 def write_frame(head: bytes, bufs, starts, lens_l, stats):
     """One coded frame's container from its section encode: one copy of the
     sizes, one gather of the lane bytes; None if it takes the raw escape."""
-    parts, segs = [], []
-    lay = frame_layout(parts, segs, head, bufs, pull([[stats, *starts, *lens_l]], "codec.pull")[0])
-    return None if lay is None else assemble(lay[0], gather_segments(parts, segs), 0, *lay[1:])[0]
+    got = pull([[stats, *starts, *lens_l]], "codec.pull")[0]
+    (parts, src, lens), (lay,) = frame_layouts([(head, bufs, got, None)])
+    return None if lay is None else assemble(lay[0], gather_segments(parts, src, lens), 0,
+                                             *lay[1:])[0]
 
 
 # ---------------------------------------------------------------------------

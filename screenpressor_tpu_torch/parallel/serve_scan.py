@@ -298,13 +298,16 @@ def encode_window_finish(handle):
     # pull 1: the [F, S] lengths and kinds
     lens_h, kinds_h = pull([[lens, kinds]], "serving.pull")[0]
     # pull 2: exactly the used container bytes, RAW bodies after their header
-    segs = []
-    for t in range(f):
-        for i in range(s):
-            segs.append((0, (t * s + i) * pc, int(lens_h[t, i])))
-            if kinds_h[t, i] == K_RAW:
-                segs.append((1, (t * s + i) * npx3, npx3))
-    tight = ct.gather_segments([outs.reshape(-1), frames_fs.reshape(-1)], segs)
+    rows = outs.reshape(f * s, 1, pc)
+    parts, at = [rows.reshape(-1)], outs.numel()
+    raw_src, raw_len = np.zeros(f * s, np.int64), np.zeros(f * s, np.int64)
+    for r in np.flatnonzero(kinds_h.reshape(-1) == K_RAW):
+        parts.append(frames_fs[r // s, r % s].reshape(-1))
+        raw_src[r], raw_len[r] = at, npx3
+        at += npx3
+    src, seg_lens = ct.lane_segments(*ct.section_rows([rows]), np.zeros((f * s, 1, 1), np.int64),
+                                     lens_h.reshape(f * s, 1, 1), raw_src, raw_len)
+    tight = ct.gather_segments(parts, src, seg_lens)
     results, pos = [], 0
     for t in range(f):
         out_t = []

@@ -344,18 +344,16 @@ class BatchedEncoder:
             torch.stack([bms[j] for j in coded]))
         starts_h = yield starts
 
-        lens_h = [lr_h, lc_h]
-        sizes = [ct.lane_sizes(st, ln, b.shape[2]) for st, ln, b in zip(starts_h, lens_h, bufs)]
-        parts, segs = [], []
-        for j in range(len(ids)):
-            for buf, st, sz in zip(bufs, starts_h, sizes):
-                ct.lane_segments(parts, segs, buf[j:j + 1], st[j:j + 1], sz[j:j + 1])
-        (tight,) = yield [ct.gather_segments_device(parts, segs, self.device)]
+        sizes = np.stack([ct.lane_sizes(st, ln, b.shape[2])
+                          for st, ln, b in zip(starts_h, [lr_h, lc_h], bufs)], axis=1)
+        src, lens = ct.lane_segments(*ct.section_rows(bufs), np.stack(starts_h, axis=1), sizes)
+        telemetry.count("serving.encode.lanes", len(lens))
+        (tight,) = yield [ct.gather_segments_device([b.reshape(-1) for b in bufs], src, lens,
+                                                    self.device)]
 
         pos = 0
         for j, i in enumerate(ids):
-            data, pos = ct.assemble(ct.i_head(n_rec[j], n_lit[j]), tight, pos,
-                                    [sz[j] for sz in sizes])
+            data, pos = ct.assemble(ct.i_head(n_rec[j], n_lit[j]), tight, pos, sizes[j])
             out[i] = (data, FTYPE_I)
         return out
 
@@ -429,25 +427,32 @@ class BatchedEncoder:
 
         # container sizes on the host; raw escape per stream
         lens_h = [ln for _, _, ln, _ in dealt]
-        sizes = [ct.lane_sizes(st, ln, b.shape[2]) for st, ln, b in zip(starts_h, lens_h, bufs)]
+        sizes = np.stack([ct.lane_sizes(st, ln, b.shape[2])
+                          for st, ln, b in zip(starts_h, lens_h, bufs)], axis=1)
         hdrs = [ct.p_head([int(ch[j, 1]), int(ch[j, 2]), *(nums[name][r] for name in SECTION_NAMES),
                            int(ch[j, 6])]) for r, j in enumerate(active)]
-        totals = [ct.container_size(hd, [sz[r] for sz in sizes]) for r, hd in enumerate(hdrs)]
-        is_raw = [ct.raw_escape(t, ct.raw_size(cfg)) for t in totals]
-        telemetry.count("frames.raw", sum(is_raw))
-        telemetry.count("frames.P", len(is_raw) - sum(is_raw))
+        totals = ct.container_size([len(hd) for hd in hdrs], sizes)
+        is_raw = ct.raw_escape(totals, ct.raw_size(cfg))
+        n_raw = int(is_raw.sum())
+        telemetry.count("frames.raw", n_raw)
+        telemetry.count("frames.P", len(ids) - n_raw)
         raw_mask = np.zeros(self.s, bool)
-        raw_mask[[i for i, raw in zip(ids, is_raw) if raw]] = True
+        raw_mask[np.asarray(ids)[is_raw]] = True
         renew_rows(self.tables_b, raw_mask)
-        parts, segs = [], []
-        for r, i in enumerate(ids):
-            if is_raw[r]:
-                parts.append(frames[i].reshape(-1))
-                segs.append((len(parts) - 1, 0, h * w * 3))
-                continue
-            for buf, st, sz in zip(bufs, starts_h, sizes):
-                ct.lane_segments(parts, segs, buf[r:r + 1], st[r:r + 1], sz[r:r + 1])
-        (tight,) = yield [ct.gather_segments_device(parts, segs, dev)]
+        # one gather: the coded streams' lanes and, in their place, the
+        # escaping streams' pixels
+        parts = [b.reshape(-1) for b in bufs]
+        at = sum(b.numel() for b in bufs)
+        raw_src, raw_len = np.zeros(len(ids), np.int64), np.zeros(len(ids), np.int64)
+        for r in np.flatnonzero(is_raw):
+            parts.append(frames[ids[r]].reshape(-1))
+            raw_src[r], raw_len[r] = at, h * w * 3
+            at += h * w * 3
+        sizes[is_raw] = 0
+        src, lens = ct.lane_segments(*ct.section_rows(bufs), np.stack(starts_h, axis=1), sizes,
+                                     raw_src, raw_len)
+        telemetry.count("serving.encode.lanes", len(lens) - n_raw)
+        (tight,) = yield [ct.gather_segments_device(parts, src, lens, dev)]
 
         pos = 0
         for r, i in enumerate(ids):
@@ -455,8 +460,7 @@ class BatchedEncoder:
                 data, pos = ct.assemble(ct.RAW_HEAD, tight, pos, body=h * w * 3)
                 out[i] = (data, FTYPE_I)
             else:
-                data, pos = ct.assemble(hdrs[r], tight, pos, [sz[r] for sz in sizes],
-                                        total=totals[r])
+                data, pos = ct.assemble(hdrs[r], tight, pos, sizes[r], total=int(totals[r]))
                 out[i] = (data, FTYPE_P)
         return out
 

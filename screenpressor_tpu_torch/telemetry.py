@@ -121,8 +121,10 @@ def counts() -> dict[str, int]:
     API converted its frames (`api.convert.device_frames`,
     `api.convert.host_frames`), the bytes a split serving session moves
     between devices (`serving.dp.scatter_bytes`, `serving.dp.gather_bytes`),
-    and the lanes a serving decode step's parse cut, over its coded streams'
-    sections (`serving.decode.lanes`)."""
+    the lanes a serving decode step's parse cut, over its coded streams'
+    sections (`serving.decode.lanes`), and the non-empty lanes a serving
+    encode step's writer laid out over its coded streams' sections
+    (`serving.encode.lanes`)."""
     out = dict(_COUNTS)
     out.update({f"launch.{k}": v for k, v in _build.LAUNCHES.items()})
     return out

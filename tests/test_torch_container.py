@@ -3,7 +3,9 @@ and `bitstream.write_section`) held to itself and to the reference: the
 host section writer against `pack_section` (the port's and the JAX
 package's), the device size rule and the device section head against the
 host writer's bytes, the raw escape at its threshold on the host and on the
-device, the heads against the reference's bytes.
+device, the heads against the reference's bytes, and the one-pass lane
+layout (`lane_segments`, `frame_layouts`, `gather_segments`) against a
+per-lane loop.
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_container.py -q
 """
@@ -75,7 +77,8 @@ def test_device_size_rule_equals_host_section(edge):
         head = ct.i_head(300, 7)
         frame = ct.frame_bytes(head, [torch.as_tensor(buf)] * 2, [torch.as_tensor(starts)] * 2,
                                [torch.as_tensor(lens)] * 2)
-        assert int(frame) == ct.container_size(head, [sizes, sizes]) == len(head) + 2 * want
+        host_total = ct.container_size([len(head)], np.stack([sizes, sizes])[None])
+        assert int(frame) == int(host_total[0]) == len(head) + 2 * want
 
 
 @pytest.mark.parametrize("k", [1, 8, 256])
@@ -169,3 +172,117 @@ def test_assemble_lays_head_sections_and_body():
     with pytest.raises(RuntimeError):
         ct.assemble(head, tight, 3, rows, body=11, total=len(want) + 1)
     assert ct.assemble(b"", tight, 0, body=3) == (b"xyz", 3)
+
+
+def _lane_loop(bufs, starts, sizes, raws):
+    """The oracle: a Python trip a lane over R streams' S sections (bufs [R,
+    K, cap] numpy, starts and sizes [R, S, K]); a stream in `raws` writes
+    its frame's pixels instead. Returns (the gathered bytes, each stream's
+    container size under a one-byte head, a Python sum a section)."""
+    out, totals = [], []
+    for r in range(sizes.shape[0]):
+        totals.append(1 + sum(1 + len(sz) * bs.size_width(int(sz.max())) + int(sz.sum())
+                              for sz in sizes[r]))
+        if r in raws:
+            out.append(raws[r].tobytes())
+            continue
+        for s, buf in enumerate(bufs):
+            for lane in range(buf.shape[1]):
+                n = int(sizes[r, s, lane])
+                if n:
+                    a = int(starts[r, s, lane])
+                    out.append(buf[r, lane, a:a + n].tobytes())
+    return b"".join(out), totals
+
+
+def _streams_case(r: int, k: int, seed: int, empty: str):
+    """R streams' five sections of k lanes as the stream-batched section coder
+    leaves them (each lane's bytes end its row): bufs, starts, record counts
+    and lane sizes; `empty`: "all" (every lane), "section" (section 2 of
+    every stream) or "" (every third lane)."""
+    rng = np.random.default_rng(seed)
+    bufs, starts, lens = [], [], []
+    for s, cap in enumerate((5, 40, 9, 300, 70)):
+        sz = rng.integers(1, cap + 1, (r, k))
+        sz[:, ::3] = 0
+        if empty == "all" or (empty == "section" and s == 2):
+            sz[:] = 0
+        bufs.append(rng.integers(0, 256, (r, k, cap), dtype=np.uint8))
+        starts.append(np.where(sz > 0, cap - sz, rng.integers(0, cap + 1, (r, k))).astype(np.int32))
+        lens.append(np.where(sz > 0, rng.integers(1, 9, (r, k)), 0).astype(np.int32))
+    sizes = np.stack([ct.lane_sizes(st, ln, b.shape[2]) for st, ln, b in zip(starts, lens, bufs)],
+                     axis=1)
+    return bufs, np.stack(starts, axis=1), sizes
+
+
+@pytest.mark.parametrize("r, k, empty, raw_rows", [
+    (6, 16, "", ()), (6, 64, "", ()), (6, 256, "", ()),
+    (5, 16, "all", ()), (5, 64, "section", ()),
+    (7, 16, "", (0,)), (7, 64, "", (3,)), (7, 16, "", (6,)), (7, 64, "section", (0, 3, 6)),
+    (1, 64, "", ()), (1, 16, "", (0,)),
+])
+def test_lane_segments_equal_a_per_lane_loop(r, k, empty, raw_rows):
+    """The serving writer's one numpy pass (section_rows, lane_segments, the
+    raw pixels of the escaping streams in their place, gather_segments)
+    gathers the bytes a per-lane loop gathers, and container_size gives
+    its totals."""
+    bufs, starts, sizes = _streams_case(r, k, seed=r * 1000 + k, empty=empty)
+    rng = np.random.default_rng(k)
+    frames = rng.integers(0, 256, (r, 4, 6, 3), dtype=np.uint8)
+    raws = {j: frames[j].reshape(-1) for j in raw_rows}
+    want, want_totals = _lane_loop(bufs, starts, sizes, raws)
+
+    totals = ct.container_size(np.ones(r, np.int64), sizes)
+    assert totals.tolist() == want_totals
+    parts = [torch.as_tensor(b).reshape(-1) for b in bufs]
+    at = sum(b.size for b in bufs)
+    raw_src, raw_len = np.zeros(r, np.int64), np.zeros(r, np.int64)
+    sizes = sizes.copy()
+    for j in raw_rows:
+        parts.append(torch.as_tensor(frames[j]).reshape(-1))
+        raw_src[j], raw_len[j] = at, frames[j].size
+        at += frames[j].size
+        sizes[j] = 0
+    src, lens = ct.lane_segments(*ct.section_rows([torch.as_tensor(b) for b in bufs]), starts,
+                                 sizes, raw_src, raw_len)
+    assert src.dtype == lens.dtype == np.int64 and (lens > 0).all()
+    assert len(lens) == np.count_nonzero(sizes) + len(raw_rows)
+    got = ct.gather_segments(parts, src, lens)
+    assert got.tobytes() == want
+
+
+@pytest.mark.parametrize("raw_frames", [(), (0,), (2,), (4,), (0, 2, 4)])
+def test_frame_layouts_equal_a_per_lane_loop(raw_frames):
+    """The desktop's and the sp path's layout (`frame_layouts`): frames of 2
+    and 5 sections, each section its own lane count, in one pass; an
+    escaping frame writes its pixels, or nothing when it brings none."""
+    rng = np.random.default_rng(len(raw_frames))
+    frames, want, kept = [], [], []
+    for j in range(5):
+        ks = (16, 64) if j % 2 == 0 else (8, 32, 16, 256, 64)
+        secs = [_streams_case(1, kk, seed=10 * j + q, empty="")
+                for q, kk in enumerate(ks)]
+        bufs = [b[0][q][0] for q, b in enumerate(secs)]
+        st = [b[1][0, q] for q, b in enumerate(secs)]
+        sz = [b[2][0, q] for q, b in enumerate(secs)]
+        ln = [np.where(x > 0, 1, 0).astype(np.int32) for x in sz]
+        raw = rng.integers(0, 256, 4 * 6 * 3, dtype=np.uint8)
+        escapes = j in raw_frames
+        got = [np.array([1000 + j, int(escapes)], np.int32), *st, *ln]
+        pixels = None if escapes and j == 4 else torch.as_tensor(raw)
+        frames.append((bytes([j]), [torch.as_tensor(b) for b in bufs], got, pixels))
+        if escapes:
+            want.append(b"" if pixels is None else raw.tobytes())
+            kept.append(None if pixels is None else (ct.RAW_HEAD, (), raw.size, None))
+            continue
+        for b, s0, n in zip(bufs, st, sz):
+            want += [b[lane, s0[lane]:s0[lane] + n[lane]].tobytes() for lane in range(len(n))]
+        kept.append((bytes([j]), sz, 0, 1000 + j))
+    (parts, src, lens), lays = ct.frame_layouts(frames)
+    assert ct.gather_segments(parts, src, lens).tobytes() == b"".join(want)
+    for lay, w in zip(lays, kept):
+        if w is None or lay is None:
+            assert lay is w
+            continue
+        assert lay[0] == w[0] and lay[2:] == w[2:]
+        assert [x.tolist() for x in lay[1]] == [x.tolist() for x in w[1]]

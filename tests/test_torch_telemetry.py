@@ -117,6 +117,39 @@ def test_decode_lanes_counter_counts_the_step_parse():
                    (["unchanged"] * 3, 0), ([ALG_FLAT] * 3, 0), ([ALG_FLAT] * 3, 0)], got
 
 
+def test_encode_lanes_counter_counts_the_step_writer():
+    """`serving.encode.lanes`: the non-empty lanes of a step's coded I and P
+    sections, read back from the containers the step wrote; 0 on steps of
+    unchanged or flat frames."""
+    from screenpressor_tpu_torch.iframe import read_i_container
+    from screenpressor_tpu_torch.pframe import read_p_container
+
+    cfg = CodecConfig(width=W, height=H, kf_interval=8, k_fixed=8, msr_x=16, msr_y=16)
+    enc = BatchedEncoder(3, cfg, "cpu")
+    steps = [np.stack([np.roll(f, 5 * i, axis=1) for i in range(3)])
+             for f in synth_screencast(H, W, 4)]
+    flat = np.full_like(steps[0], 77)
+
+    def written_lanes(data):
+        alg = data[0] & 0x0F
+        if alg == ALG_I:
+            lanes = read_i_container(data, 1, enc.cfg)[:2]
+        elif alg == ALG_P and len(data) > 2:
+            lanes = read_p_container(data, 1, enc.cfg)[0]
+        else:
+            return 0
+        return sum(int(np.count_nonzero(sizes)) for sizes, _, _ in lanes)
+
+    got, want = [], []
+    for frames in steps + [flat, flat]:
+        before = telemetry.counts().get("serving.encode.lanes", 0)
+        pays = [p for p, _ in enc.encode(frames)]
+        got.append(telemetry.counts().get("serving.encode.lanes", 0) - before)
+        want.append(sum(written_lanes(p) for p in pays))
+    assert got == want, (got, want)
+    assert all(n > 0 for n in got[:3]) and got[3:] == [0, 0, 0], got
+
+
 # -- (b) the spans' names, parents and units -------------------------------------
 
 CALLS = {"sptc.api.encode": None, "sptc.api.decode": None,
