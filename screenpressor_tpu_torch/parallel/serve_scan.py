@@ -34,15 +34,34 @@ validate().
 A `devices=` session (serving.py) runs a window per stream group: every
 group's begin, then every group's finish; the bytes equal the unsplit
 window's.
+
+`serve_windowed` serves any iterable of steps, one with no end included:
+it reads ahead only the F steps that the next run's plan needs.
+
+Spans (`telemetry`), each with the unit of its window's first step:
+`sptc.serve.window.begin` (a child `sptc.serve.window.step` a step
+queued), `sptc.serve.window.finish` (children `sptc.serve.window.pull`,
+once for the lengths and kinds and once for the gather of the used bytes,
+and `sptc.serve.window.assemble`), `sptc.serve.window.decode` (children
+`sptc.serve.window.parse`, the F `_parse` calls, and
+`sptc.serve.window.run`, the one upload and the F `_run` calls). On a
+`devices=` split each group's part is a `sptc.serve.group` span with the
+group's `card`, as in serving.py. Counters: `serving.window.steps` (steps
+coded inside windows), `serving.window.single_steps` (serve_windowed's
+fallback steps), and from the pulled kinds `frames.I`, `frames.P`,
+`frames.flat`, `frames.unchanged`, `frames.raw`.
 """
 
 from __future__ import annotations
+
+from collections import deque
 
 import numpy as np
 import torch
 
 from screenpressor_tpu_torch import coder as tc
 from screenpressor_tpu_torch import container as ct
+from screenpressor_tpu_torch import telemetry
 from screenpressor_tpu_torch.blocks import analyze_compact_streams
 from screenpressor_tpu_torch.classify import classify_i_streams
 from screenpressor_tpu_torch.colorspace import apply_loss
@@ -53,6 +72,9 @@ from screenpressor_tpu_torch.transfer import on_device, pull, upload, upload_all
 
 # kind codes of the pulled [F, S] matrix
 K_FLAT, K_I, K_NOCHANGE, K_P, K_RAW = 0, 1, 2, 3, 4
+# the frame counters the per-step path keeps, by kind code
+KIND_COUNTERS = (("frames.flat", K_FLAT), ("frames.I", K_I), ("frames.unchanged", K_NOCHANGE),
+                 ("frames.P", K_P), ("frames.raw", K_RAW))
 
 U8 = torch.uint8
 I64 = torch.int64
@@ -163,12 +185,12 @@ def _i_slots(enc, wcfg, frames, ids, ids_t):
 
 def encode_window_steps(enc, frames_fs, key_fs, idx, wcfg):
     """F window steps over a one-device BatchedEncoder's state, queued with
-    no host read but the motion search's. frames_fs [F, S, H, W, 3] uint8
-    (lossy) on the device; key_fs [F, S] host bools; idx: per step the
-    device index tensors of its P streams (None when all S are) and of its
-    keyframing streams. Commits prev, the tables and the flat bookkeeping
-    (on the device, enc.flat_dev). Returns (outs [F, S, pack_cap] uint8,
-    lens [F, S], kinds [F, S])."""
+    no host read, a span `sptc.serve.window.step` each. frames_fs
+    [F, S, H, W, 3] uint8 (lossy) on the device; key_fs [F, S] host bools;
+    idx: per step the device index tensors of its P streams (None when all
+    S are) and of its keyframing streams. Commits prev, the tables and the
+    flat bookkeeping (on the device, enc.flat_dev). Returns (outs
+    [F, S, pack_cap] uint8, lens [F, S], kinds [F, S])."""
     s = enc.s
     dev = enc.device
     pc = wcfg.pack_cap
@@ -178,44 +200,45 @@ def encode_window_steps(enc, frames_fs, key_fs, idx, wcfg):
     prev = enc.prev
     outs, lens, kinds = [], [], []
     for t in range(frames_fs.shape[0]):
-        frames = frames_fs[t]
-        own_p, own_i = np.nonzero(~key_fs[t])[0], np.nonzero(key_fs[t])[0]
-        idx_p, idx_i = idx[t]
-        out = torch.zeros((s, pc), dtype=U8, device=dev)
-        out_len = torch.zeros(s, dtype=I64, device=dev)
-        kind = torch.zeros(s, dtype=I64, device=dev)
-        raw = torch.zeros(s, dtype=torch.bool, device=dev)
-        flat = torch.zeros(s, dtype=torch.bool, device=dev)
-        nochange = torch.zeros(s, dtype=torch.bool, device=dev)
-        color = torch.zeros((s, 3), dtype=U8, device=dev)
-        if own_p.size:
-            sel = slice(None) if idx_p is None else idx_p
-            o, n, r, fl, col, nc = _p_slots(enc, wcfg, frames[sel], prev[sel], own_p)
-            out[sel], out_len[sel], raw[sel], flat[sel], color[sel], nochange[sel] = (
-                o, n, r, fl, col, nc)
-            kind[sel] = torch.where(fl, K_FLAT, torch.where(nc, K_NOCHANGE, K_P))
-        if own_i.size:
-            o, n, r, fl, col = _i_slots(enc, wcfg, frames[idx_i], own_i, idx_i)
-            out[idx_i], out_len[idx_i], raw[idx_i], flat[idx_i], color[idx_i] = (
-                o, n, r, fl, col)
-            kind[idx_i] = torch.where(fl, K_FLAT, K_I)
+        with telemetry.span("sptc.serve.window.step"):
+            frames = frames_fs[t]
+            own_p, own_i = np.nonzero(~key_fs[t])[0], np.nonzero(key_fs[t])[0]
+            idx_p, idx_i = idx[t]
+            out = torch.zeros((s, pc), dtype=U8, device=dev)
+            out_len = torch.zeros(s, dtype=I64, device=dev)
+            kind = torch.zeros(s, dtype=I64, device=dev)
+            raw = torch.zeros(s, dtype=torch.bool, device=dev)
+            flat = torch.zeros(s, dtype=torch.bool, device=dev)
+            nochange = torch.zeros(s, dtype=torch.bool, device=dev)
+            color = torch.zeros((s, 3), dtype=U8, device=dev)
+            if own_p.size:
+                sel = slice(None) if idx_p is None else idx_p
+                o, n, r, fl, col, nc = _p_slots(enc, wcfg, frames[sel], prev[sel], own_p)
+                out[sel], out_len[sel], raw[sel], flat[sel], color[sel], nochange[sel] = (
+                    o, n, r, fl, col, nc)
+                kind[sel] = torch.where(fl, K_FLAT, torch.where(nc, K_NOCHANGE, K_P))
+            if own_i.size:
+                o, n, r, fl, col = _i_slots(enc, wcfg, frames[idx_i], own_i, idx_i)
+                out[idx_i], out_len[idx_i], raw[idx_i], flat[idx_i], color[idx_i] = (
+                    o, n, r, fl, col)
+                kind[idx_i] = torch.where(fl, K_FLAT, K_I)
 
-        # flat bookkeeping; raw escapes and flat color changes renew
-        same = last_flat & (flat_color == color).all(dim=1)
-        renew_where(enc.tables_b, raw | (flat & ~same))
-        last_flat = flat
-        flat_color = torch.where(flat[:, None], color, flat_color)
+            # flat bookkeeping; raw escapes and flat color changes renew
+            same = last_flat & (flat_color == color).all(dim=1)
+            renew_where(enc.tables_b, raw | (flat & ~same))
+            last_flat = flat
+            flat_color = torch.where(flat[:, None], color, flat_color)
 
-        # small frames: flat (4 B), no-change (2 B), raw header (1 B + body)
-        kind = torch.where(raw, K_RAW, kind)
-        small, small_len = ct.small_frames(flat, nochange, raw, color)
-        is_small = flat | nochange | raw
-        out[:, :4] = torch.where(is_small[:, None], small, out[:, :4])
-        out_len = torch.where(is_small, small_len, out_len)
-        outs.append(out)
-        lens.append(out_len)
-        kinds.append(kind)
-        prev = frames
+            # small frames: flat (4 B), no-change (2 B), raw header (1 B + body)
+            kind = torch.where(raw, K_RAW, kind)
+            small, small_len = ct.small_frames(flat, nochange, raw, color)
+            is_small = flat | nochange | raw
+            out[:, :4] = torch.where(is_small[:, None], small, out[:, :4])
+            out_len = torch.where(is_small, small_len, out_len)
+            outs.append(out)
+            lens.append(out_len)
+            kinds.append(kind)
+            prev = frames
     enc.prev = frames_fs[-1].clone()
     enc.flat_dev = (last_flat, flat_color)
     return torch.stack(outs), torch.stack(lens), torch.stack(kinds)
@@ -249,12 +272,19 @@ def encode_window_begin(enc, frames_list, wcfg: WindowConfig):
     (prev, tables, flat bookkeeping) with no pull; returns a handle for
     encode_window_finish. The next window's begin may be issued before this
     one's finish."""
+    step = enc.fn
+    with telemetry.span("sptc.serve.window.begin", unit=step):
+        telemetry.count("serving.window.steps", len(frames_list))
+        return step, _begin(enc, frames_list, wcfg)
+
+
+def _begin(enc, frames_list, wcfg):
     f = len(frames_list)
     if enc.groups is not None:
         handles = []
-        for g, sl in enc.groups:
-            with on_device(g.device):
-                handles.append(encode_window_begin(
+        for card, (g, sl) in enumerate(enc.groups):
+            with telemetry.span("sptc.serve.group", card=card), on_device(g.device):
+                handles.append(_begin(
                     g, [f_[sl] if isinstance(f_, np.ndarray)
                         else f_[sl].to(g.device, non_blocking=True) for f_ in frames_list],
                     wcfg))
@@ -285,38 +315,50 @@ def encode_window_begin(enc, frames_list, wcfg: WindowConfig):
 def encode_window_finish(handle):
     """Pull a begun window's results (two pulls) and assemble the
     containers. Returns a list of per-step encode() result lists."""
+    step, body = handle
+    with telemetry.span("sptc.serve.window.finish", unit=step):
+        return _finish(body)
+
+
+def _finish(handle):
     enc, body = handle
     if enc.groups is not None:
         parts = []
-        for (g, _), h in zip(enc.groups, body):
-            with on_device(g.device):
-                parts.append(encode_window_finish(h))
+        for card, ((g, _), h) in enumerate(zip(enc.groups, body)):
+            with telemetry.span("sptc.serve.group", card=card), on_device(g.device):
+                parts.append(_finish(h))
         return [[o for p in parts for o in p[t]] for t in range(len(parts[0]))]
     frames_fs, outs, lens, kinds = body
     f, s, pc = outs.shape
     npx3 = frames_fs[0, 0].numel()
     # pull 1: the [F, S] lengths and kinds
-    lens_h, kinds_h = pull([[lens, kinds]], "serving.pull")[0]
+    with telemetry.span("sptc.serve.window.pull"):
+        lens_h, kinds_h = pull([[lens, kinds]], "serving.pull")[0]
+    for name, code in KIND_COUNTERS:
+        telemetry.count(name, np.count_nonzero(kinds_h == code))
     # pull 2: exactly the used container bytes, RAW bodies after their header
-    rows = outs.reshape(f * s, 1, pc)
-    parts, at = [rows.reshape(-1)], outs.numel()
-    raw_src, raw_len = np.zeros(f * s, np.int64), np.zeros(f * s, np.int64)
-    for r in np.flatnonzero(kinds_h.reshape(-1) == K_RAW):
-        parts.append(frames_fs[r // s, r % s].reshape(-1))
-        raw_src[r], raw_len[r] = at, npx3
-        at += npx3
-    src, seg_lens = ct.lane_segments(*ct.section_rows([rows]), np.zeros((f * s, 1, 1), np.int64),
-                                     lens_h.reshape(f * s, 1, 1), raw_src, raw_len)
-    tight = ct.gather_segments(parts, src, seg_lens)
-    results, pos = [], 0
-    for t in range(f):
-        out_t = []
-        for i in range(s):
-            kd = int(kinds_h[t, i])
-            data, pos = ct.assemble(b"", tight, pos,
-                                    body=int(lens_h[t, i]) + (npx3 if kd == K_RAW else 0))
-            out_t.append((data, FTYPE_P if kd in (K_NOCHANGE, K_P) else FTYPE_I))
-        results.append(out_t)
+    with telemetry.span("sptc.serve.window.pull"):
+        rows = outs.reshape(f * s, 1, pc)
+        parts, at = [rows.reshape(-1)], outs.numel()
+        raw_src, raw_len = np.zeros(f * s, np.int64), np.zeros(f * s, np.int64)
+        for r in np.flatnonzero(kinds_h.reshape(-1) == K_RAW):
+            parts.append(frames_fs[r // s, r % s].reshape(-1))
+            raw_src[r], raw_len[r] = at, npx3
+            at += npx3
+        src, seg_lens = ct.lane_segments(*ct.section_rows([rows]),
+                                         np.zeros((f * s, 1, 1), np.int64),
+                                         lens_h.reshape(f * s, 1, 1), raw_src, raw_len)
+        tight = ct.gather_segments(parts, src, seg_lens)
+    with telemetry.span("sptc.serve.window.assemble"):
+        results, pos = [], 0
+        for t in range(f):
+            out_t = []
+            for i in range(s):
+                kd = int(kinds_h[t, i])
+                data, pos = ct.assemble(b"", tight, pos,
+                                        body=int(lens_h[t, i]) + (npx3 if kd == K_RAW else 0))
+                out_t.append((data, FTYPE_P if kd in (K_NOCHANGE, K_P) else FTYPE_I))
+            results.append(out_t)
     return results
 
 
@@ -358,12 +400,18 @@ def serve_windowed(enc, batches, dec=None, wcfg: WindowConfig | None = None,
                    device_out: bool = True):
     """Window serving driver: like serve_pipelined, but F-step windows on
     both sides (encode_window + decode_window). Yields (outs, decoded) per
-    step."""
+    step, each as soon as its window is decoded.
+
+    `batches` may be any iterable, one with no end included. Each next run
+    is the one plan_windows plans over the whole sequence: a step's
+    eligibility is fixed by its step number, so the run starting at a step
+    needs only the next F batches. A window is begun before the previous
+    one is finished, so at most 2F - 1 batches are pulled beyond the last
+    step yielded."""
     if wcfg is None:
         wcfg = WindowConfig(enc.cfg, enc.s)
-    batches = list(batches)
-    plan = plan_windows(enc, len(batches), wcfg)
-    t = 0
+    source = iter(batches)
+    ahead = deque()  # batches pulled, not yet begun
     pend = None  # a begun, unfinished window (device work in flight)
 
     def emit_window(handle):
@@ -373,11 +421,18 @@ def serve_windowed(enc, batches, dec=None, wcfg: WindowConfig | None = None,
         frames_fs = decode_window(dec, [[p for p, _ in outs] for outs in steps])
         return [(outs, frames_fs[j]) for j, outs in enumerate(steps)]
 
-    for kind, ln in plan:
+    while True:
+        for frames in source:
+            ahead.append(frames)
+            if len(ahead) == wcfg.f:
+                break
+        if not ahead:
+            break
+        kind, ln = plan_windows(enc, len(ahead), wcfg)[0]
         if kind == "window":
             # queue this window BEFORE pulling the previous one: its device
             # work then overlaps the host's pulls and assembly
-            handle = encode_window_begin(enc, batches[t: t + ln], wcfg)
+            handle = encode_window_begin(enc, [ahead.popleft() for _ in range(ln)], wcfg)
             if pend is not None:
                 yield from emit_window(pend)
             pend = handle
@@ -385,11 +440,11 @@ def serve_windowed(enc, batches, dec=None, wcfg: WindowConfig | None = None,
             if pend is not None:
                 yield from emit_window(pend)
                 pend = None
-            outs = enc.encode(batches[t])
+            telemetry.count("serving.window.single_steps")
+            outs = enc.encode(ahead.popleft())
             decoded = (None if dec is None else
                        dec.decode([p for p, _ in outs], device_out=device_out))
             yield outs, decoded
-        t += ln
     if pend is not None:
         yield from emit_window(pend)
 
@@ -404,26 +459,35 @@ def decode_window(dec, payload_lists):
     state, with one upload of the window's host arrays. Returns the frames
     [F, S, H, W, 3] on the device; the stream check is deferred like
     decode(device_out=True)'s, to the next decode() / validate()."""
+    step, dec.fn = dec.fn, dec.fn + len(payload_lists)
+    with telemetry.span("sptc.serve.window.decode", unit=step):
+        return _decode(dec, payload_lists)
+
+
+def _decode(dec, payload_lists):
     dec.validate()
     if dec.groups is not None:
         outs = []
-        for g, sl in dec.groups:
-            with on_device(g.device):
-                outs.append(decode_window(g, [list(p[sl]) for p in payload_lists]))
+        for card, (g, sl) in enumerate(dec.groups):
+            with telemetry.span("sptc.serve.group", card=card), on_device(g.device):
+                outs.append(_decode(g, [list(p[sl]) for p in payload_lists]))
         return torch.cat([o.to(dec.device) for o in outs], dim=1)
     plans, host, counts = [], [], []
-    for t, payloads in enumerate(payload_lists):
-        assert len(payloads) == dec.s
-        plan, arrays = dec._parse(payloads, lambda i, t=t: f"step {t} stream {dec.base + i}",
-                                  have_prev=t > 0 or dec.prev is not None)
-        plans.append(plan)
-        host += arrays
-        counts.append(len(arrays))
-    got = iter(upload_all(host, dec.device))
-    frames, errs = [], []
-    for plan, n in zip(plans, counts):
-        fr, err = dec._run(plan, [next(got) for _ in range(n)])
-        frames.append(fr)
-        errs.append(err)
-    dec._pending_err = (torch.stack(errs), np.any([p["p_mask"] for p in plans], axis=0))
-    return torch.stack(frames)
+    with telemetry.span("sptc.serve.window.parse"):
+        for t, payloads in enumerate(payload_lists):
+            assert len(payloads) == dec.s
+            plan, arrays = dec._parse(payloads,
+                                      lambda i, t=t: f"step {t} stream {dec.base + i}",
+                                      have_prev=t > 0 or dec.prev is not None)
+            plans.append(plan)
+            host += arrays
+            counts.append(len(arrays))
+    with telemetry.span("sptc.serve.window.run"):
+        got = iter(upload_all(host, dec.device))
+        frames, errs = [], []
+        for plan, n in zip(plans, counts):
+            fr, err = dec._run(plan, [next(got) for _ in range(n)])
+            frames.append(fr)
+            errs.append(err)
+        dec._pending_err = (torch.stack(errs), np.any([p["p_mask"] for p in plans], axis=0))
+        return torch.stack(frames)

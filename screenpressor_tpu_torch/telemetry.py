@@ -122,9 +122,11 @@ def counts() -> dict[str, int]:
     `api.convert.host_frames`), the bytes a split serving session moves
     between devices (`serving.dp.scatter_bytes`, `serving.dp.gather_bytes`),
     the lanes a serving decode step's parse cut, over its coded streams'
-    sections (`serving.decode.lanes`), and the non-empty lanes a serving
+    sections (`serving.decode.lanes`), the non-empty lanes a serving
     encode step's writer laid out over its coded streams' sections
-    (`serving.encode.lanes`)."""
+    (`serving.encode.lanes`), and the steps window serving coded inside
+    windows and as fallback steps (`serving.window.steps`,
+    `serving.window.single_steps`)."""
     out = dict(_COUNTS)
     out.update({f"launch.{k}": v for k, v in _build.LAUNCHES.items()})
     return out

@@ -21,10 +21,12 @@ from screenpressor_tpu.parallel import serve_scan as jss
 from screenpressor_tpu.parallel import serving as jserving
 from screenpressor_tpu_torch import bitstream as bs
 from screenpressor_tpu_torch import container as ct
+from screenpressor_tpu_torch import telemetry
 from screenpressor_tpu_torch.config import ALG_FLAT, ALG_I, ALG_P, ALG_RAW
 from screenpressor_tpu_torch.parallel import serve_scan as ss
 from screenpressor_tpu_torch.parallel.serving import BatchedDecoder, BatchedEncoder
 
+from spbench.reference.sptc import StreamDecoder
 from tests.test_serving import staggered_session_batches
 from tests.torch_support import SERVING_SITE_FLIPS, damaged_serving_steps, flip, port_config
 from tests.torch_support import one_torch_thread  # noqa: F401 (autouse)
@@ -163,6 +165,30 @@ def test_overflow_decode_lossless(overflow):
             back = [dec.decode([p for p, _ in step]) for step in got[1:]]
         for t in range(2):
             np.testing.assert_array_equal(back[t], frames[1 + t], err_msg=f"step {t}")
+
+
+def test_overflow_served_by_serve_windowed(overflow):
+    """serve_windowed over the fixture's three steps (the session's
+    keyframe step, then one window of two) gives the fixture's bytes and
+    frames back, counts the RAW stream-steps in frames.raw, and the plain
+    reference decoder (spbench/reference/sptc.py) gives every stream's
+    frames back from those bytes."""
+    cfg, frames, _, got, _ = overflow
+    wcfg = _wcfg(ss, cfg, rec_cap=64, col_cap=64, pack_cap=4096)
+    enc, dec = BatchedEncoder(S, cfg, "cpu"), BatchedDecoder(S, cfg, "cpu")
+    before = telemetry.counts().get("frames.raw", 0)
+    served = list(ss.serve_windowed(enc, iter(frames), dec, wcfg))
+    dec.validate()
+    assert [outs for outs, _ in served] == got
+    n_raw = sum(p[0] & 0x0F == ALG_RAW for step in got for p, _ in step)
+    assert n_raw == 1 and telemetry.counts()["frames.raw"] - before == n_raw
+    for t, (_, back) in enumerate(served):
+        np.testing.assert_array_equal(back.numpy(), frames[t], err_msg=f"step {t}")
+    for i in range(S):
+        ref = StreamDecoder(H, W, cfg.k_fixed)
+        for t, step in enumerate(got):
+            np.testing.assert_array_equal(ref.decode(step[i][0]), frames[t][i],
+                                          err_msg=f"step {t} stream {i}")
 
 
 def test_overflow_renews_the_raw_streams_tables(overflow):

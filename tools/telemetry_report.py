@@ -45,7 +45,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 CALLS = {"sptc.api.encode", "sptc.api.decode", "sptc.codec.encode", "sptc.codec.decode",
-         "sptc.serve.encode_begin", "sptc.serve.encode_finish", "sptc.serve.decode"}
+         "sptc.serve.encode_begin", "sptc.serve.encode_finish", "sptc.serve.decode",
+         "sptc.serve.window.begin", "sptc.serve.window.finish", "sptc.serve.window.decode"}
 
 
 def traced_units(drv) -> set:
