@@ -44,10 +44,13 @@ Phases, each printed with its seconds:
      clock; frames and error words must be equal; K6 (the data-block
      rebuild, one launch a call) against its plain version on each step's
      call, K6 timed as its device time from a CUDA graph of its launches;
-     then the 1080p session's decode with each of its 32 rebuild_p_streams
-     calls captured: K6 against plain on every one, the scroll and the
-     typing frame's call timed, and all of them in sequence
-     beside the session's decode time;
+     K8 (the block resolution, one C call of three kernels a call) against
+     its plain version on both steps' calls, timed the same way, with the
+     wrapper's and the plain version's synchronised host time; then the
+     1080p session's decode with each of its 32 rebuild_p_streams calls
+     captured: K6 and K8 against plain on every one, the scroll and the
+     typing frame's call timed, and all of them in sequence beside the
+     session's decode time;
   6c. the serving P encode front half: on each P step of the serving
      session, one blocks.analyze_compact_streams call over the step's P
      streams, the pull of their counts and one
@@ -128,14 +131,15 @@ Phases, each printed with its seconds:
 K4 in phase 3 and 5 also reports its time a row and the whole
 reconstruct_i (expand, pad, kernel). Phases 4, 6, 8-11 require K5 (the
 P analysis's block front end) and K6 (the P decode's data-block rebuild)
-among their launches too; phase 4 prints the 1080p session encode's peak
-device memory.
+among their launches too, phases 4, 6 and 8 K8 (the P decode's block
+resolution); phase 4 prints the 1080p session encode's peak device memory.
 The kernels' JSON summary gives each kernel's launches on its main path,
 its time, its plain version's, its largest error and its roofline bound
 (the larger of the bytes it must move over 3.35 TB/s and its scalar
 operations over 67 TOP/s, the H100 SXM figures): summed over the compared
 launches, like the times, and "library_ms": null (no single PyTorch call
-computes K1-K6: K5 ends in a first-match search, K6 is a recurrence).
+computes K1-K8: K5 ends in a first-match search, K6 is a recurrence, K8
+a chain of scans and searches).
 Then the card's nvidia-smi name and power limit; the last line is
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit, no
 result line). Needs a CUDA device; imports nothing of JAX, of the JAX
@@ -389,6 +393,58 @@ def hold_rebuild(record, entry, calls, label, smi):
           f"kernel {ms:.4f} ms (device, a CUDA graph of its launches; the wrapper "
           f"{wrapper_ms:.4f} ms by CUDA events), bound {bms:.4g} ms ({by}; {nbytes} B, "
           f"{nops} operations), plain {plain_ms:.1f} ms, equal, on {smi}")
+    return ms, plain_ms, bms
+
+
+def resolve_work(recs, lay):
+    """K8's bytes on one call: every record of its five sections read once
+    (int32), the layout (hdr, the slot ranges, each data-block slot's
+    stream, int64) read once, its outputs written once (motion rects and
+    vectors, data-block rects, each data-block slot's 256 ptypes, run
+    lengths and literal triples, int32, and the error words)."""
+    n_in = sum(r.numel() for r in recs.values()) * 4
+    n_in += 8 * (lay.hdr.numel() + 4 * lay.hdr.shape[0] + lay.bsid.shape[0])
+    m, b, c = lay.msid.shape[0], lay.bsid.shape[0], lay.hdr.shape[0]
+    return n_in + 4 * (6 * m + 4 * b + 5 * 256 * b + c)
+
+
+def hold_resolve(record, entry, calls, label, smi):
+    """K8 (kernels.resolve_blocks_streams_kernel, one C call of three
+    kernels) against its plain version (pframe.decode_p_resolve_streams_plain)
+    on captured calls (recs, lay, cfg), summed over the calls; all six
+    outputs and the error word must be equal. K8's time is its device time
+    from a CUDA graph of its calls (graph_ms), the wrapper's CUDA-event time
+    and the synchronised host time a call printed beside it; plain: CUDA
+    events and the synchronised host clock, one run. record: the row to add
+    them to. Returns (kernel ms, plain ms, bound ms)."""
+    from screenpressor_tpu_torch import _build
+    from screenpressor_tpu_torch import pframe as tp
+
+    ms = wrapper_ms = host = plain_ms = plain_host = 0.0
+    err, nbytes, n_rec, launches = 0, 0, 0, 0
+    for recs, lay, cfg in calls:
+        run = lambda: tp.decode_p_resolve_streams(recs, lay, cfg)  # noqa: E731
+        plain = lambda: tp.decode_p_resolve_streams_plain(recs, lay, cfg)  # noqa: E731
+        n0 = _build.LAUNCHES["sptc_resolve_blocks"]
+        wrapper_ms += cuda_ms(run, TIMED_REPS)[0]
+        launches += _build.LAUNCHES["sptc_resolve_blocks"] - n0
+        host += host_ms(run, TIMED_REPS)[0]
+        t_plain, (want, want_err) = cuda_ms(plain, 1, False)
+        plain_ms += t_plain
+        plain_host += host_ms(plain, 1)[0]
+        got, got_err = run()
+        err = max(err, max_abs_err([(g.cpu().numpy(), w.cpu().numpy()) for g, w in
+                                    zip((*got, got_err), (*want, want_err))]))
+        nbytes += resolve_work(recs, lay)
+        n_rec += int(lay.hdr[:, 3].sum())
+        ms += graph_ms(run, TIMED_REPS)
+    record(entry, ms, plain_ms, err, (nbytes, 0))
+    bms, by = bound(nbytes, 0)
+    print(f"K8 {label}: {len(calls)} calls ({launches} C calls in {(TIMED_REPS + 1) * len(calls)} "
+          f"wrapper calls, three kernels each), {n_rec} records: kernel {ms:.4f} ms (device, a CUDA graph of its calls; "
+          f"the wrapper {wrapper_ms:.4f} ms by CUDA events, {host:.4f} ms on the synchronised "
+          f"host), bound {bms:.4g} ms ({by}; {nbytes} B), plain {plain_ms:.3f} ms by CUDA "
+          f"events ({plain_host:.3f} ms on the host), equal, on {smi}")
     return ms, plain_ms, bms
 
 
@@ -701,7 +757,8 @@ def serving_main_path(t0, dev, smi, cfg, offsets, host, batches):
     peak = torch.cuda.max_memory_allocated() - held  # the session's own
     print(f"serving main path launches: {launches}")
     need = ("sptc_sections_encode", "sptc_sections_encode_colw", "sptc_sections_decode",
-            "sptc_run_walk", "sptc_recon_rows", "sptc_analyze_blocks", "sptc_rebuild_blocks")
+            "sptc_run_walk", "sptc_recon_rows", "sptc_analyze_blocks", "sptc_rebuild_blocks",
+            "sptc_resolve_blocks")
     missing = [kn for kn in need if launches[kn] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the serving path: {missing}")
@@ -824,6 +881,9 @@ def serving_rebuild(t0, dev, smi, record, cfg, offsets, batches):
               f"{hms:.3f} ms (host, synchronised), {k6_launches} K6 launch (kernel "
               f"{k6_ms:.4f} ms, bound {k6_bound:.4g} ms, plain {k6_plain:.1f} ms); per-stream "
               f"loop {loop_ms:.3f} ms, {loop_hms:.3f} ms; frames and error words equal, on {smi}")
+    hold_resolve(record, "sptc_resolve_blocks_streams",
+                 [(recs, tp.step_layout(rows, dev), cfg) for recs, rows, _ in captured],
+                 "serving scroll and typing steps", smi)
     del captured, k6_calls
     phase("serving P rebuild", t0)
 
@@ -876,6 +936,8 @@ def session_rebuild(t0, dev, smi, record, payloads, cfg, t_dec):
               f"{n_blk} data blocks, rebuild_p_streams "
               f"{ms:.3f} ms (CUDA events), {hms:.3f} ms (host, synchronised), "
               f"{_build.LAUNCHES['sptc_rebuild_blocks']} K6 launch, on {smi}")
+    hold_resolve(record, "sptc_resolve_blocks", [(r, lay, cfg) for r, lay, _ in captured],
+                 f"1080p session, its {len(captured)} coded P frames", smi)
     all_ms, _ = host_ms(lambda: [real(*c, cfg) for c in captured], 3)
     print(f"P rebuild, 1080p session: its {len(captured)} rebuild_p_streams calls in sequence "
           f"{all_ms:.3f} ms (host, synchronised), {all_ms / 1e3 / t_dec:.4f} of the session's "
@@ -1270,7 +1332,8 @@ def session_api(t0, dev, smi, frames, cfg, pinned, rgb24_rates):
     print(f"session API launches: {launches}")
     single = ("sptc_sections_encode", "sptc_sections_encode_colw", "sptc_sections_decode",
               "sptc_run_walk", "sptc_recon_rows", "sptc_analyze_blocks",
-              "sptc_rebuild_blocks", "sptc_rgb32_to_rgb24", "sptc_rgb24_to_rgb32")
+              "sptc_rebuild_blocks", "sptc_resolve_blocks", "sptc_rgb32_to_rgb24",
+              "sptc_rgb24_to_rgb32")
     missing = [k for k in single if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the session API: {missing}")
@@ -2316,7 +2379,7 @@ def main() -> int:
     print(f"single-stream main path launches: {launches}")
     single = ("sptc_sections_encode", "sptc_sections_encode_colw", "sptc_sections_decode",
               "sptc_run_walk", "sptc_recon_rows", "sptc_analyze_blocks",
-              "sptc_rebuild_blocks")
+              "sptc_rebuild_blocks", "sptc_resolve_blocks")
     missing = [k for k in single if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the main path: {missing}")
@@ -2378,6 +2441,10 @@ def main() -> int:
     # compiles it with the motion apply into one program a frame)
     rebuild, k6 = ("screenpressor_tpu_torch/csrc/block_rebuild.cu",
                    "screenpressor_tpu/jx/pframe.py:253")
+    # K8 stands for decode_p_resolve after its section scans (no Pallas
+    # site: XLA fuses it into the P decode program)
+    resolve, k8 = ("screenpressor_tpu_torch/csrc/resolve.cu",
+                   "screenpressor_tpu/jx/pframe.py:510")
     entries = (  # (entry, its launch count, main path's counts, source, TPU kernel)
         ("sptc_sections_encode", "sptc_sections_encode", launches, sections, k1),
         ("sptc_sections_encode_colw", "sptc_sections_encode_colw", launches, sections, k1),
@@ -2411,6 +2478,8 @@ def main() -> int:
         ("sptc_rebuild_blocks_sp", "sptc_rebuild_blocks", sp_counts, rebuild, k6),
         ("sptc_rebuild_blocks_window", "sptc_rebuild_blocks", win_counts, rebuild, k6),
         ("sptc_rebuild_blocks_dp", "sptc_rebuild_blocks", dp_counts, rebuild, k6),
+        ("sptc_resolve_blocks", "sptc_resolve_blocks", launches, resolve, k8),
+        ("sptc_resolve_blocks_streams", "sptc_resolve_blocks", serve, resolve, k8),
     )
     kernels = [
         {"name": entry, "route": "cuda", "source": src, "replaces": rep,
@@ -2418,7 +2487,7 @@ def main() -> int:
          "ms": rows[entry]["ms"], "plain_ms": rows[entry]["plain_ms"],
          "bound_ms": rows[entry]["bound_ms"],
          "bound_by": "bytes" if rows[entry]["bytes_ms"] >= rows[entry]["ops_ms"] else "operations",
-         "library_ms": None}  # no single PyTorch call computes K1-K6
+         "library_ms": None}  # no single PyTorch call computes K1-K8
         for entry, count, path, src, rep in entries
     ]
     print(json.dumps({"kernels": kernels}))

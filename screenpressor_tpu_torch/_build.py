@@ -46,6 +46,7 @@ SIGNATURES = {
     "sptc_rebuild_blocks": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
     "sptc_rgb32_to_rgb24": (_P, _P, _L, _I, _P),
     "sptc_rgb24_to_rgb32": (_P, _P, _L, _I, _P),
+    "sptc_resolve_blocks": (_P, _P),
 }
 
 # kernel -> launches since the last reset_counts(); a K1 launch that holds

@@ -12,7 +12,10 @@ its plain version is `pframe.reconstruct_blocks_streams_plain`), and of
 K7, the session API's RGB32 <-> RGB24 conversion of a batch of frames,
 `csrc/pixels.cu` (the reference's `colorspace.rgb32_to_rgb24_device` /
 `rgb24_to_rgb32_device`, no Pallas site; its plain versions are
-`colorspace.rgb32_to_rgb24_batch` / `rgb24_to_rgb32_batch` on the CPU).
+`colorspace.rgb32_to_rgb24_batch` / `rgb24_to_rgb32_batch` on the CPU), and
+of K8, the P decode's block resolution, `csrc/resolve.cu` (the reference's
+`jx/pframe.py` `decode_p_resolve` after its section scans, no Pallas site;
+its plain version is `pframe.decode_p_resolve_streams_plain`).
 
 Same contracts as the stream loops of the plain coder in `coder.py`
 (`encode_sections_streams_plain`: `model_scan` + `rans_pack`;
@@ -258,6 +261,50 @@ def rebuild_blocks_streams_kernel(out: torch.Tensor, prev: torch.Tensor, rects: 
                       bsid.data_ptr(), ptypes.data_ptr(), rlens.data_ptr(), lits.data_ptr(),
                       nblk, c, h, w, device=out.device)
     return out
+
+
+RESOLVE_TILE = 4096  # records a thread block of K8's record pass (csrc/resolve.cu TILE)
+RESOLVE_SECTIONS = ("bt", "sxy", "mv", "rec", "col")  # csrc/resolve.cu's order
+
+
+def resolve_blocks_streams_kernel(records: dict, lay, nbx: int, nby: int, h: int, w: int):
+    """K8: the block resolution of a P decode call's C streams in one C call
+    of three kernels, with no host sync. records: {section: [C, cap, W]
+    int32} in record order (bt, sxy, mv, rec, col; W the codec's record
+    width); lay: the
+    call's pframe.StepLayout (hdr, mcap, bcap, moff, boff, bsid int64 on the
+    card; b_max and the slot counts on the host); a frame of h x w pixels,
+    nbx x nby blocks. Returns ((mo_rects [M, 4], mo_mvs [M, 2], d_rects
+    [B, 4], pt [B, 256], rlg [B, 256], lt [B, 256, 3]), err [C]), int32,
+    each written whole: pframe.decode_p_resolve_streams_plain's outputs."""
+    recs = [records[name].to(I32).contiguous() for name in RESOLVE_SECTIONS]
+    layout = (lay.hdr, lay.mcap, lay.bcap, lay.moff, lay.boff, lay.bsid)
+    _build.require_cuda(*recs, *layout)
+    c, b_max = lay.hdr.shape[0], lay.b_max
+    m, b = lay.msid.shape[0], lay.bsid.shape[0]
+    if (c < 1 or b_max < 1 or lay.hdr.shape != (c, 8)
+            or any(t.dtype != torch.int64 for t in layout)
+            or any(t.shape != (c,) for t in layout[1:5])
+            or any(r.dim() != 3 or r.shape[0] != c or r.shape[1] < 1
+                   or r.shape[2] != CODECS[name].rec_width
+                   for r, name in zip(recs, RESOLVE_SECTIONS))):
+        raise ValueError(f"block resolution: records {[tuple(r.shape) for r in recs]}, "
+                         f"layout {[(tuple(t.shape), t.dtype) for t in layout]}, b_max {b_max}")
+    caps = [r.shape[1] for r in recs]
+    cap_bt, cap_rec = caps[0], caps[3]
+    n_tiles = -(-cap_rec // RESOLVE_TILE)
+    dev = lay.hdr.device
+    out = [torch.empty(shape, dtype=I32, device=dev)
+           for shape in ((m, 4), (m, 2), (b, 4), (b, AREA), (b, AREA), (b, AREA, 3), (c,))]
+    s64 = torch.empty(c * (cap_bt + b_max + 1 + 2 * n_tiles), dtype=torch.int64, device=dev)
+    s32 = torch.empty(c * (cap_bt + b_max + 2 * cap_rec), dtype=I32, device=dev)
+    bstart, astart, tsum = s64.split([c * cap_bt, c * (b_max + 1), 2 * c * n_tiles])
+    nzc, first_rec, jbs, litrow = s32.split([c * cap_bt, c * b_max, c * cap_rec, c * cap_rec])
+    scratch = (bstart, nzc, astart, first_rec, tsum, jbs, litrow)
+    d = np.asarray([t.data_ptr() for t in (*recs, *layout, *out, *scratch)]
+                   + [c, *caps, b_max, n_tiles, nbx, nby, h, w, b], np.int64)
+    _build.launch("sptc_resolve_blocks", d.ctypes.data, device=dev)
+    return tuple(out[:6]), out[6]
 
 
 def _frame_pointers(frames, shape, dev) -> torch.Tensor:

@@ -10,9 +10,9 @@ sequence is the same greedy walk as the I-frame's with one 256-position
 tile per block, so it runs through kernel K3 (`classify.run_walk`), one
 launch over all the blocks. The five sections go through the section coder
 (`coder.encode_sections` / `decode_sections`, kernels K1/K2 on the card).
-Block resolution and the motion apply (one gather) are plain tensor ops
-over all the coded P streams of a step at once, and the data-block rebuild
-is one launch of kernel K6 over all their data blocks on the card
+Over all the coded P streams of a step at once, the block resolution is
+one call of kernel K8 on the card (three kernels), the motion apply plain
+tensor ops (one gather), and the data-block rebuild one launch of kernel K6
 (`rebuild_p_streams`; one frame is its case of one stream).
 """
 
@@ -43,7 +43,8 @@ from screenpressor_tpu_torch.config import (
 from screenpressor_tpu_torch import coder as tc
 from screenpressor_tpu_torch.classify import fits_bits, run_walk
 from screenpressor_tpu_torch.container import frame_bytes, p_head, raw_escape, raw_size
-from screenpressor_tpu_torch.kernels import rebuild_blocks_streams_kernel
+from screenpressor_tpu_torch.kernels import (rebuild_blocks_streams_kernel,
+                                            resolve_blocks_streams_kernel)
 from screenpressor_tpu_torch.tables import renew_tables_cached, select_tables
 from screenpressor_tpu_torch.transfer import to_device, upload
 
@@ -496,7 +497,18 @@ def decode_p_resolve_streams(recs: dict, lay: StepLayout, cfg: CodecConfig):
     stream's decoded section records ({name: [C, cap, W]}). Returns
     ((mo_rects [M, 4], mo_mvs [M, 2], d_rects [B, 4], pt [B, 256],
     rlg [B, 256], lt [B, 256, 3]), err [C]): stream-consistency violations
-    set bits of a stream's error word (device int32) instead of raising."""
+    set bits of a stream's error word (device int32) instead of raising.
+    K8 on CUDA tensors (one C call of three kernels, no host sync; raises
+    if the launch fails), the plain version on CPU tensors."""
+    if not lay.hdr.is_cuda:
+        return decode_p_resolve_streams_plain(recs, lay, cfg)
+    return resolve_blocks_streams_kernel(recs, lay, cfg.nbx, cfg.nby, cfg.height, cfg.width)
+
+
+def decode_p_resolve_streams_plain(recs: dict, lay: StepLayout, cfg: CodecConfig):
+    """The plain version of K8 (decode_p_resolve_streams' contract): a chain
+    of tensor ops over all the streams at once (cumsums, index_put_,
+    searchsorted, gathers)."""
     h, w, nbx, nby = cfg.height, cfg.width, cfg.nbx, cfg.nby
     hdr = lay.hdr
     c = hdr.shape[0]

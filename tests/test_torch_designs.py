@@ -13,8 +13,11 @@ sums (run lengths, then marks) and runs each row in 8-bit lanes of one word
 a pixel, as a scan of (reset, add) maps over 16 lanes. K7
 (csrc/pixels.cu) packs a thread's 4 RGB32 pixels (one 16-byte word) into
 3 words of RGB24 with __byte_perm, and back with alpha 255, through a
-tile's 96 16-byte words of shared memory. Inputs are made from a seed with
-numpy.
+tile's 96 16-byte words of shared memory. K8 (csrc/resolve.cu) resolves a
+P decode call's blocks in three passes whose every output entry is written
+once: a block a stream over its runs and blocks, a block a tile of records,
+a block a data-block slot gathering its records. Inputs are made from a
+seed with numpy.
 """
 
 import jax
@@ -359,6 +362,269 @@ def test_k6_byte_lane_rows_match_plain_and_jx(name):
                                         *(jnp.asarray(a[sel]) for a in (rects, pt, rl, lt)),
                                         h, w, int(sel.sum()))
             np.testing.assert_array_equal(got[s], np.asarray(ref))
+
+
+# -- K8 ------------------------------------------------------------------------
+
+POISON = -(2 ** 40)  # an output entry no kernel wrote
+
+
+def _upper_bound(a, n, x):
+    """The kernel's binary search: keys of a[0 .. n) at or below x."""
+    lo, hi = 0, n
+    while lo < hi:
+        mid = (lo + hi) >> 1
+        if a[mid] <= x:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def k8_emulation(recs, lay, cfg, nt=1024, ipt=8, ript=4):
+    """K8's three kernels in numpy, thread by thread where a thread's
+    order matters: kernel 1's stream pass (runs' starts, each thread's
+    search cursor over its ipt consecutive blocks, the class counts packed
+    in 21-bit fields, slots and areas written, the rest of each stream's
+    slots zeroed, the area prefix, first_rec set to the valid records) and
+    its tile sums; kernel 2 per tile of nt * ript records (the tiles before
+    it, each thread's slot cursor over its ript records, first_rec
+    scattered, bits 64, 128, 512); kernel 3 per slot position (the record
+    first_rec + k if it belongs to the slot, bit 256 from record
+    first_rec + 256). Every output starts as POISON and must be written
+    exactly once (first_rec once by kernel 1, at most once more by kernel 2).
+    -> ((mo_rects, mo_mvs, d_rects, pt, rlg, lt), err) as numpy int64."""
+    bt, sxy, mv, rec, col = (recs[n].numpy().astype(np.int64) for n in tp.SECTION_NAMES)
+    hdr = lay.hdr.numpy()
+    mcap, bcap, moff, boff, bsid = (t.numpy() for t in (lay.mcap, lay.bcap, lay.moff, lay.boff,
+                                                         lay.bsid))
+    c, b_max = hdr.shape[0], lay.b_max
+    nbx, nby, h, w = cfg.nbx, cfg.nby, cfg.height, cfg.width
+    nb = nbx * nby
+    cap_bt, cap_sxy, cap_mv, cap_rec, cap_col = (a.shape[1] for a in (bt, sxy, mv, rec, col))
+    chunk, tile = nt * ipt, nt * ript
+    n_tiles = -(-cap_rec // tile)
+    m_all, b_all = lay.msid.shape[0], bsid.shape[0]
+    mo_rects, mo_mvs = np.full((m_all, 4), POISON), np.full((m_all, 2), POISON)
+    d_rects = np.full((b_all, 4), POISON)
+    pt, rlg, lt = (np.full(shape, POISON) for shape in ((b_all, 256), (b_all, 256),
+                                                         (b_all, 256, 3)))
+    err = np.full(c, POISON)
+    astart = np.full((c, b_max + 1), POISON)
+    first_rec = np.full((c, b_max), POISON)
+    jbs, litrow = np.full((c, cap_rec), POISON), np.full((c, cap_rec), POISON)
+    tsum = np.zeros((c, n_tiles, 2), np.int64)
+    field, fmask = 21, (1 << 21) - 1
+
+    def put(arr, idx, val):
+        assert arr[idx] == POISON if np.ndim(arr[idx]) == 0 else (arr[idx] == POISON).all()
+        arr[idx] = val
+
+    def own_last(n, cap):
+        return min(max(int(n), 1), cap) - 1
+
+    def n_valid(s):
+        return min(max(int(hdr[s, 3]), 0), cap_rec)
+
+    for s in range(c):  # kernel 1, the stream blocks
+        n_sxy, n_mv, n_data, xx1 = (int(hdr[s, j]) for j in (1, 2, 7, 5))
+        lenr = int(hdr[s, 6]) - xx1 + 1
+        nv = bt[s, :, 1]
+        bstart = np.cumsum(nv) - nv
+        nzc = np.cumsum(nv > 0)
+        bits = 1 if int(nv.sum()) != lenr else 0
+        own_bt, own_sxy, own_mv = (own_last(hdr[s, j], cap) for j, cap in
+                                   ((0, cap_bt), (1, cap_sxy), (2, cap_mv)))
+        area = astart[s]
+        carry, bad16, bad32 = 0, False, False
+        for base in range(0, nb, chunk):
+            cls = {}
+            for t in range(nt):
+                kb = -1
+                for k in range(ipt):
+                    pos = base + t * ipt + k
+                    q, bts = pos - xx1, 0
+                    if pos < nb and 0 <= q < lenr:
+                        qq = min(q, nb - 1)
+                        if kb < 0:
+                            kb = _upper_bound(bstart, cap_bt, qq)
+                        else:
+                            while kb < cap_bt and bstart[kb] <= qq:
+                                kb += 1
+                        ridx = (int(nzc[kb - 1]) if kb else 0) - 1
+                        if ridx >= 0:
+                            bts = int(bt[s, min(ridx, own_bt), 0])
+                    cls[pos] = (bts in (2, 4), bts in (3, 4), bts in (1, 2))
+            for pos in range(base, base + chunk):  # the scan, then each item
+                part, mot, dat = cls[pos]
+                carry += int(part) | int(mot) << field | int(dat) << 2 * field
+                if pos >= nb or not (part or mot or dat):
+                    continue
+                x_lo, y_lo = (pos % nbx) * 16, (pos // nbx) * 16
+                x_hi, y_hi = min(x_lo + 16, w), min(y_lo + 16, h)
+                x1, y1, x2, y2 = x_lo, y_lo, x_hi, y_hi
+                if part:
+                    r = sxy[s, min(max((carry & fmask) - 1, 0), own_sxy)]
+                    x1, y1, x2, y2 = x_lo + r[0], y_lo + r[1], x_lo + r[2] + 1, y_lo + r[3] + 1
+                    bad16 |= not (x1 < x2 <= x_hi and y1 < y2 <= y_hi)
+                if mot:
+                    mi = ((carry >> field) & fmask) - 1
+                    m0, m1 = (int(v) for v in mv[s, min(mi, own_mv)])
+                    bad32 |= not (x1 + m0 >= 0 and y1 + m1 >= 0 and x2 + m0 <= w
+                                  and y2 + m1 <= h)
+                    if mi < mcap[s]:
+                        put(mo_rects, moff[s] + mi, [x1, y1, x2, y2])
+                        put(mo_mvs, moff[s] + mi, [m0, m1])
+                if dat:
+                    di = (carry >> 2 * field) - 1
+                    if di < bcap[s]:
+                        put(d_rects, boff[s] + di, [x1, y1, x2, y2])
+                        put(area, di, int(np.int32(max(x2 - x1, 0) * max(y2 - y1, 0))))
+        n_part, n_mot, n_dat = carry & fmask, (carry >> field) & fmask, carry >> 2 * field
+        bits |= (2 if n_part != n_sxy else 0) | (4 if n_mot != n_mv else 0)
+        bits |= (8 if n_dat != n_data else 0) | (16 if bad16 else 0) | (32 if bad32 else 0)
+        for j in range(min(n_mot, mcap[s]), mcap[s]):
+            put(mo_rects, moff[s] + j, 0)
+            put(mo_mvs, moff[s] + j, 0)
+        for j in range(min(n_dat, bcap[s]), bcap[s]):
+            put(d_rects, boff[s] + j, 0)
+            put(area, j, 0)
+        a = area[:bcap[s]].copy()
+        area[:bcap[s]] = np.cumsum(a) - a
+        area[bcap[s]] = a.sum()
+        first_rec[s, :bcap[s]] = n_valid(s)
+        put(err, s, bits)
+    for s in range(c):  # kernel 1, the tile blocks
+        nvr = n_valid(s)
+        for tl in range(n_tiles):
+            i = np.arange(tl * tile, min((tl + 1) * tile, nvr))
+            tsum[s, tl] = rec[s, i, 1].sum(), (rec[s, i, 0] == PT_LITERAL).sum()
+    for s in range(c):  # kernel 2
+        nvr, nslot, a_s = n_valid(s), int(bcap[s]), astart[s]
+        own_col = own_last(hdr[s, 4], cap_col)
+        for tl in range(n_tiles):
+            if tl == 0:
+                tot = tsum[s].sum(0)
+                err[s] |= (64 if tot[0] != a_s[nslot] else 0) | (512 if tot[1] > hdr[s, 4] else 0)
+            if tl * tile >= nvr:
+                continue
+            rl_pre, lit_pre = tsum[s, :tl].sum(0) if tl else (0, 0)
+            i = np.arange(tl * tile, (tl + 1) * tile)
+            ok = i < nvr
+            rl = np.where(ok, rec[s, np.minimum(i, cap_rec - 1), 1], 0)
+            lit = ok & (rec[s, np.minimum(i, cap_rec - 1), 0] == PT_LITERAL)
+            rstarts = rl_pre + np.cumsum(rl) - rl
+            nlits = lit_pre + np.cumsum(lit) - lit
+            bad = False
+            for t in range(nt):
+                ub = -1
+                for k in range(ript):
+                    j = t * ript + k
+                    ii = int(i[j])
+                    if ii >= nvr:
+                        break
+                    rstart = int(rstarts[j])
+                    if ub < 0:
+                        ub = _upper_bound(a_s, nslot,
+                                          rstart - int(rec[s, ii - 1, 1]) if ii else -1)
+                    lo = ub
+                    while ub < nslot and a_s[ub] <= rstart:
+                        ub += 1
+                    jb = min(max(ub - 1, 0), nslot - 1)
+                    bad |= rstart + int(rl[j]) > a_s[jb + 1]
+                    for jj in range(lo, ub):
+                        first_rec[s, jj] = ii
+                    put(jbs, (s, ii), jb)
+                    put(litrow, (s, ii), min(max(int(nlits[j]), 0), own_col) if lit[j] else -1)
+            if bad:
+                err[s] |= 128
+    for b in range(b_all):  # kernel 3
+        s = int(bsid[b])
+        bl, nvr = b - int(boff[s]), n_valid(s)
+        f = int(first_rec[s, bl])
+        for k in range(256):
+            i = f + k
+            vals = (0, 0, 0, 0, 0)
+            if i < nvr and jbs[s, i] == bl:
+                lr = int(litrow[s, i])
+                vals = (rec[s, i, 0], rec[s, i, 1], *(col[s, lr] if lr >= 0 else (0, 0, 0)))
+            put(pt, (b, k), vals[0])
+            put(rlg, (b, k), vals[1])
+            put(lt, (b, k), vals[2:])
+        if f + 256 < nvr and jbs[s, f + 256] == bl:
+            err[s] |= 256
+    parts = (mo_rects, mo_mvs, d_rects, pt, rlg, lt)
+    assert all((p != POISON).all() for p in (*parts, err))
+    return parts, err
+
+
+def _resolve_cases():
+    from tests.torch_support import resolve_fixtures
+
+    cases = [(name, 1024, 8, 4) for name in sorted(resolve_fixtures())]
+    # small blocks of threads: several chunks of blocks and tiles of records
+    return cases + [("chunks", 4, 8, 4), ("damaged", 2, 8, 4), ("garbage", 3, 2, 2),
+                    ("rebuild_damaged", 2, 8, 2)]
+
+
+@pytest.mark.parametrize("name,nt,ipt,ript", _resolve_cases())
+def test_k8_passes_match_plain(name, nt, ipt, ript):
+    """K8's three kernels (k8_emulation) equal the plain resolve bit for
+    bit, outputs and error words, on the resolve fixtures (clean, damaged
+    and garbage streams beside clean ones), also with blocks of 2-4
+    threads, so that frames take several chunks of blocks and streams
+    several tiles of records; every output entry is written exactly once,
+    so the kernels need no zeroed buffer."""
+    from tests.torch_support import resolve_fixtures, resolve_inputs
+
+    recs, lay, cfg = resolve_inputs(*resolve_fixtures()[name])
+    parts, err = k8_emulation(recs, lay, cfg, nt, ipt, ript)
+    want, want_err = tp.decode_p_resolve_streams_plain(recs, lay, cfg)
+    for got, ref in zip(parts, want):
+        np.testing.assert_array_equal(got, ref.numpy().astype(np.int64))
+    np.testing.assert_array_equal(err, want_err.numpy())
+
+
+def test_k8_passes_match_plain_on_decodes():
+    """k8_emulation equals the plain resolve on every rebuild_p_streams call
+    of real decodes on the CPU: the 48 x 64 stream of corrupt_payloads
+    (C = 1) and each of its damaged payloads, and the four-stream serving
+    steps of damaged_serving_steps with stream 1 damaged beside three clean
+    ones (C = 4)."""
+    from screenpressor_tpu_torch import TorchDecoder
+    from screenpressor_tpu_torch import bitstream as bs
+    from screenpressor_tpu_torch.parallel.serving import BatchedDecoder
+    from tests.torch_support import corrupt_payloads, damaged_serving_steps, resolve_calls
+
+    cfg, _, payloads, damaged = corrupt_payloads()
+    s_cfg, steps, _, cases = damaged_serving_steps()
+    calls = []
+    with resolve_calls(calls):
+        TorchDecoder(cfg, "cpu").decode_batch(payloads)
+        for i, data in damaged:
+            dec = TorchDecoder(cfg, "cpu")
+            dec.decode_batch(payloads[:i])
+            try:
+                dec.decode_batch([data])
+            except bs.CorruptStreamError:
+                pass
+        for i, data in cases[::4]:
+            dec = BatchedDecoder(len(steps[0]), s_cfg, "cpu")
+            for st in steps[:i]:
+                dec.decode(st)
+            try:
+                dec.decode([data if j == 1 else p for j, p in enumerate(steps[i])])
+            except bs.CorruptStreamError:
+                pass
+    n_damaged = 0
+    for recs, lay, c_ in calls:
+        parts, err = k8_emulation(recs, lay, c_)
+        want, want_err = tp.decode_p_resolve_streams_plain(recs, lay, c_)
+        for got, ref in zip(parts, want):
+            np.testing.assert_array_equal(got, ref.numpy().astype(np.int64))
+        np.testing.assert_array_equal(err, want_err.numpy())
+        n_damaged += bool(err.any())
+    assert n_damaged >= 10 and any(lay.hdr.shape[0] == 4 for _, lay, _ in calls)
 
 
 # -- K7 ------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1-K4, their stream-batched launches and K1's
 colw variant; K5, the P analysis's block front end; K6, the P decode's
-data-block rebuild; K7, the session API's RGB32 conversion) against their
-plain PyTorch versions, on the card. Skips where there is no CUDA device.
+data-block rebuild; K7, the session API's RGB32 conversion; K8, the P
+decode's block resolution) against their plain PyTorch versions, on the
+card. Skips where there is no CUDA device.
 
 This file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
@@ -1355,6 +1356,196 @@ def test_block_rebuild_kernel_on_damaged_streams(cuda):
             assert launches == 1 and torch.equal(got[keep], want[keep])
             n_calls += 1
     assert n_calls >= len(runs) // 2
+
+
+# ---- K8: the P decode's block resolution (csrc/resolve.cu) ----
+
+
+def _k8_vs_plain(recs, lay, cfg, check=None):
+    """K8 (decode_p_resolve_streams on the card) and the plain version on
+    the same inputs, on the card and on the CPU: every output and the
+    error word equal bit for bit; returns (K8's outputs, err, K8's C calls).
+    check: a callable run on K8's call alone (the count taken inside it)."""
+    from screenpressor_tpu_torch import pframe as tp
+
+    n0 = _build.LAUNCHES["sptc_resolve_blocks"]
+    got = []
+    (check or (lambda fn: fn()))(lambda: got.append(tp.decode_p_resolve_streams(recs, lay, cfg)))
+    launches = _build.LAUNCHES["sptc_resolve_blocks"] - n0
+    (parts, err), = got
+    want, want_err = tp.decode_p_resolve_streams_plain(recs, lay, cfg)
+    cpu = lambda t: t.cpu() if isinstance(t, torch.Tensor) else t  # noqa: E731
+    lay_c = type(lay)(*(cpu(f) for f in lay))
+    want_c, want_err_c = tp.decode_p_resolve_streams_plain({k: v.cpu() for k, v in recs.items()},
+                                                           lay_c, cfg)
+    for j, (g, a, b) in enumerate(zip(parts, want, want_c)):
+        assert g.dtype == torch.int32 and torch.equal(g, a) and torch.equal(g.cpu(), b), j
+    assert torch.equal(err, want_err) and torch.equal(err.cpu(), want_err_c)
+    return parts, err, launches
+
+
+@pytest.mark.parametrize("name", ["chunks", "clean", "damaged", "garbage", "rebuild_damaged",
+                                  "rebuild_edges", "rebuild_empty", "rebuild_motion",
+                                  "rebuild_partial", "rebuild_streams", "rebuild_types",
+                                  "rebuild_wrap", "streams"])
+def test_resolve_kernel_matches_plain(cuda, name):
+    """K8 equals the plain resolve, all six outputs and the error word, on
+    the resolve fixtures: the rebuild fixtures' slots as data blocks, every
+    block type, several streams, damaged and garbage streams beside clean
+    ones; one C call each."""
+    from torch_support import resolve_fixtures, resolve_inputs  # tests/ is on the path
+
+    _, err, launches = _k8_vs_plain(*resolve_inputs(*resolve_fixtures()[name], device=cuda))
+    assert launches == 1
+    if name in ("damaged", "garbage"):
+        assert not bool(err[0]) and bool(err[1:].all())
+
+
+def test_resolve_kernel_on_decodes(cuda):
+    """K8 equals the plain resolve on the captured rebuild calls of a 1080p
+    session decode (C = 1, its coded P frames) and of a three-stream
+    serving decode (C = 3), on the card."""
+    from screenpressor_tpu_torch.parallel.serving import BatchedDecoder, BatchedEncoder
+    from screenpressor_tpu_torch.synth import synth_screencast
+
+    from torch_support import resolve_calls  # tests/ is on the path
+
+    frames = synth_screencast(1080, 1920, 12)
+    big = CodecConfig(width=1920, height=1080)
+    single = [p for p, _ in TorchEncoder(big, cuda).encode_batch(frames)]
+    steps = _serving_steps(4)
+    cfg = CodecConfig(width=640, height=360, k_fixed=64, msr_x=256, msr_y=256)
+    enc = BatchedEncoder(3, cfg, cuda)
+    served = [[p for p, _ in enc.encode(torch.as_tensor(f[:3], device=cuda))] for f in steps]
+    calls = []
+    with resolve_calls(calls):
+        TorchDecoder(big, cuda).decode_batch(single)
+        dec = BatchedDecoder(3, cfg, cuda)
+        for step in served:
+            dec.decode(step)
+    assert len(calls) >= 6 and any(lay.hdr.shape[0] == 3 for _, lay, _ in calls)
+    for recs, lay, c_ in calls:
+        _, err, launches = _k8_vs_plain(recs, lay, c_)
+        assert launches == 1 and not bool(err.any())
+
+
+@pytest.mark.parametrize("max_run", [1, 12])
+def test_resolve_kernel_on_1080p_flip(cuda, max_run):
+    """K8 equals the plain resolve on a fully changed 1920x1080 frame (a
+    pages flip: every block coded, data and motion, runs over all 8,160
+    blocks; run lengths of 1 give about 1.4 M records, so 340 tiles)."""
+    from torch_support import random_blocks, resolve_inputs, stream_sections
+
+    rng = np.random.default_rng(31 + max_run)
+    blocks = random_blocks(rng, 1080, 1920, p_types=(0.0, 0.45, 0.2, 0.25, 0.1),
+                           max_run=max_run)
+    recs, row = stream_sections(blocks, 8160, full_range=True)
+    _, err, launches = _k8_vs_plain(*resolve_inputs([recs], [row], 1080, 1920, device=cuda))
+    assert launches == 1 and not bool(err.any())
+
+
+def test_resolve_kernel_on_64_streams(cuda):
+    """K8 equals the plain resolve on 64 streams of 640x360 (920 blocks
+    each) in one call, streams of every mix of block types, one damaged."""
+    from torch_support import (DAMAGE_KINDS, _damage, random_blocks,  # tests/ is on the path
+                               resolve_inputs, stream_sections)
+
+    rng = np.random.default_rng(64)
+    streams, rows = [], []
+    for s in range(64):
+        p = rng.dirichlet(np.ones(5))
+        recs, row = stream_sections(random_blocks(rng, 360, 640, p_types=p), 920)
+        if s == 17:
+            _damage(rng, DAMAGE_KINDS[4], recs, row)
+        streams.append(recs)
+        rows.append(row)
+    _, err, launches = _k8_vs_plain(*resolve_inputs(streams, rows, 360, 640, device=cuda))
+    assert launches == 1 and bool(err[17]) and int(err.count_nonzero()) == 1
+
+
+def test_resolve_kernel_on_damaged_streams(cuda):
+    """The damaged payloads of corrupt_payloads decoded on the card, and the
+    damaged serving steps (stream 1 damaged beside three clean streams):
+    every rebuild call's K8 outputs and error word equal the plain
+    version's bit for bit, and the clean streams' error words are 0."""
+    from screenpressor_tpu_torch import bitstream as bs
+    from screenpressor_tpu_torch.parallel.serving import BatchedDecoder
+
+    from torch_support import (corrupt_payloads, damaged_serving_steps,  # tests/ is on the path
+                               resolve_calls)
+
+    cfg, _, payloads, damaged = corrupt_payloads()
+    s_cfg, steps, _, cases = damaged_serving_steps(cuda)
+    calls, served = [], []
+    with resolve_calls(calls):
+        for i, data in damaged:
+            dec = TorchDecoder(cfg, cuda)
+            dec.decode_batch(payloads[:i])
+            try:
+                dec.decode_batch([data])
+            except bs.CorruptStreamError:
+                pass
+        n_single = len(calls)
+        for i, data in cases:
+            dec = BatchedDecoder(len(steps[0]), s_cfg, cuda)
+            for st in steps[:i]:
+                dec.decode(st)
+            try:
+                dec.decode([data if j == 1 else p for j, p in enumerate(steps[i])])
+            except bs.CorruptStreamError:
+                pass
+    n_damaged = 0
+    for j, (recs, lay, c_) in enumerate(calls):
+        _, err, launches = _k8_vs_plain(recs, lay, c_)
+        assert launches == 1
+        n_damaged += bool(err.any())
+        if j >= n_single and err.shape[0] == 4:
+            assert not bool(err[[0, 2, 3]].any())
+    assert n_damaged >= 10 and len(calls) > n_single
+
+
+def test_resolve_one_call_no_sync_three_launches(cuda, monkeypatch):
+    """decode_p_resolve_streams on the card makes no host sync (torch's
+    sync debug mode set to raise), never runs the plain chain, and its span
+    holds three kernel launches (the profiler's launch calls: K8's three
+    kernels and nothing of the wrapper's), on a serving step and a 1080p
+    frame."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from screenpressor_tpu_torch import pframe as tp
+
+    from torch_support import random_blocks, resolve_inputs, stream_sections
+
+    rng = np.random.default_rng(5)
+    cases = []
+    for h, w, c in ((360, 640, 64), (1080, 1920, 1)):
+        made = [stream_sections(random_blocks(rng, h, w), -(-w // 16) * -(-h // 16))
+                for _ in range(c)]
+        cases.append(resolve_inputs([m[0] for m in made], [m[1] for m in made], h, w,
+                                    device=cuda))
+
+    def no_sync(fn):
+        torch.cuda.synchronize()
+        with monkeypatch.context() as mp:
+            mp.setattr(tp, "decode_p_resolve_streams_plain", None)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+    for recs, lay, cfg in cases:
+        _, _, launches = _k8_vs_plain(recs, lay, cfg, no_sync)
+        assert launches == 1
+        tp.decode_p_resolve_streams(recs, lay, cfg)  # the allocator's blocks exist
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            tp.decode_p_resolve_streams(recs, lay, cfg)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()]
+        n = sum(name in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel")
+                for name in names)
+        assert n == 3, sorted(set(names))
 
 
 # ---- K7: the session API's RGB32 <-> RGB24 conversion (csrc/pixels.cu) ----

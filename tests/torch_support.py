@@ -502,3 +502,256 @@ def rebuild_single_writer(prev, rects, bsid):
     hits = torch.zeros(c * h * w + 1, dtype=torch.int32, device=dev)
     hits.index_add_(0, idx.reshape(-1), torch.ones(idx.numel(), dtype=torch.int32, device=dev))
     return hits[:-1] <= 1
+
+
+# ---------------------------------------------------------------------------
+# The P decode's block resolution (pframe.decode_p_resolve_streams, K8)
+# ---------------------------------------------------------------------------
+
+SECTION_WIDTHS = {"bt": 2, "sxy": 4, "mv": 2, "rec": 2, "col": 3}
+
+
+def _block_rect(i, nbx, h, w):
+    x_lo, y_lo = 16 * (i % nbx), 16 * (i // nbx)
+    return x_lo, y_lo, min(x_lo + 16, w), min(y_lo + 16, h)
+
+
+def _records(rng, area, max_run):
+    """Runs of random ptypes covering `area` positions -> (records [n, 2],
+    literals [k, 3]) int32, a literal for each PT_LITERAL record."""
+    if area <= 0:
+        return np.zeros((0, 2), np.int32), np.zeros((0, 3), np.int32)
+    rl = rng.integers(1, max_run + 1, area)
+    n = int(np.searchsorted(np.cumsum(rl), area)) + 1
+    rl = rl[:n]
+    rl[-1] -= int(rl.sum()) - area
+    pt = rng.integers(0, 6, n)
+    lits = rng.integers(0, 256, (int((pt == 0).sum()), 3))
+    return np.stack([pt, rl], 1).astype(np.int32), lits.astype(np.int32)
+
+
+def random_blocks(rng, h, w, p_types=(0.5, 0.15, 0.1, 0.15, 0.1), max_run=12):
+    """A clean P frame's changed blocks as the encoder codes them: {block
+    index: (bt type, sub-rect (4,) or None, mv (2,) or None, records [n, 2],
+    literals [k, 3])}; block types drawn with p_types (unchanged, full data,
+    partial data, full motion, partial motion), sub-rects inside their
+    block, motion vectors inside the frame, runs of at most max_run."""
+    nbx, nby = -(-w // 16), -(-h // 16)
+    blocks = {}
+    for i in range(nbx * nby):
+        t = int(rng.choice(5, p=p_types))
+        if t == 0:
+            continue
+        x_lo, y_lo, x2, y2 = _block_rect(i, nbx, h, w)
+        x1, y1, s = x_lo, y_lo, None
+        if t in (2, 4):
+            a, b = sorted(int(v) for v in rng.integers(0, x2 - x_lo, 2))
+            c, d = sorted(int(v) for v in rng.integers(0, y2 - y_lo, 2))
+            s = (a, c, b, d)
+            x1, y1, x2, y2 = x_lo + a, y_lo + c, x_lo + b + 1, y_lo + d + 1
+        m = None
+        if t in (3, 4):
+            m = (int(rng.integers(-x1, w - x2 + 1)), int(rng.integers(-y1, h - y2 + 1)))
+        area = (x2 - x1) * (y2 - y1) if t in (1, 2) else 0
+        blocks[i] = (t, s, m, *_records(rng, area, max_run))
+    return blocks
+
+
+def stream_sections(blocks, nb, full_range=False):
+    """One stream's section records and header row from its blocks (as
+    random_blocks gives them) -> ({name: [n, W] int32}, header row as
+    pframe.header_row). The BT runs (at most 256 blocks each) cover the
+    first to the last listed block, or every block if full_range."""
+    idx = sorted(blocks)
+    xx1, xx2 = (0, nb - 1) if full_range or not idx else (idx[0], idx[-1])
+    bt = []
+    for i in range(xx1, xx2 + 1):
+        t = blocks[i][0] if i in blocks else 0
+        if bt and bt[-1][0] == t and bt[-1][1] < 256:
+            bt[-1][1] += 1
+        else:
+            bt.append([t, 1])
+    parts = {"bt": [np.asarray(bt, np.int32).reshape(-1, 2)],
+             "sxy": [np.asarray([blocks[i][1]], np.int32) for i in idx if blocks[i][1] is not None],
+             "mv": [np.asarray([blocks[i][2]], np.int32) for i in idx if blocks[i][2] is not None],
+             "rec": [blocks[i][3] for i in idx], "col": [blocks[i][4] for i in idx]}
+    recs = {name: np.concatenate([np.zeros((0, SECTION_WIDTHS[name]), np.int32)]
+                                 + [np.asarray(a, np.int32).reshape(-1, SECTION_WIDTHS[name])
+                                    for a in parts[name]])
+            for name in SECTION_WIDTHS}
+    n_data = sum(blocks[i][0] in (1, 2) for i in idx)
+    return recs, [len(recs[name]) for name in SECTION_WIDTHS] + [xx1, xx2, n_data]
+
+
+def _rebuild_as_blocks(fixture, rng):
+    """The slots of a rebuild fixture as data blocks of P frames, one a
+    stream: each slot's rect in the block that holds its top-left corner
+    (clamped to the frame's blocks; the first slot of a block kept), a full
+    data block where the rect is the whole block, else a partial one whose
+    sub-rect gives the rect (damaged rects give sub-rects outside the
+    block); its records up to the last one of nonzero length. Two full
+    motion blocks join each stream."""
+    _, prev, rects, bsid, pt, rl, lt, _ = fixture
+    c, h, w = prev.shape[:3]
+    nbx, nby = -(-w // 16), -(-h // 16)
+    streams = [{} for _ in range(c)]
+    for (x1, y1, x2, y2), s, p_, r_, l_ in zip(rects.tolist(), bsid.tolist(), pt, rl, lt):
+        i = min(max(y1 // 16, 0), nby - 1) * nbx + min(max(x1 // 16, 0), nbx - 1)
+        if i in streams[s]:
+            continue
+        x_lo, y_lo, x_hi, y_hi = _block_rect(i, nbx, h, w)
+        full = (x1, y1, x2, y2) == (x_lo, y_lo, x_hi, y_hi)
+        sub = None if full else (x1 - x_lo, y1 - y_lo, x2 - x_lo - 1, y2 - y_lo - 1)
+        n = int(np.flatnonzero(r_).max()) + 1 if r_.any() else 0
+        recs = np.stack([p_[:n], r_[:n]], 1).astype(np.int32)
+        streams[s][i] = (1 if full else 2, sub, None, recs, l_[:n][p_[:n] == 0])
+    for blocks in streams:
+        for i in [i for i in range(nbx * nby) if i not in blocks][:2]:
+            x1, y1, x2, y2 = _block_rect(i, nbx, h, w)
+            mv = (int(rng.integers(-x1, w - x2 + 1)), int(rng.integers(-y1, h - y2 + 1)))
+            blocks[i] = (3, None, mv, np.zeros((0, 2), np.int32), np.zeros((0, 3), np.int32))
+    return streams, h, w
+
+
+def _garbage_sections(rng, nb, n_max):
+    """A damaged stream's sections as a section decode can give them: every
+    field in its symbol range (bt types 0-4, runs 1-256, sub-rect fields
+    0-15, motion -256..255, ptypes 0-5, run lengths 1-256, literals 0-255),
+    counts and the xx range drawn at random."""
+    n = {name: int(rng.integers(0, n_max)) for name in SECTION_WIDTHS}
+    recs = {"bt": np.stack([rng.integers(0, 5, n["bt"]), rng.integers(1, 257, n["bt"])], 1),
+            "sxy": rng.integers(0, 16, (n["sxy"], 4)),
+            "mv": rng.integers(-256, 256, (n["mv"], 2)),
+            "rec": np.stack([rng.integers(0, 6, n["rec"]), rng.integers(1, 257, n["rec"])], 1),
+            "col": rng.integers(0, 256, (n["col"], 3))}
+    xx1 = int(rng.integers(0, nb))
+    row = [n[name] for name in SECTION_WIDTHS] + [xx1, int(rng.integers(xx1, nb)),
+                                                  int(rng.integers(0, n_max))]
+    return {k: v.astype(np.int32) for k, v in recs.items()}, row
+
+
+def _damage(rng, kind, recs, row):
+    """One kind of damage to a clean stream's sections or header row (in
+    place): the counts, a run, a sub-rect, a motion vector, run lengths,
+    literals."""
+    names = list(SECTION_WIDTHS)
+    if kind == "n_data":
+        row[7] += 1
+    elif kind == "bt_run" and len(recs["bt"]):
+        recs["bt"][int(rng.integers(len(recs["bt"]))), 1] += 2
+    elif kind == "sub_rect" and len(recs["sxy"]):
+        recs["sxy"][0, 2] = 15  # may pass the block's right edge
+        recs["sxy"][-1, 0] = recs["sxy"][-1, 2] + 1  # x1 > x2
+    elif kind == "mv" and len(recs["mv"]):
+        recs["mv"][0] = (-255, 255)
+    elif kind == "rl" and len(recs["rec"]):
+        recs["rec"][len(recs["rec"]) // 2, 1] += 3
+    elif kind == "extra_records":
+        extra = np.stack([np.zeros(300, np.int32), np.ones(300, np.int32)], 1)
+        recs["rec"] = np.concatenate([recs["rec"], extra])
+        row[names.index("rec")] += 300
+    elif kind == "literals":
+        row[names.index("col")] = max(row[names.index("col")] - 2, 0)
+    elif kind == "counts":
+        row[names.index("sxy")] += 1
+        row[names.index("mv")] = max(row[names.index("mv")] - 1, 0)
+    elif kind == "xx":
+        row[5] += 1
+
+
+DAMAGE_KINDS = ("n_data", "bt_run", "sub_rect", "mv", "rl", "extra_records", "literals",
+                "counts", "xx")
+
+
+def resolve_fixtures(seed=95):
+    """The block resolution's fixtures: name -> (streams' section records
+    [{name: [n, W] int32}], header rows, h, w), from a seed with numpy.
+
+    rebuild_<name>: the rebuild fixtures' slots as data blocks
+      (_rebuild_as_blocks): every predictor type, frame edges, partial
+      blocks of a 37 x 53 frame, empty and inverted rects, three streams,
+      runs past a block and zero-length runs;
+    clean: a 37 x 53 frame of every block type, partial edge blocks;
+    streams: five streams of 48 x 64, one without data blocks, one without
+      motion blocks, one with a single changed block, one whose runs cover
+      every block;
+    chunks: two streams of 160 x 96 (60 blocks; 300-800 records a stream);
+    damaged: nine streams of 48 x 64, stream k + 1 with DAMAGE_KINDS[k], the
+      first clean;
+    garbage: three streams of 48 x 64 of random symbols and counts beside a
+      clean one."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, fix in sorted(rebuild_fixtures().items()):
+        streams, h, w = _rebuild_as_blocks(fix, rng)
+        nb = -(-w // 16) * -(-h // 16)
+        made = [stream_sections(b, nb) for b in streams]
+        out[f"rebuild_{name}"] = ([m[0] for m in made], [m[1] for m in made], h, w)
+
+    def clean(h, w, n, **kw):
+        nb = -(-w // 16) * -(-h // 16)
+        full = kw.pop("full_range", [False] * n)
+        ps = kw.pop("p_types", [(0.5, 0.15, 0.1, 0.15, 0.1)] * n)
+        made = [stream_sections(random_blocks(rng, h, w, p_types=p, **kw), nb, full_range=f)
+                for p, f in zip(ps, full)]
+        return [m[0] for m in made], [m[1] for m in made]
+
+    out["clean"] = (*clean(37, 53, 1, p_types=[(0.2, 0.2, 0.2, 0.2, 0.2)]), 37, 53)
+    out["streams"] = (*clean(48, 64, 5, p_types=[(0.5, 0.15, 0.1, 0.15, 0.1),
+                                                 (0.6, 0.0, 0.0, 0.2, 0.2),
+                                                 (0.6, 0.2, 0.2, 0.0, 0.0),
+                                                 (0.92, 0.08, 0.0, 0.0, 0.0),
+                                                 (0.3, 0.2, 0.2, 0.2, 0.1)],
+                             full_range=[False, False, False, False, True]), 48, 64)
+    out["chunks"] = (*clean(96, 160, 2, p_types=[(0.3, 0.3, 0.2, 0.1, 0.1)] * 2, max_run=4),
+                     96, 160)
+    recs, rows = clean(48, 64, len(DAMAGE_KINDS) + 1, p_types=[(0.3, 0.25, 0.25, 0.1, 0.1)]
+                       * (len(DAMAGE_KINDS) + 1))
+    for k, kind in enumerate(DAMAGE_KINDS):
+        _damage(rng, kind, recs[k + 1], rows[k + 1])
+    out["damaged"] = (recs, rows, 48, 64)
+    recs, rows = clean(48, 64, 1)
+    for _ in range(3):
+        r, row = _garbage_sections(rng, 12, 60)
+        recs.append(r)
+        rows.append(row)
+    out["garbage"] = (recs, rows, 48, 64)
+    return out
+
+
+def resolve_inputs(streams, rows, h, w, device="cpu"):
+    """Streams' section records and header rows -> (records {name: [C, cap,
+    W] int32} as a decode step gives them (rows past a stream's count 0,
+    cap the step's largest count, at least 1), pframe.StepLayout, the
+    port's CodecConfig), on `device`."""
+    from screenpressor_tpu_torch import pframe as tp
+    from screenpressor_tpu_torch.config import CodecConfig
+
+    lay = tp.step_layout(rows, device)
+    recs = {}
+    for name, cap in zip(tp.SECTION_NAMES, lay.caps):
+        a = np.zeros((len(streams), cap, SECTION_WIDTHS[name]), np.int32)
+        for s, st in enumerate(streams):
+            a[s, :len(st[name])] = st[name][:cap]
+        recs[name] = torch.as_tensor(a, device=device)
+    return recs, lay, CodecConfig(width=w, height=h)
+
+
+@contextlib.contextmanager
+def resolve_calls(store):
+    """While the block runs, append to `store` the inputs (recs, lay, cfg)
+    of each pframe.rebuild_p_streams call, wherever it is called from."""
+    from screenpressor_tpu_torch import pframe as tp
+    from screenpressor_tpu_torch.parallel import serving as ts
+
+    real = tp.rebuild_p_streams
+
+    def spy(recs, lay, prev, cfg):
+        store.append((recs, lay, cfg))
+        return real(recs, lay, prev, cfg)
+
+    tp.rebuild_p_streams = ts.rebuild_p_streams = spy
+    try:
+        yield store
+    finally:
+        tp.rebuild_p_streams = ts.rebuild_p_streams = real
